@@ -5,18 +5,28 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--out results.json]
 
-It builds the fused CC-tick kernel from ``src/repro_torch/kernels/csrc``
-(nvcc, sm_90a, into ``build/kernels/``), holds it bit for bit against its
-plain PyTorch version for every specialization, drives the simulator's
-main path at full width (the paper's Fig. 7-9 convergence setup: two GPT-2
-jobs on a 50 Gbps dumbbell, Reno OFF and WI, a two-seed sweep each, 1 s
-of simulated time),
-checks the figure metrics, and feeds the kernel states taken from CUBIC
-and DCQCN runs of the engine.  Each phase prints one JSON line; any
-failure raises and the exit code is non-zero.  The last lines are the
-kernel table, the card's ``nvidia-smi`` name and power limit, and
-``{"ok": true, "device": {...}}``.  Nothing here imports JAX or the
-reference package.
+It builds the port's three kernels from ``src/repro_torch/kernels/csrc``
+(one nvcc per source, all started together; sm_90a, into
+``build/kernels/``) and drives two paths:
+
+* the simulator: it holds the fused CC-tick kernel bit for bit against its
+  plain PyTorch version for every specialization, drives the simulator's
+  main path at full width (the paper's Fig. 7-9 convergence setup: two
+  GPT-2 jobs on a 50 Gbps dumbbell, Reno OFF and WI, a two-seed sweep
+  each, 0.75 s of simulated time), checks the figure metrics, and feeds the
+  kernel states taken from CUBIC and DCQCN runs of the engine;
+* serving: it holds the RG-LRU scan kernel bit for bit and the flash
+  attention kernel within 2e-5 (f32) / 2e-2 (bf16 inputs) against their
+  plain versions, times both beside their plain versions and
+  ``F.scaled_dot_product_attention``, then serves recurrentgemma-2b at its
+  full published widths (batch 4, a 4096-token prompt, 16 new tokens,
+  random weights from seed 0) through ``repro_torch.launch.serve`` and
+  holds that prefill against the plain-path prefill of the same prompt.
+
+Each phase prints one JSON line; any failure raises and the exit code is
+non-zero.  The last lines are the kernel table, the card's ``nvidia-smi``
+name and power limit, and ``{"ok": true, "device": {...}}``.  Nothing here
+imports JAX or the reference package.
 """
 from __future__ import annotations
 
@@ -36,9 +46,10 @@ RTT = 100e-6
 WORK_SCALE = 0.25                  # benchmarks/common.py (not REPRO_FULL)
 # Depth of the main path: the suite's REPRO_SMOKE depth is 1.5 s, cut to
 # 1.0 s (50,000 ticks) because the tick is host-bound and the card's host
-# ran it at 1.8 ms and at 3.4 ms per tick on two calls (PERF.md); widths,
-# jobs and protocol settings are the suite's.
-MAIN_SIM_TIME = 1.0
+# ran it at 1.8 ms and at 3.4 ms per tick on two calls (PERF.md), then to
+# 0.75 s (37,500 ticks) to make room for the serving phases; widths, jobs
+# and protocol settings are the suite's.
+MAIN_SIM_TIME = 0.75
 SPEC_SIM_TIME = 0.15
 AGREE_SIM_TIME = 0.06
 SEEDS = (1, 2)
@@ -123,6 +134,25 @@ def event_ms(fn, reps: int, warm: int = 3) -> float:
     return statistics.median(times)
 
 
+def back_to_back_ms(fn, reps: int) -> float:
+    """Time per call of ``fn`` run ``reps`` times back to back, by CUDA
+    events around the whole run: the card's time per call when the host
+    queues calls faster than the card runs them (the LM kernels and the
+    dense attention), the host's otherwise (the plain RG-LRU loop)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 # ---------------------------------------------------------------------------
 # kernel operands
 # ---------------------------------------------------------------------------
@@ -200,21 +230,28 @@ def bound_ms(ms, p, dyn, arrays, now, fac) -> tuple[float, str]:
 # phases
 # ---------------------------------------------------------------------------
 
-def phase_device(ms) -> dict:
+def phase_device(libraries) -> dict:
     import torch
 
     t0 = time.time()
-    procs = [ms.start_build()]          # one nvcc per kernel source
-    for proc in procs:
-        ms.finish_build(proc)
+    procs = [lib.start_build() for lib in libraries]  # one nvcc per source
+    for lib, proc in zip(libraries, procs):
+        lib.finish_build(proc)
     build_s = time.time() - t0
-    regs = sorted({line.split("Used")[1].split(",")[0].strip()
-                   for line in ms.BUILD_LOG.splitlines() if "Used" in line})
+    regs = {lib.name: sorted({line.split("Used")[1].split(",")[0].strip()
+                              for line in lib.build_log.splitlines()
+                              if "Used" in line})
+            for lib in libraries}
+    spills = {lib.name: sorted({line.strip() for line in
+                                lib.build_log.splitlines()
+                                if "spill" in line and " 0 bytes spill s"
+                                not in line})
+              for lib in libraries}
     info = dict(name=torch.cuda.get_device_name(0),
                 count=torch.cuda.device_count(), nvidia_smi=nvidia_smi(),
                 torch=torch.__version__, cuda=torch.version.cuda,
-                build_s=round(build_s, 3), built=bool(procs[0]),
-                ptxas_registers=regs)
+                build_s=round(build_s, 3), built=[bool(p) for p in procs],
+                ptxas_registers=regs, ptxas_spills=spills)
     emit("device", **info)
     return info
 
@@ -480,7 +517,352 @@ def phase_profile(core, netsim, workload) -> dict:
     return out
 
 
-def kernel_table(kern: dict, main: dict, states: dict) -> list:
+# ---------------------------------------------------------------------------
+# serving: the language-model kernels and recurrentgemma-2b
+# ---------------------------------------------------------------------------
+
+# (b, t, s, h, kv, dh, causal, window, softcap, dtype): the JAX package's
+# flash test matrix (tests/test_kernels.py), the serve shape, and a shape
+# whose T is not a multiple of the kernel's 64-query tile
+FLASH_CASES = [
+    (2, 128, 128, 4, 4, 64, True, 0, None, "float32"),
+    (1, 256, 256, 4, 2, 64, True, 0, None, "float32"),
+    (2, 128, 128, 4, 1, 32, True, 0, None, "float32"),
+    (1, 256, 256, 2, 2, 128, True, 64, None, "float32"),
+    (1, 128, 128, 2, 2, 64, True, 0, 50.0, "float32"),
+    (2, 128, 128, 4, 4, 64, False, 0, None, "float32"),
+    (1, 192, 192, 2, 2, 64, True, 0, None, "float32"),
+    (2, 128, 128, 4, 4, 64, True, 0, None, "bfloat16"),
+    (1, 1000, 1000, 10, 1, 256, True, 300, None, "float32"),
+]
+SERVE_ARCH = "recurrentgemma-2b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4096, 16
+# the attention of the serve prefill (recurrentgemma-2b: 10 query heads
+# over 1 KV head of width 256, window 2048), in FLASH_CASES' layout
+SERVE_FLASH_CASE = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 10, 1, 256,
+                    True, 2048, None, "float32")
+RGLRU_SHAPES = ((SERVE_BATCH, SERVE_PROMPT, 2560), (3, 33, 130))
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:34"
+RGLRU_REPLACES = "src/repro/kernels/rg_lru.py:24"
+# Serve prefill, kernel path vs plain path on the card: both are float32
+# with rounding differences only (online vs dense softmax, sequential vs
+# log-depth scan), so every logit and cache tensor must agree to 1e-3 of
+# its largest magnitude; a wrong mask, head mapping or state would be off
+# by O(1) of it.
+SERVE_REL_BOUND = 1e-3
+
+
+def _tdtype(name):
+    import torch
+
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def attention_pairs(t: int, s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave, per (batch, head)."""
+    total = 0
+    for q in range(t):
+        hi = min(q, s - 1) if causal else s - 1
+        lo = max(0, q - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_bound(b, t, s, h, kv, dh, causal, window, elt=4):
+    """(bound_ms, bound_by, flop, bytes): q.k and p.v are 2·D flops each per
+    unmasked pair; q, k, v read once and the output written once."""
+    flop = 4 * dh * b * h * attention_pairs(t, s, causal, window)
+    nbytes = elt * (2 * b * t * h * dh + 2 * b * s * kv * dh)
+    t_ops, t_bytes = flop / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flop, nbytes)
+
+
+def rglru_bound(b, t, d, elt=4):
+    """a and b read once, h written once; a multiply and an add each."""
+    nbytes = 3 * elt * b * t * d
+    t_ops, t_bytes = 2 * b * t * d / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", nbytes)
+
+
+def phase_lm_kernels(fa, rl, ref) -> dict:
+    """Both serving kernels against their plain versions on the card, then
+    timed at the serve shape beside their plain versions and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+
+    # RG-LRU: bit for bit, with and without h0, f32 and bf16
+    rg_checks = []
+    for b, t, d in RGLRU_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            a = (torch.rand((b, t, d), generator=gen, device=dev) * 0.79
+                 + 0.2).to(_tdtype(dtype))
+            x = torch.randn((b, t, d), generator=gen, device=dev
+                            ).to(_tdtype(dtype))
+            h0 = torch.randn((b, d), generator=gen, device=dev
+                             ).to(_tdtype(dtype))
+            for hh in (None, h0):
+                got, want = rl.rg_lru(a, x, hh), ref.ref_rg_lru(a, x, hh)
+                torch.cuda.synchronize()
+                if not torch.equal(got.view(torch.int16 if dtype ==
+                                            "bfloat16" else torch.int32),
+                                   want.view(torch.int16 if dtype ==
+                                             "bfloat16" else torch.int32)):
+                    raise AssertionError(f"rg_lru kernel != plain version at "
+                                         f"{(b, t, d)} {dtype} h0="
+                                         f"{hh is not None}")
+                rg_checks.append(dict(shape=[b, t, d], dtype=dtype,
+                                      h0=hh is not None, bitwise=True))
+
+    # flash: within the JAX test's bound
+    fl_checks = []
+    for case in FLASH_CASES + [SERVE_FLASH_CASE]:
+        b, t, s, h, kv, dh, causal, window, cap, dtype = case
+        q, k, v = (torch.randn(shape, generator=gen, device=dev
+                               ).to(_tdtype(dtype))
+                   for shape in ((b, t, h, dh), (b, s, kv, dh),
+                                 (b, s, kv, dh)))
+        got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=cap)
+        want = ref.ref_attention(q, k, v, causal=causal, window=window,
+                                 softcap=cap)
+        tol = FLASH_TOL[dtype]
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            raise AssertionError(f"flash kernel vs plain version outside "
+                                 f"{tol} at {case}: max |diff| {err}")
+        fl_checks.append(dict(case=list(case), max_abs_err=err, tol=tol))
+        del q, k, v, got, want
+
+    # timing at the serve shape
+    b, t, s, h, kv, dh, causal, window, _, _ = SERVE_FLASH_CASE
+    q = torch.randn((b, t, h, dh), generator=gen, device=dev)
+    k = torch.randn((b, s, kv, dh), generator=gen, device=dev)
+    v = torch.randn((b, s, kv, dh), generator=gen, device=dev)
+    qpos = torch.arange(t, device=dev)[:, None]
+    kpos = torch.arange(s, device=dev)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - window)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+    kern = lambda: fa.flash_attention(q, k, v, causal=causal,  # noqa: E731
+                                      window=window)
+    plain = lambda: ref.ref_attention(q, k, v, causal=causal,  # noqa: E731
+                                      window=window)
+    want = plain()
+    lib_err = float((sdpa() - want).abs().max())
+    serve_err = float((kern() - want).abs().max())
+    del want
+    b_ms, b_by, flop, nbytes = flash_bound(b, t, s, h, kv, dh, causal,
+                                           window)
+    flash = dict(shape=[b, t, s, h, kv, dh], window=window,
+                 ms=event_ms(kern, 10), plain_ms=event_ms(plain, 3),
+                 library_ms=event_ms(sdpa, 5),
+                 back_to_back_ms=back_to_back_ms(kern, 5),
+                 plain_back_to_back_ms=back_to_back_ms(plain, 3),
+                 library_back_to_back_ms=back_to_back_ms(sdpa, 3),
+                 bound_ms=b_ms, bound_by=b_by, flop=flop, bytes=nbytes,
+                 max_abs_err=serve_err, library_max_abs_err=lib_err,
+                 library="torch.nn.functional.scaled_dot_product_attention "
+                         "(bool mask, enable_gqa=True)")
+    flash["tflop_per_s"] = flop / (flash["back_to_back_ms"] * 1e-3) / 1e12
+    del q, k, v, mask
+
+    b, t, d = RGLRU_SHAPES[0]
+    a = torch.rand((b, t, d), generator=gen, device=dev) * 0.79 + 0.2
+    x = torch.randn((b, t, d), generator=gen, device=dev)
+    kern = lambda: rl.rg_lru(a, x)                              # noqa: E731
+    plain = lambda: ref.ref_rg_lru(a, x)                        # noqa: E731
+    b_ms, b_by, nbytes = rglru_bound(b, t, d)
+    rglru = dict(shape=[b, t, d], ms=event_ms(kern, 20),
+                 plain_ms=event_ms(plain, 3),
+                 back_to_back_ms=back_to_back_ms(kern, 20),
+                 plain_back_to_back_ms=back_to_back_ms(plain, 2),
+                 bound_ms=b_ms, bound_by=b_by, bytes=nbytes, max_abs_err=0.0,
+                 library_ms=None)
+    rglru["gbytes_per_s"] = nbytes / (rglru["back_to_back_ms"] * 1e-3) / 1e9
+    del a, x
+    torch.cuda.empty_cache()
+    out = dict(rg_lru_checks=rg_checks, flash_checks=fl_checks,
+               flash_f32_max_abs_err=max(c["max_abs_err"] for c in fl_checks
+                                         if c["tol"] == FLASH_TOL["float32"]),
+               flash_bf16_max_abs_err=max(c["max_abs_err"] for c in fl_checks
+                                          if c["tol"] == FLASH_TOL["bfloat16"]),
+               flash=flash, rg_lru=rglru)
+    emit("lm_kernels", **out)
+    return out
+
+
+def _rel_diff(got, want) -> tuple[float, float]:
+    """(max |got - want|, that over max |want|)."""
+    diff = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    return diff, diff / scale if scale > 0 else diff
+
+
+def profile_top(fn, keys: tuple = (), n: int = 8) -> dict:
+    """One profiled call of ``fn``: wall time, device busy time, its share,
+    the kernels that took the most device time, and for each of ``keys``
+    the launches and device time of the kernels whose names hold it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.time() - t0
+    rows = device_rows(prof)
+    busy_us = sum(_device_us(e) for e in rows)
+    top = sorted(rows, key=_device_us, reverse=True)[:n]
+    kernels = {}
+    for key in keys:
+        mine = [e for e in rows if key in e.key]
+        kernels[key] = dict(count=sum(e.count for e in mine),
+                            device_ms=sum(_device_us(e) for e in mine) * 1e-3)
+    return dict(wall_ms=wall_s * 1e3, device_busy_ms=busy_us * 1e-3,
+                busy_share=busy_us / (wall_s * 1e6),
+                device_launches=sum(e.count for e in rows), kernels=kernels,
+                top=[dict(name=e.key[:70], count=e.count,
+                          device_ms=_device_us(e) * 1e-3) for e in top])
+
+
+def phase_serve(fa, rl, ms, ops) -> dict:
+    """recurrentgemma-2b served at full width through the kernels, counted;
+    then the same prompt through the plain path, compared."""
+    import torch
+
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCH_COUNT = rl.LAUNCH_COUNT = ms.LAUNCH_COUNT = 0
+    ops.FALLBACK_COUNT = 0
+    t0 = time.time()
+    out = serve(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                new_tokens=SERVE_NEW, preset="full", seed=0)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(flash_attention=fa.LAUNCH_COUNT, rg_lru=rl.LAUNCH_COUNT,
+                    mltcp_step=ms.LAUNCH_COUNT, fallbacks=ops.FALLBACK_COUNT)
+    cfg, model, req = out["cfg"], out["model"], out["request"]
+    kinds = [blk.kind for blk in model.layers]
+    want = dict(flash_attention=kinds.count("attn_local") + kinds.count("attn"),
+                rg_lru=kinds.count("rec"), mltcp_step=0, fallbacks=0)
+    if launches != want or want["flash_attention"] != 8 or want["rg_lru"] != 18:
+        raise AssertionError(f"serve launches {launches}, expected {want} "
+                             f"(8 flash, 18 RG-LRU per prefill)")
+    gen_ids = out["generated"]
+    if (tuple(gen_ids.shape) != (SERVE_BATCH, SERVE_NEW)
+            or int(gen_ids.min()) < 0
+            or int(gen_ids.max()) >= cfg.vocab_padded):
+        raise AssertionError(f"generated ids {tuple(gen_ids.shape)} out of "
+                             f"range")
+    n_params = sum(p.numel() for p in model.parameters())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the same prompt, kernel path vs plain path (not counted)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t1 = time.time()
+        logits_k, cache_k = api.prefill(cfg, model, req, out["max_len"],
+                                        use_kernel=True)
+        torch.cuda.synchronize()
+        warm_prefill_s = time.time() - t1
+        t1 = time.time()
+        logits_p, cache_p = api.prefill(cfg, model, req, out["max_len"],
+                                        use_kernel=False)
+        torch.cuda.synchronize()
+        plain_prefill_s = time.time() - t1
+    if not bool(torch.isfinite(logits_k).all()):
+        raise AssertionError("non-finite logits")
+    logit_abs, logit_rel = _rel_diff(logits_k, logits_p)
+    cache_diffs = {}
+    for i, entry in cache_p.items():
+        for name, tensor in entry.items():
+            if name == "pos":
+                if not torch.equal(cache_k[i][name], tensor):
+                    raise AssertionError(f"ring positions differ, layer {i}")
+                continue
+            cache_diffs[f"{i}.{name}"] = _rel_diff(cache_k[i][name], tensor)
+    worst_cache = max(cache_diffs.items(), key=lambda kv: kv[1][1])
+    if logit_rel > SERVE_REL_BOUND or worst_cache[1][1] > SERVE_REL_BOUND:
+        raise AssertionError(f"kernel vs plain prefill: logits {logit_rel}, "
+                             f"cache {worst_cache} over {SERVE_REL_BOUND}")
+    top2 = torch.topk(logits_p.float(), 2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    decisive = gap > 10 * logit_abs
+    same = torch.argmax(logits_k, -1) == torch.argmax(logits_p, -1)
+    if not bool(same[decisive].all()):
+        raise AssertionError(f"first greedy token differs in a row whose "
+                             f"top-2 gap exceeds 10x the logit difference")
+    if not torch.equal(gen_ids[:, 0].long(), torch.argmax(logits_k, -1)):
+        raise AssertionError("serve's first token is not the prefill argmax")
+    del logits_p, cache_p
+    torch.cuda.empty_cache()
+
+    # where the time goes: one profiled prefill and three decode steps
+    def one_prefill():
+        with torch.no_grad():
+            api.prefill(cfg, model, req, out["max_len"], use_kernel=True)
+    prefill_prof = profile_top(one_prefill, ("flash_kernel", "rg_lru_kernel"))
+    traced = prefill_prof["kernels"]
+    prefill_prof["complete"] = (
+        traced["flash_kernel"]["count"] == want["flash_attention"]
+        and traced["rg_lru_kernel"]["count"] == want["rg_lru"])
+    tok = gen_ids[:, 0]
+    pos0 = SERVE_PROMPT
+
+    def three_steps():
+        with torch.no_grad():
+            for i in range(3):
+                api.decode_step(cfg, model, cache_k, tok, pos0 + i)
+    decode_prof = profile_top(three_steps)
+    per_launch = {key: (v["device_ms"] / v["count"] if v["count"] else None)
+                  for key, v in traced.items()}
+    del cache_k, logits_k
+
+    res = dict(
+        arch=SERVE_ARCH, preset="full", batch=SERVE_BATCH,
+        prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW, seed=0,
+        params=n_params, param_gb=n_params * 4 / 1e9, launches=launches,
+        seconds_total=seconds, prefill_ms=out["prefill_s"] * 1e3,
+        warm_prefill_ms=warm_prefill_s * 1e3,
+        plain_prefill_ms=plain_prefill_s * 1e3,
+        decode_ms_per_step=out["decode_s"] * 1e3 / (SERVE_NEW - 1),
+        decode_tok_per_s=out["decode_tok_per_s"],
+        prefill_tok_per_s=SERVE_BATCH * SERVE_PROMPT / out["prefill_s"],
+        peak_memory_gb=peak_gb,
+        logits_max_abs_diff=logit_abs, logits_max_rel_diff=logit_rel,
+        cache_worst=dict(tensor=worst_cache[0], max_abs_diff=worst_cache[1][0],
+                         max_rel_diff=worst_cache[1][1]),
+        cache_max_abs_diff=max(d[0] for d in cache_diffs.values()),
+        rel_bound=SERVE_REL_BOUND,
+        first_token_rows_decisive=int(decisive.sum()),
+        first_token_same=[bool(x) for x in same],
+        generated_first_row=[int(x) for x in gen_ids[0]],
+        path_device_ms_per_launch=per_launch,
+        prefill_profile=prefill_prof, decode3_profile=decode_prof)
+    del out, model
+    torch.cuda.empty_cache()
+    emit("serve_main_path", **res)
+    return res
+
+
+def kernel_table(kern: dict, main: dict, states: dict, lm: dict,
+                 served: dict) -> list:
     main_row = next(r for r in kern["main_shape"] if r["algo"] == 0)
     errs = [kern["max_abs_err"]] + [r["max_abs_err"] for r in
                                     kern["main_shape"] + kern["large"]]
@@ -504,6 +886,40 @@ def kernel_table(kern: dict, main: dict, states: dict) -> list:
                                      "device_ms", "plain_device_ms",
                                      "bound_ms", "bound_by", "gbytes_per_s")}
                   for r in kern["large"]],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": FLASH_REPLACES,
+        "launches": served["launches"]["flash_attention"],
+        "max_abs_err": lm["flash_f32_max_abs_err"],
+        "ms": lm["flash"]["ms"],
+        "plain_ms": lm["flash"]["plain_ms"],
+        "bound_ms": lm["flash"]["bound_ms"],
+        "bound_by": lm["flash"]["bound_by"],
+        "library_ms": lm["flash"]["library_ms"],
+        "back_to_back_ms": lm["flash"]["back_to_back_ms"],
+        "plain_back_to_back_ms": lm["flash"]["plain_back_to_back_ms"],
+        "library_back_to_back_ms": lm["flash"]["library_back_to_back_ms"],
+        "path_device_ms": served["path_device_ms_per_launch"]["flash_kernel"],
+        "bf16_max_abs_err": lm["flash_bf16_max_abs_err"],
+        "shape": lm["flash"]["shape"],
+    }, {
+        "name": "rg_lru",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rg_lru.cu",
+        "replaces": RGLRU_REPLACES,
+        "launches": served["launches"]["rg_lru"],
+        "max_abs_err": lm["rg_lru"]["max_abs_err"],
+        "ms": lm["rg_lru"]["ms"],
+        "plain_ms": lm["rg_lru"]["plain_ms"],
+        "bound_ms": lm["rg_lru"]["bound_ms"],
+        "bound_by": lm["rg_lru"]["bound_by"],
+        "library_ms": None,
+        "back_to_back_ms": lm["rg_lru"]["back_to_back_ms"],
+        "plain_back_to_back_ms": lm["rg_lru"]["plain_back_to_back_ms"],
+        "path_device_ms": served["path_device_ms_per_launch"]["rg_lru_kernel"],
+        "shape": lm["rg_lru"]["shape"],
     }]
 
 
@@ -520,19 +936,23 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch import core, netsim, workload
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mltcp_step as ms
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rg_lru as rl
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
-    dev = phase_device(ms)
+    dev = phase_device([ms.LIBRARY, fa.LIBRARY, rl.LIBRARY])
     kern = phase_kernel(ms, core)
     main_path = phase_main_path(ms, ops, core, netsim, workload)
     phase_small_agreement(core, netsim)
     states = phase_engine_states(ms, ops, core, netsim, workload)
     phase_profile(core, netsim, workload)
-    table = kernel_table(kern, main_path, states)
+    lm = phase_lm_kernels(fa, rl, ref)
+    served = phase_serve(fa, rl, ms, ops)
+    table = kernel_table(kern, main_path, states, lm, served)
     RESULTS["kernels"] = table
     RESULTS["seconds"] = time.time() - t_start
     if args.out:

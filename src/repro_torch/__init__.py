@@ -5,9 +5,17 @@ Slice 1 covers the simulator's main path: the protocol (`core`), the
 fused CC-tick kernel (`kernels`), the fluid fabric with its sweep axis
 (`netsim`) and the paper's job profiles (`workload`).  Every state and
 sweep tensor carries a leading ``[K]`` sweep axis; everything is float32.
+
+Slice 2 covers serving a decoder-only language model: the configs
+(`configs`), the model stack (`models`), the serving steps (`train`) and
+launcher (`launch.serve`), with the flash-attention and RG-LRU scan
+kernels (`kernels`).
+
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 """
-from repro_torch import core, kernels, netsim, workload  # noqa: F401
+from repro_torch import configs, core, kernels, models, netsim, train  # noqa: F401
+from repro_torch import workload  # noqa: F401
 
-__all__ = ["core", "kernels", "netsim", "workload"]
+__all__ = ["configs", "core", "kernels", "models", "netsim", "train",
+           "workload"]

@@ -1,8 +1,15 @@
 """Hand-written Hopper kernels of the port and their wrappers.
 
-`mltcp_step` holds the fused CC-tick CUDA kernel (``csrc/mltcp_step.cu``),
-its plain PyTorch version, its build and its launch counter; `ops` makes
-it a drop-in for `core.cc_tick`.  Importing this package builds nothing:
-the kernel is compiled at its first launch.
+Each kernel module holds a CUDA kernel's wrapper (``csrc/<name>.cu``), its
+launch counter and its library (`build.KernelLibrary`); `ref` holds the
+language-model kernels' plain PyTorch versions, `mltcp_step` its own.
+
+  mltcp_step       fused CC tick (the simulator's path)
+  flash_attention  attention forward (the language-model path)
+  rg_lru           RG-LRU scan (the language-model path)
+
+`ops` dispatches to them.  Importing this package builds nothing: each
+kernel is compiled at its first launch.
 """
-from repro_torch.kernels import mltcp_step, ops  # noqa: F401
+from repro_torch.kernels import (build, flash_attention, mltcp_step,  # noqa: F401
+                                 ops, ref, rg_lru)

@@ -33,18 +33,13 @@ tensors and uses the plain version only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
 from repro_torch.core import iteration
 from repro_torch.core.cc import cubic
 from repro_torch.core.cc.types import Algo, Variant
+from repro_torch.kernels import build
 
 Tensor = torch.Tensor
 
@@ -65,19 +60,12 @@ NDYN = len(DYN_FIELDS)
 # Launches of the CUDA kernel (never of the plain version).
 LAUNCH_COUNT = 0
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "mltcp_step.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-prec-div=true", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BLOCK = 256
 # the float constants, in the order of the kernel's `Consts` struct
 CONST_FIELDS = ("mss_over_rtt", "rtt", "tick_dt", "min_cwnd", "beta",
                 "cubic_c", "cubic_k_scale", "line_rate", "rate_ai",
                 "rate_min", "dcqcn_g", "one_minus_g", "alpha_timer",
                 "inc_timer", "cnp_interval")
-
-_LIB = None
-BUILD_LOG = ""          # nvcc's output (-Xptxas -v) from the last build
 
 
 def static_params(cc, aggregate: bool) -> dict:
@@ -225,74 +213,16 @@ def mltcp_tick_reference(p: dict, dyn: Tensor, arrays: dict, now: Tensor,
 # Build and launch
 # ---------------------------------------------------------------------------
 
-def build_dir() -> Path:
-    """``build/kernels`` at the checkout's root (``REPRO_TORCH_BUILD_DIR``
-    overrides)."""
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    return Path(__file__).resolve().parents[3] / "build" / "kernels"
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.mltcp_step_launch.restype = ctypes.c_int
+    lib.mltcp_step_launch.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
 
 
-def nvcc_path() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
-
-
-def library_path() -> Path:
-    """The .so for the current source and flags (named by their hash, so a
-    changed source or flag rebuilds)."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"mltcp_step_{h.hexdigest()[:16]}.so"
-
-
-def start_build() -> subprocess.Popen | None:
-    """Start nvcc for the kernel unless its library exists; returns the
-    process (None when there is nothing to build).  Builds into a
-    temporary file that `finish_build` renames into place."""
-    out = library_path()
-    if out.exists():
-        return None
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    proc = subprocess.Popen(
-        [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    proc.tmp_path = tmp
-    return proc
-
-
-def finish_build(proc: subprocess.Popen | None) -> None:
-    """Wait for `start_build`'s nvcc; raise with its output if it failed."""
-    global BUILD_LOG
-    if proc is None:
-        return
-    log, _ = proc.communicate()
-    BUILD_LOG = log
-    if proc.returncode != 0:
-        os.unlink(proc.tmp_path)
-        raise RuntimeError(f"nvcc failed building {SOURCE}:\n{log}")
-    os.replace(proc.tmp_path, library_path())
-
-
-def _library() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        finish_build(start_build())
-        lib = ctypes.CDLL(str(library_path()))
-        lib.mltcp_step_launch.restype = ctypes.c_int
-        lib.mltcp_step_launch.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
-        _LIB = lib
-    return _LIB
+LIBRARY = build.KernelLibrary("mltcp_step", _bind)
 
 
 def _check(name: str, t: Tensor, shape, dtype, device) -> None:
@@ -342,7 +272,7 @@ def mltcp_tick(p: dict, dyn: Tensor, arrays: dict, now: Tensor,
     if device.type != "cuda":
         raise ValueError(f"mltcp_tick: no kernel for device {device}")
 
-    lib = _library()
+    lib = LIBRARY.load()
     fout = torch.empty((len(OUT_ORDER) - 1, k, n), dtype=torch.float32,
                        device=device)
     stage_out = torch.empty((k, n), dtype=torch.int32, device=device)
@@ -376,7 +306,6 @@ def mltcp_tick(p: dict, dyn: Tensor, arrays: dict, now: Tensor,
             dyn.data_ptr(), now.data_ptr(),
             None if static_factors is None else static_factors.data_ptr(),
             k, n, stream)
-    if rc != 0:
-        raise RuntimeError(f"mltcp_step kernel launch failed: CUDA error {rc}")
+    build.check_launch("mltcp_step", rc)
     LAUNCH_COUNT += 1
     return outs

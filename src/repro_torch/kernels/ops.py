@@ -1,4 +1,12 @@
-"""The fused CC-tick kernel as a drop-in for `repro_torch.core.cc_tick`.
+"""Dispatch to the port's kernels.
+
+  flash_attention  -- attention for `models.attention` (flash_attention.py)
+  rg_lru           -- the RG-LRU scan for `models.rglru` (rg_lru.py)
+  mltcp_cc_tick    -- the fused CC-tick kernel as a drop-in for
+                      `repro_torch.core.cc_tick` (mltcp_step.py)
+
+Each launches its CUDA kernel on CUDA tensors and runs the kernel's plain
+version on CPU tensors; nothing catches a build or launch failure.
 
 `mltcp_cc_tick` computes the job-aggregated numerator and the
 ``n_boundaries`` counter outside the kernel, as the reference wrapper does,
@@ -7,9 +15,7 @@ to the kernel as operands.  Only the structural options the kernel does
 not implement (a favoritism policy other than ``largest_data_sent``, an F
 family other than ``linear``, both only without Static factors) run
 `core.cc_tick` instead — loudly, via ``FALLBACK_COUNT`` and one warning per
-reason.  Every other case launches the kernel on CUDA tensors and uses its
-plain version on CPU tensors (`mltcp_step.mltcp_tick`); nothing catches a
-build or launch failure.
+reason.  Every other case goes to `mltcp_step.mltcp_tick`.
 """
 from __future__ import annotations
 
@@ -20,7 +26,9 @@ import torch
 
 from repro_torch.core import iteration
 from repro_torch.core import mltcp as core
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mltcp_step as ms
+from repro_torch.kernels import rg_lru as rl
 
 Tensor = torch.Tensor
 
@@ -28,6 +36,20 @@ Tensor = torch.Tensor
 # fused kernel; the engine's main path must leave it at 0.
 FALLBACK_COUNT = 0
 _FALLBACK_WARNED: set = set()
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
+                    window: int = 0, softcap: Optional[float] = None
+                    ) -> Tensor:
+    """Attention through the flash kernel. q: [B,T,H,D]; k/v: [B,S,K,D]."""
+    return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=causal, window=window, softcap=softcap)
+
+
+def rg_lru(a: Tensor, b: Tensor, h0: Optional[Tensor] = None) -> Tensor:
+    """h_t = a_t * h_{t-1} + b_t through the scan kernel. a/b: [B,T,D]."""
+    return rl.rg_lru(a.contiguous(), b.contiguous(),
+                     None if h0 is None else h0.contiguous())
 
 
 def reset_fallback_warnings() -> None:

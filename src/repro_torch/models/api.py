@@ -1,0 +1,56 @@
+"""Model API over the decoder-only stack.
+
+The port of ``repro/models/api.py``.  A batch is a dict:
+  tokens   [B, T] int                (always)
+  patches  [B, n_vision, vit_dim]    (vlm family: stub patch embeddings)
+
+Encoder-decoder configs (``is_encdec``) are not ported yet and raise.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+
+Tensor = torch.Tensor
+
+
+def is_encdec(cfg: ModelConfig) -> bool:
+    return cfg.enc_layers > 0
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device=None) -> transformer.Model:
+    transformer.check_decoder_only(cfg)
+    return transformer.init_params(cfg, generator, device)
+
+
+def forward(cfg: ModelConfig, model, batch: dict, use_kernel: bool = False
+            ) -> tuple[Tensor, Tensor]:
+    transformer.check_decoder_only(cfg)
+    return transformer.forward(cfg, model, batch["tokens"],
+                               extra_embeds=batch.get("patches"),
+                               use_kernel=use_kernel)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.float32, device=None) -> dict:
+    transformer.check_decoder_only(cfg)
+    return transformer.init_cache(cfg, batch, max_len, dtype, device)
+
+
+def decode_step(cfg: ModelConfig, model, cache: dict, token: Tensor,
+                index: int) -> tuple[Tensor, dict]:
+    transformer.check_decoder_only(cfg)
+    return transformer.decode_step(cfg, model, cache, token, index)
+
+
+def prefill(cfg: ModelConfig, model, batch: dict, max_len: int,
+            use_kernel: bool = False) -> tuple[Tensor, dict]:
+    transformer.check_decoder_only(cfg)
+    return transformer.prefill(cfg, model, batch["tokens"], max_len,
+                               extra_embeds=batch.get("patches"),
+                               use_kernel=use_kernel)

@@ -1,0 +1,101 @@
+"""Carry weights and caches between the reference's layout and the port's.
+
+The reference keeps parameters as a nested dict whose ``groups`` leaves
+carry a leading ``[n_groups]`` axis (stepped by ``lax.scan``), beside
+unstacked ``lead`` and ``tail`` blocks; the port keeps one `Block` per
+layer.  Both name the tensors inside a block alike (``norm1``, ``attn/wq``,
+``rec/w_x``, ``ffn/gate``, ...), so a block's subtree maps onto its module
+attribute by attribute.  Everything here works on numpy arrays; the tests
+hand the reference's trees over with ``jax.device_get``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from repro_torch.device import resolve
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+
+
+def _layer_slots(cfg: ModelConfig):
+    """(section, key, group) of every layer, in the model's order: section
+    "lead"/"tail" with key str(i), or "groups" with key f"b{j}" and the
+    group index."""
+    lead, pattern, n_groups, tail = transformer._block_plan(cfg)
+    slots = [("lead", str(i), None) for i in range(len(lead))]
+    slots += [("groups", f"b{j}", g) for g in range(n_groups)
+              for j in range(len(pattern))]
+    slots += [("tail", str(i), None) for i in range(len(tail))]
+    return slots
+
+
+def _assign(module: nn.Module, tree: dict, prefix: str, done: set) -> None:
+    for key, val in tree.items():
+        if val is None:
+            if getattr(module, key, None) is not None:
+                raise ValueError(f"{prefix}{key}: the reference has no "
+                                 f"parameter, the port has one")
+        elif isinstance(val, dict):
+            _assign(getattr(module, key), val, f"{prefix}{key}/", done)
+        else:
+            param = getattr(module, key)
+            arr = np.asarray(val)
+            if tuple(arr.shape) != tuple(param.shape):
+                raise ValueError(f"{prefix}{key}: shape {arr.shape} vs the "
+                                 f"port's {tuple(param.shape)}")
+            with torch.no_grad():
+                param.copy_(torch.from_numpy(np.array(arr, copy=True)))
+            done.add(id(param))
+
+
+def params_from_reference(cfg: ModelConfig, tree: dict,
+                          device=None) -> transformer.Model:
+    """The port's model holding the reference parameter tree ``tree``
+    (nested dicts of numpy arrays).  Raises if a tensor's shape differs or
+    a parameter of the port is left unset."""
+    model = transformer.Model(cfg, device=torch.device("meta"))
+    model = model.to_empty(device=resolve(device))
+    done: set = set()
+    top = {k: v for k, v in tree.items()
+           if k not in ("lead", "groups", "tail")}
+    _assign(model, top, "", done)
+    for blk, (section, key, g) in zip(model.layers, _layer_slots(cfg)):
+        sub = tree[section][key]
+        if g is not None:
+            sub = _index_tree(sub, g)
+        _assign(blk, sub, f"{section}/{key}/", done)
+    unset = [name for name, p in model.named_parameters()
+             if id(p) not in done]
+    if unset:
+        raise ValueError(f"parameters not in the reference tree: {unset}")
+    return model
+
+
+def _index_tree(tree, g: int):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, g) for k, v in tree.items()}
+    return np.asarray(tree)[g]
+
+
+def cache_to_reference_layout(cfg: ModelConfig, cache: dict) -> dict:
+    """The port's cache ({layer index: {name: tensor}}) in the reference's
+    nested layout, as numpy arrays: ``lead``/``tail`` by str(i), ``groups``
+    by f"b{j}" with a leading [n_groups] axis."""
+    out: dict = {}
+    stacked: dict = {}
+    for i, (section, key, g) in enumerate(_layer_slots(cfg)):
+        arrays = {name: t.detach().cpu().numpy()
+                  for name, t in cache[i].items()}
+        if g is None:
+            out.setdefault(section, {})[key] = arrays
+        else:
+            stacked.setdefault(key, []).append(arrays)
+    if stacked:
+        out["groups"] = {key: {name: np.stack([c[name] for c in per_group])
+                               for name in per_group[0]}
+                         for key, per_group in stacked.items()}
+    return out

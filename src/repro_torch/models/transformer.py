@@ -1,0 +1,317 @@
+"""The decoder stack driving the decoder-only architectures.
+
+The port of ``repro/models/transformer.py``.  The layer plan is the
+reference's:
+
+    [lead blocks]  first_k_dense DeepSeekMoE-style dense layers
+    [groups]       n_groups repetitions of cfg.block_pattern
+    [tail blocks]  pattern remainder when n_layers % len(pattern) != 0
+
+but the model is an ``nn.Module`` whose blocks sit one after another in a
+``ModuleList`` (lead, then the groups' blocks in order, then the tail), not
+stacked on a leading group axis for ``lax.scan``.  A cache is a plain dict
+from layer index to that layer's dict of tensors.
+
+Block kinds: "attn" (global), "attn_local" (sliding window), "rec"
+(RG-LRU).  FFN kinds per position: "dense" | "none".  The "mlstm"/"slstm"
+blocks and the "moe" FFN are not ported yet and raise.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from repro_torch.device import resolve
+from repro_torch.kernels.ref import f32_sqrt
+from repro_torch.models import attention, layers, rglru
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dense_init, embed_init, norm, norm_param
+
+Tensor = torch.Tensor
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"repro_torch: {what} is not ported yet (ROADMAP.md queue 1, {item})")
+
+
+def check_decoder_only(cfg: ModelConfig) -> None:
+    if cfg.enc_layers > 0:
+        raise not_ported(
+            f"{cfg.name}: the encoder-decoder stack (models/encdec.py)",
+            "item 16")
+
+
+def _check_ported(kind: str, ffn_kind: str) -> None:
+    if kind in ("mlstm", "slstm"):
+        raise not_ported(f"the {kind} block (models/xlstm.py)", "item 15")
+    if ffn_kind == "moe":
+        raise not_ported("the MoE FFN (models/moe.py)", "item 14")
+    if kind not in ("attn", "attn_local", "rec"):
+        raise ValueError(f"unknown block kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    """One residual block: ``norm1``, the mixer (``attn`` or ``rec``),
+    ``postnorm1`` with post-norm, then with a dense FFN ``norm2``, ``ffn``
+    and ``postnorm2`` — the reference's parameter names.  A norm of a
+    non-parametric config is None."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, ffn_kind: str, d_ff: int,
+                 generator=None, device=None):
+        super().__init__()
+        _check_ported(kind, ffn_kind)
+        dev = device if device is not None else generator.device
+        self.kind, self.ffn_kind = kind, ffn_kind
+        d = cfg.d_model
+        self.norm1 = norm_param(cfg, d, dev)
+        if kind in ("attn", "attn_local"):
+            self.attn = attention.init_attn(cfg, generator, dev)
+        else:
+            self.rec = rglru.init_rglru_block(cfg, generator, dev)
+        if cfg.post_norm:
+            self.postnorm1 = norm_param(cfg, d, dev)
+        if ffn_kind == "dense":
+            self.norm2 = norm_param(cfg, d, dev)
+            self.ffn = layers.MLP(d, d_ff, generator, dev)
+            if cfg.post_norm:
+                self.postnorm2 = norm_param(cfg, d, dev)
+
+    def finish(self, cfg, h: Tensor, y: Tensor) -> Tensor:
+        """Post-norm the mixer output y, add it to h, then the FFN."""
+        if cfg.post_norm:
+            y = norm(cfg, y, self.postnorm1)
+        h = h + y
+        if self.ffn_kind == "dense":
+            y = layers.mlp(self.ffn, norm(cfg, h, self.norm2))
+            if cfg.post_norm:
+                y = norm(cfg, y, self.postnorm2)
+            h = h + y
+        return h
+
+
+def _apply_block(cfg: ModelConfig, blk: Block, h: Tensor, positions: Tensor,
+                 use_kernel: bool) -> Tensor:
+    x = norm(cfg, h, blk.norm1)
+    if blk.kind == "attn":
+        y = attention.attn_forward(blk.attn, cfg, x, positions=positions,
+                                   use_kernel=use_kernel)
+    elif blk.kind == "attn_local":
+        y = attention.attn_forward(blk.attn, cfg, x, positions=positions,
+                                   window=cfg.window, use_kernel=use_kernel)
+    else:
+        y = rglru.rglru_forward(blk.rec, cfg, x, use_kernel=use_kernel)
+    return blk.finish(cfg, h, y)
+
+
+def _apply_block_prefill(cfg: ModelConfig, blk: Block, h: Tensor,
+                         positions: Tensor, use_kernel: bool, max_len: int
+                         ) -> tuple[Tensor, dict]:
+    t, batch = h.shape[1], h.shape[0]
+    x = norm(cfg, h, blk.norm1)
+    if blk.kind in ("attn", "attn_local"):
+        window = cfg.window if blk.kind == "attn_local" else 0
+        y, (k, v) = attention.attn_forward(
+            blk.attn, cfg, x, positions=positions, window=window,
+            use_kernel=use_kernel, return_kv=True)
+        cache = _init_block_cache(cfg, blk.kind, batch, max_len, h.dtype,
+                                  h.device)
+        if blk.kind == "attn":
+            attention.fill_kv_cache(cache, k, v)
+        else:
+            attention.fill_ring_cache(cache, k, v, t)
+    else:
+        y, cache = rglru.rglru_forward(blk.rec, cfg, x,
+                                       use_kernel=use_kernel,
+                                       return_state=True)
+    return blk.finish(cfg, h, y), cache
+
+
+def _decode_block(cfg: ModelConfig, blk: Block, h: Tensor, cache: dict,
+                  index: int) -> tuple[Tensor, dict]:
+    x = norm(cfg, h, blk.norm1)
+    if blk.kind == "attn":
+        y, cache = attention.attn_decode(blk.attn, cfg, x, cache, index)
+    elif blk.kind == "attn_local":
+        y, cache = attention.attn_decode_ring(blk.attn, cfg, x, cache, index,
+                                              window=cfg.window)
+    else:
+        y, cache = rglru.rglru_decode(blk.rec, cfg, x, cache)
+    return blk.finish(cfg, h, y), cache
+
+
+def _block_plan(cfg: ModelConfig):
+    """(lead, pattern, n_groups, tail) block/ffn kind lists."""
+    pattern = list(zip(cfg.block_pattern, cfg.ffn_kinds))
+    lead = [("attn", "dense")] * cfg.first_k_dense
+    n_rest = cfg.n_layers - len(lead)
+    n_groups = n_rest // len(pattern)
+    tail = pattern[: n_rest - n_groups * len(pattern)]
+    return lead, pattern, n_groups, tail
+
+
+def layer_plan(cfg: ModelConfig) -> list[tuple[str, str, int]]:
+    """(kind, ffn_kind, d_ff) of every layer, in the model's order."""
+    lead, pattern, n_groups, tail = _block_plan(cfg)
+    lead_ff = cfg.dense_d_ff or cfg.d_ff
+    return ([(k, f, lead_ff) for k, f in lead]
+            + [(k, f, cfg.d_ff) for k, f in pattern] * n_groups
+            + [(k, f, cfg.d_ff) for k, f in tail])
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+
+class Model(nn.Module):
+    """``embed`` [vocab_padded, d], ``proj_vision`` [vit_dim, d] for vision
+    configs, ``layers`` (a `Block` each), ``final_norm``, and ``head``
+    [d, vocab_padded] unless the embeddings are tied."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+        super().__init__()
+        for kind, ffn, _ in layer_plan(cfg):
+            _check_ported(kind, ffn)
+        dev = device if device is not None else generator.device
+        self.cfg = cfg
+        d = cfg.d_model
+        self.embed = nn.Parameter(embed_init(generator, (cfg.vocab_padded, d),
+                                             device=dev))
+        if cfg.vit_dim:
+            self.proj_vision = nn.Parameter(
+                dense_init(generator, (cfg.vit_dim, d), device=dev))
+        self.layers = nn.ModuleList(
+            Block(cfg, kind, ffn, d_ff, generator, dev)
+            for kind, ffn, d_ff in layer_plan(cfg))
+        self.final_norm = norm_param(cfg, d, dev)
+        if not cfg.tie_embeddings:
+            self.head = nn.Parameter(
+                dense_init(generator, (d, cfg.vocab_padded), device=dev))
+
+    def head_matrix(self) -> Tensor:
+        return self.embed.T if self.cfg.tie_embeddings else self.head
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device=None) -> Model:
+    """The model with freshly initialised parameters on ``device`` (None:
+    the CUDA card; "meta" allocates nothing).  ``generator`` must live on
+    that device; None seeds one with 0."""
+    dev = resolve(device)
+    if dev.type == "meta":
+        return Model(cfg, device=dev)
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+    return Model(cfg, generator, dev)
+
+
+def embed_inputs(cfg: ModelConfig, model: Model, tokens: Tensor,
+                 extra_embeds: Optional[Tensor] = None) -> Tensor:
+    h = model.embed[tokens]
+    if cfg.embed_scale:
+        h = h * f32_sqrt(cfg.d_model)
+    if extra_embeds is not None:
+        if cfg.vit_dim:
+            extra_embeds = extra_embeds @ model.proj_vision
+        h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
+    return h
+
+
+def _positions(h: Tensor) -> Tensor:
+    return torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
+
+
+def forward(cfg: ModelConfig, model: Model, tokens: Tensor,
+            extra_embeds: Optional[Tensor] = None, use_kernel: bool = False
+            ) -> tuple[Tensor, Tensor]:
+    """Returns (logits [B, T, V], aux_loss scalar)."""
+    h = embed_inputs(cfg, model, tokens, extra_embeds)
+    positions = _positions(h)
+    for blk in model.layers:
+        h = _apply_block(cfg, blk, h, positions, use_kernel)
+    h = norm(cfg, h, model.final_norm)
+    logits = layers.softcap(h @ model.head_matrix(), cfg.logit_softcap)
+    # no MoE layer is ported, so there is no auxiliary loss
+    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def prefill(cfg: ModelConfig, model: Model, tokens: Tensor, max_len: int,
+            extra_embeds: Optional[Tensor] = None, use_kernel: bool = False
+            ) -> tuple[Tensor, dict]:
+    """Process a prompt, returning (last-position logits [B, V], cache)."""
+    h = embed_inputs(cfg, model, tokens, extra_embeds)
+    positions = _positions(h)
+    cache: dict = {}
+    for i, blk in enumerate(model.layers):
+        h, cache[i] = _apply_block_prefill(cfg, blk, h, positions,
+                                           use_kernel, max_len)
+    h = norm(cfg, h, model.final_norm)
+    logits = layers.softcap(h[:, -1] @ model.head_matrix(),
+                            cfg.logit_softcap)
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Decode (single token, KV/recurrent caches)
+# ---------------------------------------------------------------------------
+
+def _init_block_cache(cfg, kind: str, batch: int, max_len: int, dtype,
+                      device) -> dict:
+    if kind == "attn":
+        return attention.init_kv_cache(cfg, batch, max_len, dtype, device)
+    if kind == "attn_local":
+        w = min(cfg.window or max_len, max_len)
+        return attention.init_ring_cache(cfg, batch, w, dtype, device)
+    return rglru.init_rglru_cache(cfg, batch, dtype, device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.float32, device=None) -> dict:
+    dev = resolve(device)
+    plan = layer_plan(cfg)
+    for kind, ffn, _ in plan:
+        _check_ported(kind, ffn)
+    return {i: _init_block_cache(cfg, kind, batch, max_len, dtype, dev)
+            for i, (kind, _, _) in enumerate(plan)}
+
+
+def decode_step(cfg: ModelConfig, model: Model, cache: dict, token: Tensor,
+                index: int) -> tuple[Tensor, dict]:
+    """token: [B] int; index: the token's position.  Returns (logits
+    [B, V], cache); the cache is updated in place."""
+    index = int(index)
+    h = model.embed[token][:, None, :]
+    if cfg.embed_scale:
+        h = h * f32_sqrt(cfg.d_model)
+    for i, blk in enumerate(model.layers):
+        h, cache[i] = _decode_block(cfg, blk, h, cache[i], index)
+    h = norm(cfg, h, model.final_norm)
+    logits = layers.softcap(h[:, 0] @ model.head_matrix(), cfg.logit_softcap)
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Parameter accounting (for MODEL_FLOPS = 6*N*D)
+# ---------------------------------------------------------------------------
+
+def param_count(cfg: ModelConfig) -> int:
+    """Parameters of the model, counted on the ``meta`` device (nothing is
+    allocated, so a full-size config costs nothing)."""
+    check_decoder_only(cfg)
+    model = Model(cfg, device=torch.device("meta"))
+    return sum(p.numel() for p in model.parameters())
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Params touched per token: the total minus the embedding lookup table
+    (gather, not matmul).  No MoE layer is ported, so no routed expert is
+    inactive."""
+    embed = cfg.vocab * cfg.d_model
+    return param_count(cfg) - (embed if not cfg.tie_embeddings else 0)

@@ -2,7 +2,8 @@
 
 A fresh interpreter whose import hook refuses ``jax``, ``jaxlib`` and
 ``repro`` imports every ``repro_torch`` module and ``chip_smoke``, then
-runs a 200-tick simulation on the CPU.
+runs a 200-tick simulation and the smoke-preset serve of recurrentgemma-2b
+on the CPU.
 """
 import os
 import subprocess
@@ -37,6 +38,10 @@ cfg = netsim.SimConfig(
     protocol=proto, sim_time=200 * dt, dt=dt, n_chunks=4)
 raw = netsim.simulate(cfg, device="cpu")
 assert int(raw.final_state.tick) == 200
+from repro_torch.launch.serve import serve
+out = serve("recurrentgemma-2b", batch=2, prompt_len=8, new_tokens=3,
+            preset="smoke", device="cpu")
+assert tuple(out["generated"].shape) == (2, 3)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
 print("MODULES", len(names))
@@ -51,4 +56,4 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split("MODULES")[-1])
-    assert n_modules >= 15
+    assert n_modules >= 45

@@ -1,0 +1,140 @@
+"""The port's serving path on the CPU: the launcher end to end, the
+invariants inside the port, parameter counts against the reference, and
+the archs that are not ported yet.
+
+Tolerances inside the port, measured on the CPU (torch 2.13): teacher-
+forced decode against `forward` within 1.8e-6 (logits up to ~3.4;
+recurrentgemma: the sequential decode step against the log-depth scan
+of `forward`; the others: grouped decode attention against dense
+`attend`), and the prefill's kernel path (on the CPU the kernels' plain
+versions: dense `ref_attention`, the sequential `ref_rg_lru`) against its
+plain path within 7.6e-7 on logits and 3.1e-6 on caches (recurrentgemma;
+bitwise for the attention-only archs).  The bounds are atol = rtol =
+1e-5.
+"""
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.models import transformer as rtransformer
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import rg_lru as trl
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.launch.serve import serve
+from repro_torch.models import api, transformer
+from repro_torch.train import generate
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+PORTED = ["recurrentgemma-2b", "gemma2-27b", "qwen3-1.7b", "olmo-1b",
+          "qwen1.5-4b", "internvl2-1b"]
+NOT_PORTED = {"deepseek-moe-16b": "item 14",
+              "llama4-maverick-400b-a17b": "item 14",
+              "xlstm-125m": "item 15", "seamless-m4t-medium": "item 16"}
+
+
+def _model(arch, **over):
+    cfg = get_config(arch).scaled_down(**over)
+    gen = torch.Generator().manual_seed(3)
+    return cfg, api.init_params(cfg, gen, device="cpu")
+
+
+def test_every_arch_is_ported_or_names_its_item():
+    assert sorted(PORTED + list(NOT_PORTED)) == sorted(ARCH_IDS)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_serve_smoke_runs_end_to_end(arch):
+    out = serve(arch, batch=2, prompt_len=12, new_tokens=5, preset="smoke",
+                seed=1, device="cpu")
+    cfg = out["cfg"]
+    ids = out["generated"]
+    assert ids.shape == (2, 5) and ids.dtype == torch.int32
+    assert int(ids.min()) >= 0 and int(ids.max()) < cfg.vocab_padded
+    assert out["prefill_s"] > 0 and out["decode_tok_per_s"] > 0
+    # the launcher's loop is `generate` with the kernels on
+    again = generate(cfg, out["model"], out["request"], 5, out["max_len"],
+                     use_kernel=True)
+    assert torch.equal(again, ids)
+
+
+def test_serve_cli_runs_on_the_cpu(capsys):
+    serve_main(["--arch", "qwen3-1.7b", "--batch", "1", "--prompt-len", "6",
+                "--new", "3", "--device", "cpu"])
+    assert "decode" in capsys.readouterr().out
+
+
+def test_serve_counts_no_launch_on_the_cpu():
+    before = (tfa.LAUNCH_COUNT, trl.LAUNCH_COUNT)
+    serve("recurrentgemma-2b", batch=1, prompt_len=8, new_tokens=2,
+          device="cpu")
+    assert (tfa.LAUNCH_COUNT, trl.LAUNCH_COUNT) == before
+
+
+def test_serve_needs_cuda_unless_told_otherwise():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None runs there")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve("qwen3-1.7b", batch=1, prompt_len=4, new_tokens=2)
+
+
+@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
+def test_unported_archs_raise_naming_their_roadmap_item(arch):
+    cfg = get_config(arch).scaled_down()
+    with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]):
+        api.init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        transformer.param_count(get_config(arch))
+
+
+@pytest.mark.parametrize("arch", [a for a in PORTED if a != "internvl2-1b"])
+def test_teacher_forced_decode_equals_forward(arch):
+    cfg, model = _model(arch, window=4)
+    b, t = 2, 10
+    toks = torch.randint(0, cfg.vocab, (b, t),
+                         generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        full, _ = api.forward(cfg, model, {"tokens": toks})
+        cache = api.init_cache(cfg, b, t, device="cpu")
+        steps = []
+        for i in range(t):
+            logits, cache = api.decode_step(cfg, model, cache, toks[:, i], i)
+            steps.append(logits)
+    torch.testing.assert_close(torch.stack(steps, dim=1), full, **TOL)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_prefill_kernel_path_equals_plain_path(arch):
+    cfg, model = _model(arch, window=5)
+    gen = torch.Generator().manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 11), generator=gen)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn((2, cfg.vision_tokens, cfg.vit_dim),
+                                       generator=gen)
+    with torch.no_grad():
+        lk, ck = api.prefill(cfg, model, batch, 24, use_kernel=True)
+        lp, cp = api.prefill(cfg, model, batch, 24, use_kernel=False)
+    torch.testing.assert_close(lk, lp, **TOL)
+    assert ck.keys() == cp.keys()
+    for i in cp:
+        for name in cp[i]:
+            torch.testing.assert_close(ck[i][name], cp[i][name], **TOL)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_param_counts_equal_the_reference_at_full_size(arch):
+    cfg, ref_cfg = get_config(arch), ref_get_config(arch)
+    assert transformer.param_count(cfg) == rtransformer.param_count(ref_cfg)
+    assert (transformer.active_param_count(cfg)
+            == rtransformer.active_param_count(ref_cfg))
+
+
+def test_full_recurrentgemma_on_meta_allocates_nothing():
+    cfg = get_config("recurrentgemma-2b")
+    model = api.init_params(cfg, device="meta")
+    assert all(p.is_meta for p in model.parameters())
+    kinds = [blk.kind for blk in model.layers]
+    # the serve path's prefill: 8 flash launches and 18 RG-LRU launches
+    assert kinds.count("attn_local") == 8 and kinds.count("rec") == 18
+    assert 2.6e9 < transformer.param_count(cfg) < 3.0e9
