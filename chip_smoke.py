@@ -4,6 +4,8 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py --probe-flash [OLD/flash_attention.cu ...]
+
 
 It builds the port's three kernels from ``src/repro_torch/kernels/csrc``
 (one nvcc per source, all started together; sm_90a, into
@@ -18,10 +20,19 @@ It builds the port's three kernels from ``src/repro_torch/kernels/csrc``
 * serving: it holds the RG-LRU scan kernel bit for bit and the flash
   attention kernel within 2e-5 (f32) / 2e-2 (bf16 inputs) against their
   plain versions, times both beside their plain versions and
-  ``F.scaled_dot_product_attention``, then serves recurrentgemma-2b at its
-  full published widths (batch 4, a 4096-token prompt, 16 new tokens,
-  random weights from seed 0) through ``repro_torch.launch.serve`` and
-  holds that prefill against the plain-path prefill of the same prompt.
+  ``F.scaled_dot_product_attention`` under each backend that takes the
+  serve case (the fastest is the flash row's ``library_ms``), then serves
+  recurrentgemma-2b at its full published widths (batch 4, a 4096-token
+  prompt, 16 new tokens, random weights from seed 0) through
+  ``repro_torch.launch.serve`` and holds that prefill against the
+  plain-path prefill of the same prompt.
+
+``--probe-flash`` is the short first call after a change to the flash
+kernel: it builds the kernels (``ptxas -v``), holds the checkout's flash
+kernel and each given source of the same C entry point (an earlier
+version, a variant) to the plain version on ``FLASH_CASES`` and the serve
+case, times the serve case back to back in turns (the given sources, the
+checkout twice, the given sources in reverse) and stops.
 
 Each phase prints one JSON line; any failure raises and the exit code is
 non-zero.  The last lines are the kernel table, the card's ``nvidia-smi``
@@ -37,10 +48,12 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside tensor cores
+TF32_OPS_PER_S = 495e12            # H100 SXM TF32 tensor cores, dense
 DT = 2e-5
 RTT = 100e-6
 WORK_SCALE = 0.25                  # benchmarks/common.py (not REPRO_FULL)
@@ -522,8 +535,10 @@ def phase_profile(core, netsim, workload) -> dict:
 # ---------------------------------------------------------------------------
 
 # (b, t, s, h, kv, dh, causal, window, softcap, dtype): the JAX package's
-# flash test matrix (tests/test_kernels.py), the serve shape, and a shape
-# whose T is not a multiple of the kernel's 64-query tile
+# flash test matrix (tests/test_kernels.py), then the kernel's tile edges
+# (64-query, 32-key tiles): T and S not multiples of either, S != T without
+# the causal mask (with and without a window), D=256 with the softcap,
+# D=256 bf16 at T=1024 with window 512, and a ragged serve-like shape
 FLASH_CASES = [
     (2, 128, 128, 4, 4, 64, True, 0, None, "float32"),
     (1, 256, 256, 4, 2, 64, True, 0, None, "float32"),
@@ -533,6 +548,13 @@ FLASH_CASES = [
     (2, 128, 128, 4, 4, 64, False, 0, None, "float32"),
     (1, 192, 192, 2, 2, 64, True, 0, None, "float32"),
     (2, 128, 128, 4, 4, 64, True, 0, None, "bfloat16"),
+    (1, 100, 100, 2, 1, 64, True, 0, None, "float32"),
+    (2, 80, 150, 4, 2, 128, False, 0, None, "float32"),
+    (1, 96, 200, 2, 2, 192, False, 40, None, "float32"),
+    (2, 70, 70, 4, 4, 32, True, 16, None, "float32"),
+    (1, 300, 300, 4, 1, 256, True, 0, 30.0, "float32"),
+    (1, 1024, 1024, 4, 1, 256, True, 512, None, "bfloat16"),
+    (1, 77, 77, 2, 1, 64, True, 0, None, "bfloat16"),
     (1, 1000, 1000, 10, 1, 256, True, 300, None, "float32"),
 ]
 SERVE_ARCH = "recurrentgemma-2b"
@@ -579,6 +601,163 @@ def flash_bound(b, t, s, h, kv, dh, causal, window, elt=4):
             "operations" if t_ops >= t_bytes else "bytes", flop, nbytes)
 
 
+def split_tf32_floor_ms(flop: int) -> float:
+    """The floor of the kernel's f32 scheme: three TF32 tensor-core products
+    (hi·hi, hi·lo, lo·hi) per f32 product, at the TF32 peak."""
+    return 1e3 * 3 * flop / TF32_OPS_PER_S
+
+
+# torch.nn.attention.SDPBackend members timed as the flash row's yardstick
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
+
+
+def sdpa_backends(q, k, v, mask, want) -> list:
+    """F.scaled_dot_product_attention on the serve case under each backend
+    alone: first with ``enable_gqa=True`` on the one KV head, and where the
+    backend refuses that, with K/V expanded to the query heads beforehand
+    (the expansion is outside the timed call).  A backend that refuses both
+    is recorded with its reason."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    h = q.shape[2]
+    qt = q.transpose(1, 2)
+    rows = []
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            rows.append(dict(backend=name, accepted=False,
+                             reason="not in this torch"))
+            continue
+        reasons = []
+        for gqa in (True, False):
+            if gqa:
+                kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+            else:
+                kt = k.repeat_interleave(h // k.shape[2], 2).transpose(1, 2)
+                vt = v.repeat_interleave(h // v.shape[2], 2).transpose(1, 2)
+
+            def call(kt=kt, vt=vt, gqa=gqa):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=gqa
+                ).transpose(1, 2)
+            try:
+                with sdpa_kernel([backend]), \
+                        warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    out = call()
+                    torch.cuda.synchronize()
+                    err = float((out - want).abs().max())
+                    del out
+                    row = dict(backend=name, accepted=True,
+                               kv="enable_gqa=True" if gqa else
+                               f"expanded to {h} heads",
+                               ms=event_ms(call, 5),
+                               back_to_back_ms=back_to_back_ms(call, 3),
+                               max_abs_err=err)
+            except RuntimeError as e:
+                said = [str(w.message).strip().splitlines()[0][:160]
+                        for w in caught]
+                reasons.append(said or str(e).strip().splitlines()[0][:160])
+                continue
+            rows.append(row)
+            break
+        else:
+            rows.append(dict(backend=name, accepted=False, reason=reasons))
+        del kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def flash_operands(case, gen):
+    """Random q, k, v on the card for one FLASH_CASES entry."""
+    import torch
+
+    b, t, s, h, kv, dh, *_, dtype = case
+    return tuple(torch.randn(shape, generator=gen, device=DEVICE
+                             ).to(_tdtype(dtype))
+                 for shape in ((b, t, h, dh), (b, s, kv, dh), (b, s, kv, dh)))
+
+
+def flash_checks(fa, ref, gen) -> list:
+    """The flash kernel against its plain version on every FLASH_CASES entry
+    and the serve case, within FLASH_TOL; raises outside it."""
+    import torch
+
+    checks = []
+    for case in FLASH_CASES + [SERVE_FLASH_CASE]:
+        *_, causal, window, cap, dtype = case
+        q, k, v = flash_operands(case, gen)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=cap).float()
+        want = ref.ref_attention(q, k, v, causal=causal, window=window,
+                                 softcap=cap).float()
+        tol = FLASH_TOL[dtype]
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, atol=tol, rtol=tol):
+            raise AssertionError(f"flash kernel vs plain version outside "
+                                 f"{tol} at {case}: max |diff| {err}")
+        checks.append(dict(case=list(case), max_abs_err=err, tol=tol))
+        del q, k, v, got, want
+    return checks
+
+
+def flash_attributes(fa) -> dict:
+    """Registers, spills and shared memory of every flash instantiation,
+    from the runtime; raises if any of them spills."""
+    attrs = {f"{dt}_d{d}": fa.kernel_attributes(_tdtype(dt), d)
+             for dt in ("float32", "bfloat16") for d in fa.HEAD_DIMS}
+    spilled = {key: a for key, a in attrs.items() if a["local_bytes"]}
+    if spilled:
+        raise AssertionError(f"flash kernel instantiations with local "
+                             f"memory (spills): {spilled}")
+    return attrs
+
+
+def probe_flash(fa, ref, sources) -> dict:
+    """``--probe-flash``: build the kernels, hold the checkout's flash kernel
+    and each of ``sources`` (other ``flash_attention.cu`` files, built with
+    the kernel's own flags) to the plain version, and time the serve case
+    back to back in turns on this card."""
+    from pathlib import Path
+
+    import torch
+    from repro_torch.kernels import build
+
+    libs = {"checkout": fa.LIBRARY}
+    for i, path in enumerate(sources):
+        lib = build.KernelLibrary(f"flash_attention_probe{i}",
+                                  fa._bind_launch, flags=fa.NVCC_FLAGS)
+        lib.source = Path(path).resolve()
+        libs[path] = lib
+    phase_device(list(libs.values()))
+    gen = torch.Generator(device=DEVICE)
+    out = {name: {} for name in libs}
+    for name, lib in libs.items():
+        fa.LIBRARY = lib
+        gen.manual_seed(12)
+        out[name]["max_abs_err"] = [c["max_abs_err"]
+                                    for c in flash_checks(fa, ref, gen)]
+        out[name]["back_to_back_ms"] = []
+    fa.LIBRARY = libs["checkout"]
+    out["checkout"]["attributes"] = flash_attributes(fa)
+
+    q, k, v = flash_operands(SERVE_FLASH_CASE, gen)
+    causal, window = SERVE_FLASH_CASE[6:8]
+    for name in list(sources) + ["checkout"] * 2 + list(sources)[::-1]:
+        fa.LIBRARY = libs[name]
+        out[name]["back_to_back_ms"].append(back_to_back_ms(
+            lambda: fa.flash_attention(q, k, v, causal=causal,
+                                       window=window), 10))
+    fa.LIBRARY = libs["checkout"]
+    emit("probe_flash", cases=[list(c) for c in
+                               FLASH_CASES + [SERVE_FLASH_CASE]],
+         sources=out)
+    return out
+
+
 def rglru_bound(b, t, d, elt=4):
     """a and b read once, h written once; a multiply and an add each."""
     nbytes = 3 * elt * b * t * d
@@ -591,7 +770,6 @@ def phase_lm_kernels(fa, rl, ref) -> dict:
     """Both serving kernels against their plain versions on the card, then
     timed at the serve shape beside their plain versions and SDPA."""
     import torch
-    import torch.nn.functional as F
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
@@ -620,60 +798,42 @@ def phase_lm_kernels(fa, rl, ref) -> dict:
                 rg_checks.append(dict(shape=[b, t, d], dtype=dtype,
                                       h0=hh is not None, bitwise=True))
 
-    # flash: within the JAX test's bound
-    fl_checks = []
-    for case in FLASH_CASES + [SERVE_FLASH_CASE]:
-        b, t, s, h, kv, dh, causal, window, cap, dtype = case
-        q, k, v = (torch.randn(shape, generator=gen, device=dev
-                               ).to(_tdtype(dtype))
-                   for shape in ((b, t, h, dh), (b, s, kv, dh),
-                                 (b, s, kv, dh)))
-        got = fa.flash_attention(q, k, v, causal=causal, window=window,
-                                 softcap=cap)
-        want = ref.ref_attention(q, k, v, causal=causal, window=window,
-                                 softcap=cap)
-        tol = FLASH_TOL[dtype]
-        err = float((got.float() - want.float()).abs().max())
-        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
-            raise AssertionError(f"flash kernel vs plain version outside "
-                                 f"{tol} at {case}: max |diff| {err}")
-        fl_checks.append(dict(case=list(case), max_abs_err=err, tol=tol))
-        del q, k, v, got, want
+    fl_checks = flash_checks(fa, ref, gen)
 
     # timing at the serve shape
     b, t, s, h, kv, dh, causal, window, _, _ = SERVE_FLASH_CASE
-    q = torch.randn((b, t, h, dh), generator=gen, device=dev)
-    k = torch.randn((b, s, kv, dh), generator=gen, device=dev)
-    v = torch.randn((b, s, kv, dh), generator=gen, device=dev)
+    q, k, v = flash_operands(SERVE_FLASH_CASE, gen)
     qpos = torch.arange(t, device=dev)[:, None]
     kpos = torch.arange(s, device=dev)[None, :]
     mask = (kpos <= qpos) & (kpos > qpos - window)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask, enable_gqa=True).transpose(1, 2)
 
     kern = lambda: fa.flash_attention(q, k, v, causal=causal,  # noqa: E731
                                       window=window)
     plain = lambda: ref.ref_attention(q, k, v, causal=causal,  # noqa: E731
                                       window=window)
     want = plain()
-    lib_err = float((sdpa() - want).abs().max())
-    serve_err = float((kern() - want).abs().max())
+    backends = sdpa_backends(q, k, v, mask, want)
     del want
+    fastest = min((r for r in backends if r["accepted"]),
+                  key=lambda r: r["ms"])
     b_ms, b_by, flop, nbytes = flash_bound(b, t, s, h, kv, dh, causal,
                                            window)
     flash = dict(shape=[b, t, s, h, kv, dh], window=window,
                  ms=event_ms(kern, 10), plain_ms=event_ms(plain, 3),
-                 library_ms=event_ms(sdpa, 5),
                  back_to_back_ms=back_to_back_ms(kern, 5),
                  plain_back_to_back_ms=back_to_back_ms(plain, 3),
-                 library_back_to_back_ms=back_to_back_ms(sdpa, 3),
-                 bound_ms=b_ms, bound_by=b_by, flop=flop, bytes=nbytes,
-                 max_abs_err=serve_err, library_max_abs_err=lib_err,
+                 library_ms=fastest["ms"],
+                 library_back_to_back_ms=fastest["back_to_back_ms"],
+                 library_max_abs_err=fastest["max_abs_err"],
                  library="torch.nn.functional.scaled_dot_product_attention "
-                         "(bool mask, enable_gqa=True)")
+                         f"(bool mask, {fastest['backend']} backend, "
+                         f"{fastest['kv']})",
+                 sdpa_backends=backends,
+                 bound_ms=b_ms, bound_by=b_by,
+                 split_tf32_floor_ms=split_tf32_floor_ms(flop),
+                 flop=flop, bytes=nbytes,
+                 max_abs_err=fl_checks[-1]["max_abs_err"],
+                 attributes=flash_attributes(fa))
     flash["tflop_per_s"] = flop / (flash["back_to_back_ms"] * 1e-3) / 1e12
     del q, k, v, mask
 
@@ -864,6 +1024,7 @@ def phase_serve(fa, rl, ms, ops) -> dict:
 def kernel_table(kern: dict, main: dict, states: dict, lm: dict,
                  served: dict) -> list:
     main_row = next(r for r in kern["main_shape"] if r["algo"] == 0)
+    serve_attrs = lm["flash"]["attributes"]["float32_d256"]
     errs = [kern["max_abs_err"]] + [r["max_abs_err"] for r in
                                     kern["main_shape"] + kern["large"]]
     errs += [s["max_abs_err"] for s in states.values()]
@@ -901,6 +1062,10 @@ def kernel_table(kern: dict, main: dict, states: dict, lm: dict,
         "back_to_back_ms": lm["flash"]["back_to_back_ms"],
         "plain_back_to_back_ms": lm["flash"]["plain_back_to_back_ms"],
         "library_back_to_back_ms": lm["flash"]["library_back_to_back_ms"],
+        "library": lm["flash"]["library"],
+        "registers": serve_attrs["registers"],
+        "smem_bytes": serve_attrs["smem_bytes"],
+        "spill_bytes": serve_attrs["local_bytes"],
         "path_device_ms": served["path_device_ms_per_launch"]["flash_kernel"],
         "bf16_max_abs_err": lm["flash_bf16_max_abs_err"],
         "shape": lm["flash"]["shape"],
@@ -923,9 +1088,20 @@ def kernel_table(kern: dict, main: dict, states: dict, lm: dict,
     }]
 
 
+def write_results(path, t_start: float) -> None:
+    RESULTS["seconds"] = time.time() - t_start
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(RESULTS, f, indent=1)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's JSON here")
+    ap.add_argument("--probe-flash", nargs="*", metavar="SOURCE",
+                    help="only the short flash probe, timing the checkout's "
+                         "kernel beside these other sources of it")
     args = ap.parse_args(argv)
 
     import torch
@@ -944,6 +1120,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
+    if args.probe_flash is not None:
+        probe_flash(fa, ref, args.probe_flash)
+        write_results(args.out, t_start)
+        return 0
     dev = phase_device([ms.LIBRARY, fa.LIBRARY, rl.LIBRARY])
     kern = phase_kernel(ms, core)
     main_path = phase_main_path(ms, ops, core, netsim, workload)
@@ -954,11 +1134,7 @@ def main(argv=None) -> int:
     served = phase_serve(fa, rl, ms, ops)
     table = kernel_table(kern, main_path, states, lm, served)
     RESULTS["kernels"] = table
-    RESULTS["seconds"] = time.time() - t_start
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(RESULTS, f, indent=1)
+    write_results(args.out, t_start)
     print(json.dumps({"kernels": table}), flush=True)
     print(dev["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

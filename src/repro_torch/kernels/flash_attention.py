@@ -2,13 +2,19 @@
 launch counter.
 
 `flash_attention` computes softmax(q k^T * D^-1/2) v with grouped KV heads,
-causal and sliding-window masks and an optional tanh logit softcap, in
-float32 for float32 or bfloat16 inputs.  On CUDA tensors it launches
-``csrc/flash_attention.cu`` (one CTA per (batch, head, 64-query tile),
-online softmax over 32-key tiles; it replaces the Pallas TPU kernel
-``repro/kernels/flash_attention.py::_flash_kernel``); on CPU tensors it
-runs the dense plain version `ref.ref_attention`, which the kernel matches
-within 2e-5 in float32 and 2e-2 for bf16 inputs.
+causal and sliding-window masks and an optional tanh logit softcap, with
+float32 accumulation for float32 or bfloat16 inputs.  On CUDA tensors it
+launches ``csrc/flash_attention.cu``, which replaces the Pallas TPU kernel
+``repro/kernels/flash_attention.py::_flash_kernel``: one 8-warp CTA per
+(batch, head, 64-query tile), each warp owning 16 query rows and half of
+the head dim, an online softmax over 32-key tiles that ``cp.async``
+streams through a two-stage ring in shared memory, and both products on
+the tensor cores (``mma.sync``): split TF32 (three TF32 products per f32
+product) for float32 inputs, bf16 MMA for bfloat16 ones.
+The kernel is built with its own nvcc flags (`NVCC_FLAGS`: no
+``--fmad=false``, since it is held by tolerance, not bit for bit).  On CPU
+tensors it runs the dense plain version `ref.ref_attention`, which the
+kernel matches within 2e-5 in float32 and 2e-2 for bf16 inputs.
 """
 from __future__ import annotations
 
@@ -26,9 +32,13 @@ Tensor = torch.Tensor
 LAUNCH_COUNT = 0
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 192, 256)     # the kernel's instantiations
+# build.NVCC_FLAGS without the two that fix the rounding: the kernel is
+# held to its plain version by tolerance, so nvcc may contract a*b+c
+NVCC_FLAGS = tuple(f for f in build.NVCC_FLAGS
+                   if f not in ("--fmad=false", "-prec-div=true"))
 
 
-def _bind(lib: ctypes.CDLL) -> None:
+def _bind_launch(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_launch.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -38,7 +48,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p]
 
 
-LIBRARY = build.KernelLibrary("flash_attention", _bind)
+def _bind(lib: ctypes.CDLL) -> None:
+    _bind_launch(lib)
+    lib.flash_attention_attributes.restype = ctypes.c_int
+    lib.flash_attention_attributes.argtypes = [
+        ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+
+
+LIBRARY = build.KernelLibrary("flash_attention", _bind, flags=NVCC_FLAGS)
 
 
 def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
@@ -67,6 +84,23 @@ def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
                          f"multiple of {k.shape[2]} KV heads")
 
 
+def kernel_attributes(dtype: torch.dtype, head_dim: int) -> dict:
+    """The compiled instantiation's registers per thread, local memory per
+    thread (spills), and shared memory per CTA (static plus the dynamic size
+    a launch is allowed, after the launch's own opt-in), as
+    ``cudaFuncGetAttributes`` reports them; builds the kernel first if
+    needed."""
+    lib = LIBRARY.load()
+    regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = lib.flash_attention_attributes(DTYPES[dtype], head_dim,
+                                        ctypes.byref(regs),
+                                        ctypes.byref(local),
+                                        ctypes.byref(smem))
+    build.check_launch("flash_attention_attributes", rc)
+    return dict(registers=regs.value, local_bytes=local.value,
+                smem_bytes=smem.value)
+
+
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: int = 0, softcap: Optional[float] = None
                     ) -> Tensor:
@@ -89,6 +123,11 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {dh} is not one of "
                          f"{HEAD_DIMS}")
+
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name!r} is not 16-byte "
+                             f"aligned (the kernel copies 16-byte chunks)")
 
     lib = LIBRARY.load()
     out = torch.empty_like(q)
