@@ -6,17 +6,20 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py [--out results.json]
     python3 chip_smoke.py --probe-flash [OLD/flash_attention.cu ...]
 
-
-It builds the port's three kernels from ``src/repro_torch/kernels/csrc``
+It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
 (one nvcc per source, all started together; sm_90a, into
 ``build/kernels/``) and drives two paths:
 
 * the simulator: it holds the fused CC-tick kernel bit for bit against its
-  plain PyTorch version for every specialization, drives the simulator's
-  main path at full width (the paper's Fig. 7-9 convergence setup: two
-  GPT-2 jobs on a 50 Gbps dumbbell, Reno OFF and WI, a two-seed sweep
-  each, 0.75 s of simulated time), checks the figure metrics, and feeds the
-  kernel states taken from CUBIC and DCQCN runs of the engine;
+  plain PyTorch version for every specialization, holds the chunk kernel
+  (a whole chunk of fabric ticks per launch) bit for bit against the
+  per-tick path on every output leaf for each algorithm, variant and
+  engine option at the paper's widths, drives the simulator's main path
+  through the chunk kernel at full width (the paper's Fig. 7-9 convergence
+  setup: two GPT-2 jobs on a 50 Gbps dumbbell, Reno OFF and WI, a two-seed
+  sweep each, the suite's 1.5 s of simulated time), checks the figure
+  metrics, times both paths in turns, and feeds the CC kernel states taken
+  from CUBIC and DCQCN runs of the engine;
 * serving: it holds the RG-LRU scan kernel bit for bit and the flash
   attention kernel within 2e-5 (f32) / 2e-2 (bf16 inputs) against their
   plain versions, times both beside their plain versions and
@@ -57,14 +60,23 @@ TF32_OPS_PER_S = 495e12            # H100 SXM TF32 tensor cores, dense
 DT = 2e-5
 RTT = 100e-6
 WORK_SCALE = 0.25                  # benchmarks/common.py (not REPRO_FULL)
-# Depth of the main path: the suite's REPRO_SMOKE depth is 1.5 s, cut to
-# 1.0 s (50,000 ticks) because the tick is host-bound and the card's host
-# ran it at 1.8 ms and at 3.4 ms per tick on two calls (PERF.md), then to
-# 0.75 s (37,500 ticks) to make room for the serving phases; widths, jobs
-# and protocol settings are the suite's.
-MAIN_SIM_TIME = 0.75
+# Depth of the main path: the suite's REPRO_SMOKE depth, 1.5 s (75,000
+# ticks), through the chunk kernel; widths, jobs and protocol settings are
+# the suite's.  The per-tick path (~2-3 ms a tick on the card's host) is
+# timed beside it at PER_TICK_SIM_TIME.
+MAIN_SIM_TIME = 1.5
+PER_TICK_SIM_TIME = 0.04
+# fig7-reno's figure numbers at 1.5 s through the per-tick path, as
+# PERF.md §6 records them: the chunk kernel, bitwise equal to that path,
+# prints them beside its own
+PER_TICK_FIG7 = dict(OFF_interleave=0.7506, WI_interleave=0.2101,
+                 avg_speedup=1.138, p99_speedup=1.117)
 SPEC_SIM_TIME = 0.15
 AGREE_SIM_TIME = 0.06
+# depth and workload scale of each chunk-vs-per-tick case (the per-tick
+# side sets its cost)
+CHUNK_CASE_SIM_TIME = 0.06
+CHUNK_CASE_SCALE = 0.25
 SEEDS = (1, 2)
 # paper §4.1 (slope, intercept) and RED/ECN thresholds, benchmarks/common.py
 PARAMS = {"reno": (1.75, 0.25), "cubic": (1.0, 0.5), "dcqcn": (1.067, 0.267)}
@@ -79,6 +91,12 @@ ALGO_ID = {"reno": 0, "cubic": 1, "dcqcn": 2}
 OPS_PER_FLOW = {0: 30, 1: 70, 2: 45}
 REPLACES = "src/repro/kernels/mltcp_step.py:98"
 DEVICE = "cuda"
+# Latency model of one tick of the chunk kernel (PERF.md §6): cycles of
+# one dependent shared-memory load and use and of one CTA barrier (assumed
+# Hopper figures, not measured here); the clock is the card's own
+# (`sm_clock_hz`).
+SMEM_LATENCY_CYCLES = 30
+BARRIER_CYCLES = 20
 
 RESULTS: dict = {}
 
@@ -94,6 +112,15 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
 
 
 def _device_us(e) -> float:
@@ -314,19 +341,23 @@ def phase_kernel(ms, core) -> dict:
 
 
 def fig7_cfg(core, netsim, workload, algo: str, variant: int,
-             sim_time: float):
-    """benchmarks/common.build_cfg for two GPT-2 jobs on dumbbell(2, 2)."""
+             sim_time: float, topo=None, models=("gpt2", "gpt2"),
+             proto_kw=None, scale=1.0, **cfg_kw):
+    """benchmarks/common.build_cfg for two GPT-2 jobs on dumbbell(2, 2)
+    (another fabric, job mix, workload scale, protocol option or engine
+    option on request)."""
     slope, intercept = PARAMS[algo]
     proto = core.MLTCPConfig(
         cc=core.CCParams(algo=ALGO_ID[algo], variant=variant, tick_dt=DT,
                          rtt=RTT),
-        slope=slope, intercept=intercept)
-    profiles = [workload.profile_for("gpt2").scaled(WORK_SCALE)
-                for _ in range(2)]
+        slope=slope, intercept=intercept, **(proto_kw or {}))
+    profiles = [workload.profile_for(m).scaled(WORK_SCALE * scale)
+                for m in models]
     return netsim.SimConfig(
-        topo=netsim.dumbbell(2, sockets_per_job=2),
+        topo=topo or netsim.dumbbell(2, sockets_per_job=2),
         jobs=workload.jobspec_from_profiles(profiles), protocol=proto,
-        sim_time=sim_time, dt=DT, seed=SEEDS[0], **RED_BY_ALGO[algo])
+        sim_time=sim_time, dt=DT, seed=SEEDS[0],
+        **{**RED_BY_ALGO[algo], **cfg_kw})
 
 
 def ticks_run(cfg) -> int:
@@ -334,20 +365,48 @@ def ticks_run(cfg) -> int:
     return (cfg.n_ticks // per_chunk) * per_chunk
 
 
-def run_counted(ms, ops, netsim, cfg):
-    """One sweep with the launch and fallback counts set to 0 just before
-    and read just after; returns (raw, seconds, launches, fallbacks)."""
+def n_chunks_run(cfg) -> int:
+    return cfg.n_ticks // max(1, cfg.n_ticks // cfg.n_chunks)
+
+
+def run_counted(kern, cfg, sweep=None, per_tick=False):
+    """One sweep with every launch and fallback count set to 0 just before
+    and read just after; returns (raw, seconds, counts).  ``per_tick`` runs
+    the per-tick path (the chunk kernel's plain version) instead of the
+    main path."""
     import torch
 
-    sweep = netsim.make_sweep(cfg, device=DEVICE, seed=list(SEEDS))
+    from repro_torch import netsim
+    from repro_torch.netsim import engine
+
+    ms, nc, ops = kern["ms"], kern["nc"], kern["ops"]
+    if sweep is None:
+        sweep = netsim.make_sweep(cfg, device=DEVICE, seed=list(SEEDS))
     torch.cuda.synchronize()
-    ms.LAUNCH_COUNT = 0
-    ops.FALLBACK_COUNT = 0
+    ms.LAUNCH_COUNT = nc.LAUNCH_COUNT = 0
+    ops.FALLBACK_COUNT = ops.CHUNK_FALLBACK_COUNT = 0
     t0 = time.time()
-    raw = netsim.simulate_sweep(cfg, sweep, device=DEVICE)
+    if per_tick:
+        raw = engine.run_ticks(cfg, sweep, per_tick=True)
+    else:
+        raw = netsim.simulate_sweep(cfg, sweep, device=DEVICE)
     torch.cuda.synchronize()
     seconds = time.time() - t0
-    return raw, seconds, ms.LAUNCH_COUNT, ops.FALLBACK_COUNT
+    counts = dict(netsim_chunk=nc.LAUNCH_COUNT, mltcp_step=ms.LAUNCH_COUNT,
+                  fallbacks=ops.FALLBACK_COUNT,
+                  chunk_fallbacks=ops.CHUNK_FALLBACK_COUNT)
+    return raw, seconds, counts
+
+
+def check_counts(what: str, cfg, counts: dict, per_tick=False) -> None:
+    """The main path: one chunk launch per chunk, no per-tick CC launch,
+    no fallback; the per-tick path: one CC launch per tick, no chunk."""
+    want = dict(netsim_chunk=0 if per_tick else n_chunks_run(cfg),
+                mltcp_step=ticks_run(cfg) if per_tick else 0,
+                fallbacks=0, chunk_fallbacks=0)
+    if counts != want:
+        raise AssertionError(f"{what}: launches and fallbacks {counts}, "
+                             f"expected {want}")
 
 
 def check_finite(netsim, cfg, raw) -> list:
@@ -365,24 +424,176 @@ def check_finite(netsim, cfg, raw) -> list:
     return res
 
 
-def phase_main_path(ms, ops, core, netsim, workload) -> dict:
+def named_leaves(tree, prefix="") -> list:
+    """(name, leaf) for every tensor or array of a NamedTuple tree."""
+    import numpy as np
+    import torch
+
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return [(prefix, tree)]
+    if tree is None:
+        return []
+    names = getattr(tree, "_fields", None) or range(len(tree))
+    return [x for name, v in zip(names, tree)
+            for x in named_leaves(v, f"{prefix}.{name}" if prefix else
+                                  str(name))]
+
+
+def compare_trees(got, want) -> tuple[float, int]:
+    """Raise unless every leaf is bitwise equal (NaNs included); returns
+    (max |diff| over the float leaves, the number of leaves)."""
+    import numpy as np
+    import torch
+
+    a, b = named_leaves(got), named_leaves(want)
+    if [n for n, _ in a] != [n for n, _ in b]:
+        raise AssertionError("the two outputs have different leaves")
+    worst = 0.0
+    for (name, g), (_, w) in zip(a, b):
+        if isinstance(g, np.ndarray):
+            same = np.array_equal(g, w)
+        elif g.dtype != w.dtype or g.shape != w.shape:
+            same = False
+        elif g.dtype == torch.float32:
+            same = torch.equal(g.view(torch.int32), w.view(torch.int32))
+            both = torch.isnan(g) & torch.isnan(w)
+            diff = torch.where(both, 0.0, (g - w).abs())
+            worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+        else:
+            same = torch.equal(g, w)
+        if not same:
+            raise AssertionError(f"chunk kernel != per-tick path on {name}")
+    return worst, len(a)
+
+
+def chunk_cases(core, netsim, workload, sim_time: float) -> list:
+    """(name, config, sweep overrides) of the chunk-vs-per-tick check: Reno
+    OFF/WI/MD, CUBIC, DCQCN with ECN, Static factors, per-flow statistics,
+    Cassini with stragglers at the fig 7 width (K=2, N=4); the fig 10
+    width (6 jobs x 2 flows, padded to 2-6 active jobs, K=5); the two-tier
+    leaf/spine (M=9) with a 4-phase GPT-3 hybrid job.  The workload is
+    scaled to a quarter of the suite's (iterations of ~12 ms, not ~45 ms)
+    so that a short case completes iterations; the widths are the
+    suite's."""
     import numpy as np
 
-    runs = {}
-    launches = 0
+    def cfg(algo, variant, **kw):
+        return fig7_cfg(core, netsim, workload, algo, variant, sim_time,
+                        scale=CHUNK_CASE_SCALE, **kw)
+    seeds = dict(seed=list(SEEDS))
+    return [
+        ("reno_off", cfg("reno", 0), seeds),
+        ("reno_wi", cfg("reno", 1), seeds),
+        ("reno_md", cfg("reno", 2), seeds),
+        ("cubic_wi", cfg("cubic", 1), seeds),
+        ("dcqcn_wi_ecn", cfg("dcqcn", 1), seeds),
+        ("reno_wi_static_factors",
+         cfg("reno", 1, static_job_factors=np.asarray([0.6, -1.0])), seeds),
+        ("reno_wi_per_flow_stats",
+         cfg("reno", 1, proto_kw=dict(aggregate_by_job=False)), seeds),
+        ("reno_wi_cassini_stragglers",
+         cfg("reno", 1, cassini=netsim.CassiniSchedule(
+             offset=np.asarray([0.0, 0.006]), period=np.asarray([0.013, 0.0]),
+             eps=1e-3)),
+         dict(seed=list(SEEDS), straggle_prob=[[0.5, 0.5], [0.2, 0.0]])),
+        ("fig10_width_padded",
+         cfg("reno", 1, topo=netsim.dumbbell(6, sockets_per_job=2),
+             models=("gpt2",) * 6),
+         dict(seed=[SEEDS[0]] * 5,
+              job_active=[[j < n for j in range(6)] for n in range(2, 7)])),
+        ("two_tier",
+         cfg("cubic", 1, topo=netsim.two_tier([(0, 1), (1, 2), (2, 3), (3, 0)],
+                                             sockets_per_job=2),
+             models=("gpt3_hybrid", "gpt2", "gpt2", "gpt2")), seeds),
+    ]
+
+
+def phase_chunk_vs_per_tick(kern, core, netsim, workload) -> dict:
+    """The chunk kernel against the per-tick path (its plain version, with
+    the per-tick CC kernel) on the card: every leaf of RawSimOutput,
+    final_state included, bit for bit."""
+    out = {}
+    sim_time = CHUNK_CASE_SIM_TIME
+    for name, cfg, overrides in chunk_cases(core, netsim, workload, sim_time):
+        sweep = netsim.make_sweep(cfg, device=DEVICE, **overrides)
+        got, chunk_s, counts = run_counted(kern, cfg, sweep)
+        check_counts(name, cfg, counts)
+        want, tick_s, tick_counts = run_counted(kern, cfg, sweep,
+                                                per_tick=True)
+        check_counts(f"{name} per-tick", cfg, tick_counts, per_tick=True)
+        err, n_leaves = compare_trees(got, want)
+        ticks = ticks_run(cfg)
+        if int(want.iter_counts.sum()) == 0:
+            raise AssertionError(f"{name}: no iteration completed, so the "
+                                 f"comparison misses the phase machine")
+        out[name] = dict(
+            k=int(sweep.slope.shape[0]), m=cfg.topo.n_links,
+            n=cfg.topo.n_flows, j=cfg.jobs.n_jobs, ticks=ticks,
+            chunks=n_chunks_run(cfg), leaves=n_leaves, bitwise=True,
+            max_abs_err=err,
+            iterations=int(want.iter_counts.sum()),
+            boundaries=int(want.final_state.proto.det.n_boundaries.sum()),
+            chunk_us_per_tick=1e6 * chunk_s / ticks,
+            per_tick_us_per_tick=1e6 * tick_s / ticks)
+    emit("chunk_vs_per_tick", sim_time=sim_time, cases=out)
+    return out
+
+
+def host_inputs(cfg, n: int = 20) -> dict:
+    """The host's share of a chunk apart, each in µs per tick at the
+    config's chunk size: `chunk_inputs` (the library's C draws into pinned
+    memory, the copy, the time and start masks), the C draws alone, and
+    the numpy draws (`netsim.random.chunk_draws`, the CPU path) alone."""
+    import torch
+
+    from repro_torch import netsim
+    from repro_torch.kernels import netsim_chunk as nc
+    from repro_torch.netsim import engine
+    from repro_torch.netsim import random as rng
+
+    sweep = netsim.make_sweep(cfg, device=DEVICE, seed=list(SEEDS))
+    statics = engine._build_statics(cfg, sweep.slope.device)
+    st = engine._init_state(cfg, statics, sweep)
+    tpc = max(1, cfg.n_ticks // cfg.n_chunks)
+    engine.chunk_inputs(cfg, statics, sweep, st, tpc)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(n):
+        inputs = engine.chunk_inputs(cfg, statics, sweep, st, tpc)
+        st = st._replace(key=inputs.key[-1])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    key = st.key
+    n_flows, n_jobs = cfg.topo.n_flows, cfg.jobs.n_jobs
+    out = torch.empty((tpc, len(SEEDS), 2 * n_flows + 2 * n_jobs))
+    for _ in range(n):
+        key = nc.host_draws(key, tpc, n_flows, n_jobs, out)[-1]
+    t2 = time.time()
+    for _ in range(n):
+        key = rng.chunk_draws(key, tpc, n_flows, n_jobs).keys[-1]
+    t3 = time.time()
+    return dict(ticks_per_chunk=tpc,
+                chunk_inputs_us_per_tick=1e6 * (t1 - t0) / (n * tpc),
+                c_draws_us_per_tick=1e6 * (t2 - t1) / (n * tpc),
+                numpy_draws_us_per_tick=1e6 * (t3 - t2) / (n * tpc))
+
+
+def phase_main_path(kern, core, netsim, workload) -> dict:
+    """fig7-reno OFF and WI at the suite's 1.5 s through the chunk kernel,
+    counted; then both paths timed in turns on the WI sweep."""
+    import numpy as np
+
+    runs, cc_launches = {}, 0
     for name, variant in (("OFF", 0), ("WI", 1)):
         cfg = fig7_cfg(core, netsim, workload, "reno", variant, MAIN_SIM_TIME)
-        raw, seconds, n_launch, n_fallback = run_counted(ms, ops, netsim, cfg)
+        raw, seconds, counts = run_counted(kern, cfg)
+        check_counts(f"main path {name}", cfg, counts)
+        cc_launches += counts["mltcp_step"]
         ticks = ticks_run(cfg)
-        if n_launch != ticks:
-            raise AssertionError(f"{name}: {n_launch} kernel launches for "
-                                 f"{ticks} ticks")
-        if n_fallback != 0:
-            raise AssertionError(f"{name}: {n_fallback} fallbacks")
-        launches += n_launch
         res = check_finite(netsim, cfg, raw)
         runs[name] = dict(
-            results=res, ticks=ticks, seconds=seconds, launches=n_launch,
+            results=res, ticks=ticks, chunks=n_chunks_run(cfg),
+            seconds=seconds, launches=counts["netsim_chunk"],
             us_per_tick=1e6 * seconds / ticks,
             interleave=float(np.mean([netsim.mean_pairwise_interleave(r)
                                       for r in res])),
@@ -393,6 +604,25 @@ def phase_main_path(ms, ops, core, netsim, workload) -> dict:
         raise AssertionError(f"WI interleave {wi['interleave']} is not "
                              f"below OFF's {off['interleave']}")
     sp = netsim.sweep_speedup_stats(off["results"], wi["results"])
+
+    # both paths in turns on the WI sweep: per-tick (short), chunk, chunk,
+    # per-tick
+    turns = []
+    per_tick_path_launches = None
+    for per_tick in (True, False, False, True):
+        cfg = fig7_cfg(core, netsim, workload, "reno", 1,
+                       PER_TICK_SIM_TIME if per_tick else MAIN_SIM_TIME)
+        _, seconds, counts = run_counted(kern, cfg, per_tick=per_tick)
+        check_counts("turn", cfg, counts, per_tick=per_tick)
+        if per_tick and per_tick_path_launches is None:
+            per_tick_path_launches = counts["mltcp_step"]
+        turns.append(dict(path="per_tick" if per_tick else "chunk",
+                          ticks=ticks_run(cfg), seconds=seconds,
+                          us_per_tick=1e6 * seconds / ticks_run(cfg)))
+    chunk_us = statistics.median(t["us_per_tick"] for t in turns
+                                 if t["path"] == "chunk")
+    tick_us = statistics.median(t["us_per_tick"] for t in turns
+                                if t["path"] == "per_tick")
     cpu_era = None
     path = os.path.join(ROOT, "results", "benchmarks.json")
     if os.path.exists(path):
@@ -407,11 +637,20 @@ def phase_main_path(ms, ops, core, netsim, workload) -> dict:
     out = dict(
         config="fig7-9 reno: 2x gpt2 @ WORK_SCALE 0.25, dumbbell(2, 2) "
                "50 Gbps, dt 2e-5, rtt 1e-4, seeds (1, 2)",
-        sim_time=MAIN_SIM_TIME, launches=launches, fallbacks=0,
+        sim_time=MAIN_SIM_TIME, launches=off["launches"] + wi["launches"],
+        per_tick_cc_launches=cc_launches, fallbacks=0, chunk_fallbacks=0,
         **{f"{v}_{k}": runs[v][k] for v in ("OFF", "WI")
-           for k in ("ticks", "seconds", "us_per_tick", "interleave",
-                     "iter_counts", "drops_per_s", "launches")},
+           for k in ("ticks", "chunks", "seconds", "us_per_tick",
+                     "interleave", "iter_counts", "drops_per_s",
+                     "launches")},
         avg_speedup=sp["avg_speedup"], p99_speedup=sp["p99_speedup"],
+        per_tick_path_recorded=PER_TICK_FIG7,
+        turns=turns, chunk_us_per_tick=chunk_us,
+        per_tick_us_per_tick=tick_us, per_tick_over_chunk=tick_us / chunk_us,
+        bar_met=bool(chunk_us <= 100.0 and tick_us / chunk_us >= 20.0),
+        per_tick_path_launches=per_tick_path_launches,
+        host=host_inputs(fig7_cfg(core, netsim, workload, "reno", 1,
+                                  MAIN_SIM_TIME)),
         cpu_era=cpu_era)
     emit("main_path", **out)
     return out
@@ -444,22 +683,21 @@ def phase_small_agreement(core, netsim) -> dict:
     return out
 
 
-def phase_engine_states(ms, ops, core, netsim, workload) -> dict:
-    """CUBIC WI and DCQCN WI from the engine; their final protocol state and
-    the feedback in the ring slot the next tick reads go through the kernel
-    and the plain version."""
+def phase_engine_states(kern, core, netsim, workload) -> dict:
+    """CUBIC WI and DCQCN WI from the engine (the chunk kernel); their
+    final protocol state and the feedback in the ring slot the next tick
+    reads go through the per-tick CC kernel and its plain version."""
     import torch
 
     from repro_torch.core import iteration
     from repro_torch.netsim import engine
 
+    ms = kern["ms"]
     out = {}
     for algo in ("cubic", "dcqcn"):
         cfg = fig7_cfg(core, netsim, workload, algo, 1, SPEC_SIM_TIME)
-        raw, seconds, n_launch, n_fallback = run_counted(ms, ops, netsim, cfg)
-        if n_launch != ticks_run(cfg) or n_fallback != 0:
-            raise AssertionError(f"{algo}: {n_launch} launches, "
-                                 f"{n_fallback} fallbacks")
+        raw, seconds, counts = run_counted(kern, cfg)
+        check_counts(algo, cfg, counts)
         check_finite(netsim, cfg, raw)
         st = raw.final_state
         k = st.ring_ptr.shape[0]
@@ -479,53 +717,164 @@ def phase_engine_states(ms, ops, core, netsim, workload) -> dict:
                       loss=st.ring_loss[kidx, ptr], cnp=st.ring_cnp[kidx, ptr],
                       total_bytes=wl.flow_total,
                       job_numer=g.spread(g.sum(d.bytes_sent + ackb)))
+        arrays = {f: v.contiguous() for f, v in arrays.items()}
         now = st.tick.to(torch.float32) * cfg.dt
         args = (ms.static_params(cfg.protocol.cc, True), wl.dyn.stacked(),
                 arrays, now, None)
         err = compare_outputs(ms, ms.mltcp_tick(*args),
                               ms.mltcp_tick_reference(*args))
-        out[algo] = dict(ticks=ticks_run(cfg), launches=n_launch,
+        out[algo] = dict(ticks=ticks_run(cfg), launches=counts,
                          us_per_tick=1e6 * seconds / ticks_run(cfg),
                          bitwise=True, max_abs_err=err)
     emit("engine_states", **out)
     return out
 
 
-def phase_profile(core, netsim, workload) -> dict:
-    """A profiler window over the main path's WI sweep: the card's busy
-    time per tick, its share of the (profiled) wall time, the device-side
-    launches per tick and the kernel's own device time per launch.  The
-    profiler adds host cost, so the busy share is a lower bound."""
+def chunk_bound(nc, cfg, st, after, run, inputs, traces) -> dict:
+    """The least time one chunk launch from state ``st`` could take (``after``
+    the plain version's state after it): the larger of the bytes the launch
+    must move over the card's memory rate, the float operations over the
+    f32 peak (counted from the source per tick), and the latency of a
+    tick's dependent chain over the chunk's ticks (the model's cycles at
+    the card's clock).  The bytes: the state read once and written once,
+    but the accumulators (written only) and ``iter_times``, of which only
+    the slots of this chunk's completed iterations are written; the run's
+    constants, the chunk's inputs and the probes' trace column."""
+    cs = nc.pack_state(st)
+    state = sum(t.numel() * t.element_size() for name, t in
+                zip(cs._fields, cs) if name not in ("iter_times", "acc"))
+    slots = int((after.iter_idx - st.iter_idx).sum())
+    const = sum(t.numel() * t.element_size() for t in run[:7]
+                if t is not None)
+    ins = sum(t.numel() * t.element_size()
+              for t in (inputs.t, inputs.started, inputs.loss_u,
+                        inputs.cnp_u, inputs.straggles, inputs.strag_amt))
+    out = sum(t.numel() * t.element_size() for t in traces)
+    nbytes = (2 * state + cs.acc.numel() * cs.acc.element_size()
+              + 4 * slots + const + ins + out)
+    shape = nc.shape_of(cfg)
+    m, n, j, s = shape["M"], shape["N"], shape["J"], shape["S"]
+    k, ticks = int(inputs.t.shape[1]), int(inputs.t.shape[0])
+    # per tick and point: 8 per (link, flow) element (enqueue, RED,
+    # serve, route), the folds, the CC update and the per-flow phases, the
+    # per-job phase machine and member folds
+    ops = ((m + 1) * n * 8 + m * (2 * n + 12) + n * (25 + m)
+           + n * OPS_PER_FLOW[int(cfg.protocol.cc.algo)] + j * (2 * s + 20))
+    # a tick's chain: 7 barriers, and per phase a dependent shared-memory
+    # load and a store read after the barrier (8 phases); the points run
+    # side by side on separate SMs
+    chain_cycles = 7 * BARRIER_CYCLES + 2 * 8 * SMEM_LATENCY_CYCLES
+    clock = sm_clock_hz()
+    times = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "operations": k * ticks * ops / F32_OPS_PER_S,
+             "latency": ticks * chain_cycles / clock}
+    model = max(times, key=times.get)
+    return dict(bytes=nbytes, iter_slots_written=slots, ops=k * ticks * ops,
+                bytes_ms=1e3 * times["bytes"],
+                operations_ms=1e3 * times["operations"],
+                latency_floor_ms=1e3 * times["latency"],
+                latency_floor_us_per_tick=1e6 * chain_cycles / clock,
+                chain_cycles=chain_cycles, sm_clock_hz=clock,
+                bound_ms=1e3 * times[model], bound_model=model,
+                # the chain is one of dependent operations
+                bound_by="bytes" if model == "bytes" else "operations")
+
+
+def phase_chunk_timing(kern, core, netsim, workload) -> dict:
+    """One chunk at the main path's shape (fig7-reno WI, K=2, 187 ticks a
+    chunk, from a state 40 chunks into the run): the kernel's launch on the
+    packed state, as the main path makes it, against the plain version,
+    bitwise and by CUDA events, beside the bound; the launch's dynamic
+    shared memory (the library's size) and each specialization's registers
+    and spills from the runtime."""
+    from repro_torch.netsim import engine
+
+    nc = kern["nc"]
+    cfg = fig7_cfg(core, netsim, workload, "reno", 1, MAIN_SIM_TIME)
+    sweep = netsim.make_sweep(cfg, device=DEVICE, seed=list(SEEDS))
+    statics = engine._build_statics(cfg, sweep.slope.device)
+    wl = engine._workload_view(cfg, statics, sweep)
+    run = nc.prepare(cfg, statics, sweep, wl)
+    tpc = max(1, cfg.n_ticks // cfg.n_chunks)
+    chunks = nc.ChunkRun(run, engine._init_state(cfg, statics, sweep), 40)
+    for _ in range(40):
+        chunks.step(engine.chunk_inputs(cfg, statics, sweep, chunks, tpc))
+    st = nc.unpack_state(nc.pack_state(chunks.state()), chunks.key)
+    inputs = engine.chunk_inputs(cfg, statics, sweep, st, tpc)
+    plain = lambda: engine.run_chunk_reference(  # noqa: E731
+        cfg, statics, sweep, wl, st, inputs)
+    want = plain()
+    cs = nc.pack_state(st)
+    traces = nc.traces_for(cs, 1)
+    nc.launch(run, cs, inputs, traces, 0)
+    err, _ = compare_trees((nc.unpack_state(cs, inputs.key[-1]),
+                            tuple(t[:, 0] for t in traces)), want)
+    launch = lambda: nc.launch(run, cs, inputs, traces, 0)  # noqa: E731
+    bound = chunk_bound(nc, cfg, st, want[0], run, inputs, traces)
+    every = {f"algo{a}_var{v}_agg{int(g)}_fac{int(f)}":
+             nc.kernel_attributes(a, v, g, f)
+             for a in (0, 1, 2) for v in (0, 1, 2, 3)
+             for g in (False, True) for f in (False, True)}
+    out = dict(k=len(SEEDS), ticks=tpc, shape=nc.shape_of(cfg),
+               smem_bytes=nc.launch_smem_bytes(run), threads=run.threads,
+               ms=event_ms(launch, 20), plain_ms=event_ms(plain, 2, warm=1),
+               max_abs_err=err, **bound,
+               attributes=every["algo0_var1_agg1_fac0"],
+               registers_range=[min(x["registers"] for x in every.values()),
+                                max(x["registers"] for x in every.values())],
+               spilling={name: x["local_bytes"] for name, x in every.items()
+                         if x["local_bytes"]})
+    out["ms_per_tick"] = out["ms"] / tpc
+    emit("chunk_timing", **out)
+    return out
+
+
+def phase_profile(kern, core, netsim, workload) -> dict:
+    """Profiler windows over both paths of the main path's WI sweep: the
+    chunk path at its chunk size (40 chunks of 187 ticks) and 300 ticks of
+    the per-tick path.  Each: the card's busy time per tick, its share of
+    the (profiled) wall time, the device-side launches per tick and the
+    kernel's own device time per launch.  The profiler adds host cost, so
+    the busy share is a lower bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    ticks = 300
-    cfg = fig7_cfg(core, netsim, workload, "reno", 1, ticks * DT)
-    sweep = netsim.make_sweep(cfg, device=DEVICE, seed=list(SEEDS))
-    netsim.simulate_sweep(cfg, sweep, device=DEVICE)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        netsim.simulate_sweep(cfg, sweep, device=DEVICE)
-        torch.cuda.synchronize()
-        wall_s = time.time() - t0
+    from repro_torch.netsim import engine
 
-    rows = device_rows(prof)
-    busy_us = sum(_device_us(e) for e in rows)
-    kern = [e for e in rows if "mltcp_step_kernel" in e.key]
-    n_kern = sum(e.count for e in kern)
-    top = sorted(rows, key=_device_us, reverse=True)[:8]
-    out = dict(
-        ticks=ticks, wall_s=wall_s, device_busy_us=busy_us,
-        busy_share=busy_us / (wall_s * 1e6),
-        device_us_per_tick=busy_us / ticks,
-        device_launches_per_tick=sum(e.count for e in rows) / ticks,
-        kernel_launches=n_kern,
-        kernel_device_us_per_launch=(sum(_device_us(e) for e in kern)
-                                     / n_kern if n_kern else None),
-        top=[dict(name=e.key[:70], count=e.count, device_us=_device_us(e))
-             for e in top])
+    def window(cfg, per_tick, key):
+        sweep = netsim.make_sweep(cfg, device=DEVICE, seed=list(SEEDS))
+        engine.run_ticks(cfg, sweep, per_tick=per_tick)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            engine.run_ticks(cfg, sweep, per_tick=per_tick)
+            torch.cuda.synchronize()
+            wall_s = time.time() - t0
+        ticks = ticks_run(cfg)
+        rows = device_rows(prof)
+        busy_us = sum(_device_us(e) for e in rows)
+        mine = [e for e in rows if key in e.key]
+        n_kern = sum(e.count for e in mine)
+        kern_us = sum(_device_us(e) for e in mine)
+        top = sorted(rows, key=_device_us, reverse=True)[:8]
+        return dict(
+            ticks=ticks, wall_s=wall_s, device_busy_us=busy_us,
+            busy_share=busy_us / (wall_s * 1e6),
+            wall_us_per_tick=1e6 * wall_s / ticks,
+            device_us_per_tick=busy_us / ticks,
+            device_launches_per_tick=sum(e.count for e in rows) / ticks,
+            kernel=key, kernel_launches=n_kern,
+            kernel_device_us_per_launch=kern_us / n_kern if n_kern else None,
+            kernel_device_us_per_tick=kern_us / ticks,
+            top=[dict(name=e.key[:70], count=e.count, device_us=_device_us(e))
+                 for e in top])
+
+    chunk_cfg = fig7_cfg(core, netsim, workload, "reno", 1,
+                         MAIN_SIM_TIME * 40 / 400, n_chunks=40)
+    tick_cfg = fig7_cfg(core, netsim, workload, "reno", 1, 300 * DT)
+    out = dict(chunk=window(chunk_cfg, False, "netsim_chunk_kernel"),
+               per_tick=window(tick_cfg, True, "mltcp_step_kernel"))
     emit("profile", **out)
     return out
 
@@ -573,6 +922,7 @@ RGLRU_REPLACES = "src/repro/kernels/rg_lru.py:24"
 # its largest magnitude; a wrong mask, head mapping or state would be off
 # by O(1) of it.
 SERVE_REL_BOUND = 1e-3
+DECODE_TURNS = 5
 
 
 def _tdtype(name):
@@ -898,29 +1248,33 @@ def profile_top(fn, keys: tuple = (), n: int = 8) -> dict:
                           device_ms=_device_us(e) * 1e-3) for e in top])
 
 
-def phase_serve(fa, rl, ms, ops) -> dict:
+def phase_serve(fa, rl, kern) -> dict:
     """recurrentgemma-2b served at full width through the kernels, counted;
     then the same prompt through the plain path, compared."""
     import torch
 
     from repro_torch.launch.serve import serve
     from repro_torch.models import api
+    from repro_torch.train import make_decode_step
 
+    ms, nc, ops = kern["ms"], kern["nc"], kern["ops"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCH_COUNT = rl.LAUNCH_COUNT = ms.LAUNCH_COUNT = 0
-    ops.FALLBACK_COUNT = 0
+    fa.LAUNCH_COUNT = rl.LAUNCH_COUNT = ms.LAUNCH_COUNT = nc.LAUNCH_COUNT = 0
+    ops.FALLBACK_COUNT = ops.CHUNK_FALLBACK_COUNT = 0
     t0 = time.time()
     out = serve(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                 new_tokens=SERVE_NEW, preset="full", seed=0)
     torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = dict(flash_attention=fa.LAUNCH_COUNT, rg_lru=rl.LAUNCH_COUNT,
-                    mltcp_step=ms.LAUNCH_COUNT, fallbacks=ops.FALLBACK_COUNT)
+                    mltcp_step=ms.LAUNCH_COUNT, netsim_chunk=nc.LAUNCH_COUNT,
+                    fallbacks=ops.FALLBACK_COUNT + ops.CHUNK_FALLBACK_COUNT)
     cfg, model, req = out["cfg"], out["model"], out["request"]
     kinds = [blk.kind for blk in model.layers]
     want = dict(flash_attention=kinds.count("attn_local") + kinds.count("attn"),
-                rg_lru=kinds.count("rec"), mltcp_step=0, fallbacks=0)
+                rg_lru=kinds.count("rec"), mltcp_step=0, netsim_chunk=0,
+                fallbacks=0)
     if launches != want or want["flash_attention"] != 8 or want["rg_lru"] != 18:
         raise AssertionError(f"serve launches {launches}, expected {want} "
                              f"(8 flash, 18 RG-LRU per prefill)")
@@ -990,6 +1344,23 @@ def phase_serve(fa, rl, ms, ops) -> dict:
             for i in range(3):
                 api.decode_step(cfg, model, cache_k, tok, pos0 + i)
     decode_prof = profile_top(three_steps)
+
+    # warm decode: serve's decode step, SERVE_NEW - 1 steps from the
+    # prefill's cache, DECODE_TURNS times (serve's own figure is its first
+    # call's, which pays one-time host costs)
+    decode = make_decode_step(cfg)
+    turn_s = []
+    with torch.no_grad():
+        for _ in range(DECODE_TURNS):
+            torch.cuda.synchronize()
+            t1 = time.time()
+            step_tok, cache = tok, cache_k
+            for i in range(SERVE_NEW - 1):
+                step_tok, cache = decode(model, cache, step_tok, pos0 + i)
+            torch.cuda.synchronize()
+            turn_s.append(time.time() - t1)
+    del cache
+    warm_rates = [SERVE_BATCH * (SERVE_NEW - 1) / t for t in turn_s]
     per_launch = {key: (v["device_ms"] / v["count"] if v["count"] else None)
                   for key, v in traced.items()}
     del cache_k, logits_k
@@ -1003,6 +1374,8 @@ def phase_serve(fa, rl, ms, ops) -> dict:
         plain_prefill_ms=plain_prefill_s * 1e3,
         decode_ms_per_step=out["decode_s"] * 1e3 / (SERVE_NEW - 1),
         decode_tok_per_s=out["decode_tok_per_s"],
+        warm_decode_tok_per_s=statistics.median(warm_rates),
+        warm_decode_tok_per_s_turns=warm_rates,
         prefill_tok_per_s=SERVE_BATCH * SERVE_PROMPT / out["prefill_s"],
         peak_memory_gb=peak_gb,
         logits_max_abs_diff=logit_abs, logits_max_rel_diff=logit_rel,
@@ -1021,19 +1394,26 @@ def phase_serve(fa, rl, ms, ops) -> dict:
     return res
 
 
-def kernel_table(kern: dict, main: dict, states: dict, lm: dict,
-                 served: dict) -> list:
+def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
+                 timing: dict, prof: dict, lm: dict, served: dict) -> list:
     main_row = next(r for r in kern["main_shape"] if r["algo"] == 0)
     serve_attrs = lm["flash"]["attributes"]["float32_d256"]
     errs = [kern["max_abs_err"]] + [r["max_abs_err"] for r in
                                     kern["main_shape"] + kern["large"]]
     errs += [s["max_abs_err"] for s in states.values()]
+    chunk_prof = prof["chunk"]
     return [{
         "name": "mltcp_step",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mltcp_step.cu",
         "replaces": REPLACES,
-        "launches": main["launches"],
+        # none on the main path, which runs the chunk kernel; one per tick
+        # on the per-tick path (the chunk kernel's plain version, and the
+        # card's path for the configurations the chunk kernel does not
+        # take), counted in its timed fig7-reno turn
+        "launches": main["per_tick_cc_launches"],
+        "per_tick_path_launches": main["per_tick_path_launches"],
+        "path": "per-tick",
         "max_abs_err": max(errs),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -1047,6 +1427,32 @@ def kernel_table(kern: dict, main: dict, states: dict, lm: dict,
                                      "device_ms", "plain_device_ms",
                                      "bound_ms", "bound_by", "gbytes_per_s")}
                   for r in kern["large"]],
+    }, {
+        "name": "netsim_chunk",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/netsim_chunk.cu",
+        "replaces": REPLACES,
+        "launches": main["launches"],
+        "path": "main",
+        "max_abs_err": max([timing["max_abs_err"]]
+                           + [c["max_abs_err"] for c in chunks.values()]),
+        "ms": timing["ms"],
+        "plain_ms": timing["plain_ms"],
+        "device_ms": chunk_prof["kernel_device_us_per_launch"] * 1e-3,
+        "device_ms_per_tick": chunk_prof["kernel_device_us_per_tick"] * 1e-3,
+        "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"],
+        "bound_model": timing["bound_model"],
+        "library_ms": None,
+        "ticks_per_launch": timing["ticks"],
+        "us_per_tick": main["chunk_us_per_tick"],
+        "per_tick_path_us_per_tick": main["per_tick_us_per_tick"],
+        "registers": timing["attributes"]["registers"],
+        "spill_bytes": timing["attributes"]["local_bytes"],
+        "spilling_specializations": timing["spilling"],
+        "smem_bytes": timing["smem_bytes"],
+        "static_smem_bytes": timing["attributes"]["static_smem_bytes"],
+        "shape": timing["shape"],
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -1114,25 +1520,30 @@ def main(argv=None) -> int:
     from repro_torch import core, netsim, workload
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mltcp_step as ms
+    from repro_torch.kernels import netsim_chunk as nc
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rg_lru as rl
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
+    sim_kernels = dict(ms=ms, nc=nc, ops=ops)
     if args.probe_flash is not None:
         probe_flash(fa, ref, args.probe_flash)
         write_results(args.out, t_start)
         return 0
-    dev = phase_device([ms.LIBRARY, fa.LIBRARY, rl.LIBRARY])
+    dev = phase_device([ms.LIBRARY, nc.LIBRARY, fa.LIBRARY, rl.LIBRARY])
     kern = phase_kernel(ms, core)
-    main_path = phase_main_path(ms, ops, core, netsim, workload)
+    chunks = phase_chunk_vs_per_tick(sim_kernels, core, netsim, workload)
+    main_path = phase_main_path(sim_kernels, core, netsim, workload)
     phase_small_agreement(core, netsim)
-    states = phase_engine_states(ms, ops, core, netsim, workload)
-    phase_profile(core, netsim, workload)
+    states = phase_engine_states(sim_kernels, core, netsim, workload)
+    timing = phase_chunk_timing(sim_kernels, core, netsim, workload)
+    prof = phase_profile(sim_kernels, core, netsim, workload)
     lm = phase_lm_kernels(fa, rl, ref)
-    served = phase_serve(fa, rl, ms, ops)
-    table = kernel_table(kern, main_path, states, lm, served)
+    served = phase_serve(fa, rl, sim_kernels)
+    table = kernel_table(kern, main_path, states, chunks, timing, prof, lm,
+                         served)
     RESULTS["kernels"] = table
     write_results(args.out, t_start)
     print(json.dumps({"kernels": table}), flush=True)

@@ -2,17 +2,19 @@
 library with a plain C interface, loaded with ``ctypes``.
 
 Each kernel source ``csrc/<name>.cu`` becomes
-``build/kernels/<name>_<hash>.so``, the hash taken over the source and the
-nvcc flags, so a changed source or flag rebuilds and an unchanged one is
-reused.  Nothing is built at import: a `KernelLibrary` compiles at its
-first `load` (or when a caller starts the build early with `start_build`,
-as ``chip_smoke.py`` does to run every nvcc at once).
+``build/kernels/<name>_<hash>.so``, the hash taken over the source, every
+header it includes with ``#include "..."`` and the nvcc flags, so a changed
+source, header or flag rebuilds and an unchanged one is reused.  Nothing is
+built at import: a `KernelLibrary` compiles at its first `load` (or when a
+caller starts the build early with `start_build`, as ``chip_smoke.py`` does
+to run every nvcc at once).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -44,6 +46,25 @@ def nvcc_path() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_includes(source: Path) -> list[Path]:
+    """Every file a source reaches through ``#include "..."`` (resolved
+    beside the including file, as nvcc does), transitively, in first-seen
+    order: the headers a build depends on."""
+    found: list[Path] = []
+    todo = [source]
+    while todo:
+        including = todo.pop(0)
+        for name in _INCLUDE.findall(including.read_text()):
+            path = (including.parent / name).resolve()
+            if path.exists() and path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 class KernelLibrary:
     """One kernel source, its build and its loaded library.
 
@@ -63,6 +84,9 @@ class KernelLibrary:
 
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in local_includes(self.source):
+            h.update(header.name.encode())
+            h.update(header.read_bytes())
         h.update(" ".join(self.flags).encode())
         return build_dir() / f"{self.name}_{h.hexdigest()[:16]}.so"
 

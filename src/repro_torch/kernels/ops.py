@@ -4,6 +4,9 @@
   rg_lru           -- the RG-LRU scan for `models.rglru` (rg_lru.py)
   mltcp_cc_tick    -- the fused CC-tick kernel as a drop-in for
                       `repro_torch.core.cc_tick` (mltcp_step.py)
+  netsim_chunk     -- a simulator run through the chunk kernel: a chunk of
+                      fabric ticks, the CC update included, per launch
+                      (netsim_chunk.py)
 
 Each launches its CUDA kernel on CUDA tensors and runs the kernel's plain
 version on CPU tensors; nothing catches a build or launch failure.
@@ -16,6 +19,15 @@ not implement (a favoritism policy other than ``largest_data_sent``, an F
 family other than ``linear``, both only without Static factors) run
 `core.cc_tick` instead — loudly, via ``FALLBACK_COUNT`` and one warning per
 reason.  Every other case goes to `mltcp_step.mltcp_tick`.
+
+`netsim_chunk` decides, once per run, whether a simulator run goes through
+the chunk kernel: on the card it does, but for two structural cases that
+keep the per-tick path there (`engine._tick` per tick, its CC update
+through `mltcp_cc_tick`) — loudly, via ``CHUNK_FALLBACK_COUNT`` and one
+warning per reason: a configuration that `fallback_reason` sends to
+`core.cc_tick`, and a point whose state does not fit the kernel's
+shared-memory budget (`netsim_chunk.budget_reason`).  On the CPU the
+per-tick path is the plain version and nothing is counted.
 """
 from __future__ import annotations
 
@@ -28,6 +40,7 @@ from repro_torch.core import iteration
 from repro_torch.core import mltcp as core
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mltcp_step as ms
+from repro_torch.kernels import netsim_chunk as nc
 from repro_torch.kernels import rg_lru as rl
 
 Tensor = torch.Tensor
@@ -36,6 +49,11 @@ Tensor = torch.Tensor
 # fused kernel; the engine's main path must leave it at 0.
 FALLBACK_COUNT = 0
 _FALLBACK_WARNED: set = set()
+# Incremented once per run on the card that a configuration the chunk
+# kernel does not take sends through the per-tick path; the engine's main
+# path must leave it at 0.
+CHUNK_FALLBACK_COUNT = 0
+_CHUNK_FALLBACK_WARNED: set = set()
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
@@ -53,8 +71,9 @@ def rg_lru(a: Tensor, b: Tensor, h0: Optional[Tensor] = None) -> Tensor:
 
 
 def reset_fallback_warnings() -> None:
-    """Re-arm the once-per-reason fallback warning."""
+    """Re-arm the once-per-reason fallback warnings."""
     _FALLBACK_WARNED.clear()
+    _CHUNK_FALLBACK_WARNED.clear()
 
 
 def fallback_reason(cfg: core.MLTCPConfig,
@@ -147,3 +166,39 @@ def mltcp_cc_tick(cfg: core.MLTCPConfig, state: core.MLTCPState,
         t_last_inc=out["t_last_inc"], t_last_alpha=out["t_last_alpha"],
         inc_stage=out["stage"])
     return core.MLTCPState(cc=ccs, det=det), out["rate"]
+
+
+def chunk_fallback_reason(cfg, sweep) -> Optional[str]:
+    """Why a simulator configuration cannot run the chunk kernel (None: it
+    can): the CC kernel's own structural fallback, or the shared-memory
+    budget."""
+    reason = fallback_reason(cfg.protocol, sweep.static_job_factors)
+    if reason is not None:
+        return reason
+    return nc.budget_reason(cfg)
+
+
+def on_card(t: Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def netsim_chunk(cfg, statics, sweep, wl, st, n_chunks: int
+                 ) -> Optional[nc.ChunkRun]:
+    """The run of ``n_chunks`` chunks from state ``st`` through the chunk
+    kernel (`netsim_chunk.ChunkRun`: the state packed once, one launch per
+    chunk), or None where the per-tick path runs it: on the CPU, and for a
+    configuration the kernel does not take, counted and warned once per
+    reason."""
+    global CHUNK_FALLBACK_COUNT
+    if not on_card(st.backlog):
+        return None
+    reason = chunk_fallback_reason(cfg, sweep)
+    if reason is not None:
+        CHUNK_FALLBACK_COUNT += 1
+        if reason not in _CHUNK_FALLBACK_WARNED:
+            _CHUNK_FALLBACK_WARNED.add(reason)
+            warnings.warn(
+                f"netsim_chunk: {reason} is outside the chunk kernel; "
+                f"running the per-tick path instead", stacklevel=2)
+        return None
+    return nc.ChunkRun(nc.prepare(cfg, statics, sweep, wl), st, n_chunks)

@@ -2,9 +2,16 @@
 
 One tick steps the whole fabric: job phase machines, flow injection,
 store-and-forward link queues with RED/ECN, RTT-delayed ack/loss/CNP
-feedback, and the MLTCP-augmented congestion-control update — the fused
-CUDA kernel behind `kernels.ops.mltcp_cc_tick`.  A chunked run loop runs
-the ticks and records the per-chunk traces the paper's figures read.
+feedback, and the MLTCP-augmented congestion-control update.  A chunked
+run loop runs the ticks and records the per-chunk traces the paper's
+figures read.  On the card one launch of the chunk kernel
+(`kernels.ops.netsim_chunk`, `kernels.netsim_chunk.ChunkRun`) runs a whole
+chunk of ticks; the per-tick
+loop over `_tick` (`run_chunk_reference`, its CC update through the fused
+per-tick kernel behind `kernels.ops.mltcp_cc_tick`) is that kernel's
+plain version, the CPU path, and the card's path for the configurations
+the chunk kernel does not take (counted in
+``kernels.ops.CHUNK_FALLBACK_COUNT``).
 
 Configuration is split as in the reference: `SimConfig` is the static half
 (topology, job shapes, algorithm, variant) and `SweepParams` the values a
@@ -45,6 +52,7 @@ from repro_torch.core import favoritism
 from repro_torch.core import mltcp as core
 from repro_torch.core.cc.types import col
 from repro_torch.core.segment import JobGroups, fold_sum
+from repro_torch.kernels import netsim_chunk as chunk_kernel
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.netsim import random as rng
 from repro_torch.netsim.topology import HashableConfig, Topology
@@ -557,18 +565,26 @@ class TickInputs(NamedTuple):
 
 def chunk_inputs(cfg: SimConfig, statics: TickStatics, sweep: SweepParams,
                  st: EngineState, n_ticks: int) -> TickInputs:
-    """The inputs of the ``n_ticks`` ticks that follow state ``st``: the
-    draws come from the host in one copy, the rest is a handful of ops for
-    the whole chunk instead of per tick."""
+    """The inputs of the ``n_ticks`` ticks that follow state ``st`` (of
+    which only ``key`` and ``tick`` are read, so a packed run,
+    `kernels.netsim_chunk.ChunkRun`, stands in for it): the
+    draws come from the host in one copy (for the card, the kernel
+    library's C version of `netsim.random.chunk_draws`, the same bits,
+    straight into pinned memory), the rest is a handful of ops for the
+    whole chunk instead of per tick."""
     dev = statics.cap.device
-    d = rng.chunk_draws(st.key, n_ticks, cfg.topo.n_flows, cfg.jobs.n_jobs)
-    parts = (d.loss, d.cnp, d.strag, d.samt)
-    host = torch.from_numpy(np.concatenate(parts, axis=-1))
+    n, j = cfg.topo.n_flows, cfg.jobs.n_jobs
     if dev.type == "cuda":
-        host = host.pin_memory()
+        host = torch.empty((n_ticks, st.key.shape[0], 2 * n + 2 * j),
+                           dtype=torch.float32, pin_memory=True)
+        keys = chunk_kernel.host_draws(st.key, n_ticks, n, j, host)
+    else:
+        d = rng.chunk_draws(st.key, n_ticks, n, j)
+        keys = d.keys
+        host = torch.from_numpy(
+            np.concatenate((d.loss, d.cnp, d.strag, d.samt), axis=-1))
     u = host.to(dev, non_blocking=True)
-    loss_u, cnp_u, strag_u, samt_u = torch.split(
-        u, [p.shape[-1] for p in parts], dim=-1)
+    loss_u, cnp_u, strag_u, samt_u = torch.split(u, [n, n, j, j], dim=-1)
     steps = torch.arange(n_ticks, dtype=torch.int32, device=dev)
     t = (st.tick + steps.unsqueeze(-1)).to(torch.float32) * cfg.dt  # [T, K]
     started = t.unsqueeze(-1) >= statics.start_offset
@@ -576,7 +592,7 @@ def chunk_inputs(cfg: SimConfig, statics: TickStatics, sweep: SweepParams,
         # padded-jobs axis: masked-off jobs never start
         started = started & sweep.job_active
     return TickInputs(
-        key=d.keys, t=t, started=started, loss_u=loss_u, cnp_u=cnp_u,
+        key=keys, t=t, started=started, loss_u=loss_u, cnp_u=cnp_u,
         straggles=strag_u < sweep.straggle_prob,
         strag_amt=(0.05 + 0.05 * samt_u) * sweep.iso_iter)
 
@@ -872,26 +888,57 @@ def _validate_sweep(cfg: SimConfig, sweep: SweepParams) -> None:
                          "must be set together (or all None)")
 
 
-def run_ticks(cfg: SimConfig, sweep: SweepParams) -> RawSimOutput:
+def run_chunk_reference(cfg: SimConfig, statics: TickStatics,
+                        sweep: SweepParams, wl: _WorkloadView,
+                        st: EngineState, inputs: TickInputs
+                        ) -> tuple[EngineState, tuple]:
+    """One chunk as the per-tick loop: the accumulators start at 0, each of
+    the chunk's ticks runs `_tick`, and the chunk's probes are read
+    (CHUNK_FIELDS order).  The chunk kernel's plain version."""
+    st = st._replace(acc_util=torch.zeros_like(st.acc_util),
+                     acc_drops=torch.zeros_like(st.acc_drops),
+                     acc_marks=torch.zeros_like(st.acc_marks),
+                     acc_jobbytes=torch.zeros_like(st.acc_jobbytes))
+    n_ticks = int(inputs.t.shape[0])
+    for i in range(n_ticks):
+        st = _tick(cfg, statics, sweep, wl, st, inputs.at(i))
+    return st, _chunk_probes(cfg, statics, st, n_ticks)
+
+
+def run_ticks(cfg: SimConfig, sweep: SweepParams,
+              per_tick: bool = False) -> RawSimOutput:
     """The chunked run loop: ``n_chunks`` chunks of ticks, recording the
-    chunk traces after each (the reference's scan of scans)."""
+    chunk traces after each (the reference's scan of scans).  On the card
+    each chunk is one launch of the chunk kernel (`ChunkRun`, from
+    `kernels.ops.netsim_chunk`); with ``per_tick``, on the CPU, and for the
+    configurations the kernel does not take (counted there), each chunk
+    runs `run_chunk_reference`.  Nothing in the loop reads back to the
+    host, so the host draws the next chunk's inputs while the card runs
+    the last."""
     dev = sweep.slope.device
     statics = _build_statics(cfg, dev)
     st = _init_state(cfg, statics, sweep)
     wl = _workload_view(cfg, statics, sweep)
     ticks_per_chunk = max(1, cfg.n_ticks // cfg.n_chunks)
     n_chunks = cfg.n_ticks // ticks_per_chunk
-    traces = []
-    for _ in range(n_chunks):
-        st = st._replace(acc_util=torch.zeros_like(st.acc_util),
-                         acc_drops=torch.zeros_like(st.acc_drops),
-                         acc_marks=torch.zeros_like(st.acc_marks),
-                         acc_jobbytes=torch.zeros_like(st.acc_jobbytes))
-        inputs = chunk_inputs(cfg, statics, sweep, st, ticks_per_chunk)
-        for i in range(ticks_per_chunk):
-            st = _tick(cfg, statics, sweep, wl, st, inputs.at(i))
-        traces.append(_chunk_probes(cfg, statics, st, ticks_per_chunk))
-    stacked = [torch.stack(col_, dim=1) for col_ in zip(*traces)]
+    chunks = (None if per_tick
+              else kernel_ops.netsim_chunk(cfg, statics, sweep, wl, st,
+                                           n_chunks))
+    if chunks is not None:
+        # the card's main path: the state stays packed between chunks and
+        # the kernel writes the traces
+        for _ in range(n_chunks):
+            chunks.step(chunk_inputs(cfg, statics, sweep, chunks,
+                                     ticks_per_chunk))
+        st, stacked = chunks.state(), list(chunks.traces)
+    else:
+        traces = []
+        for _ in range(n_chunks):
+            inputs = chunk_inputs(cfg, statics, sweep, st, ticks_per_chunk)
+            st, probes = run_chunk_reference(cfg, statics, sweep, wl, st,
+                                             inputs)
+            traces.append(probes)
+        stacked = [torch.stack(col_, dim=1) for col_ in zip(*traces)]
     return RawSimOutput(iter_times=st.iter_times, iter_counts=st.iter_idx,
                         **dict(zip(CHUNK_FIELDS, stacked)), final_state=st)
 
