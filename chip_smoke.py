@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--out results.json]
-    python3 chip_smoke.py --probe-flash [OLD/flash_attention.cu ...]
+    python3 chip_smoke.py --probe KERNEL [OLD/KERNEL.cu ...]
 
 It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
 (one nvcc per source, all started together; sm_90a, into
@@ -20,22 +20,27 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   sweep each, the suite's 1.5 s of simulated time), checks the figure
   metrics, times both paths in turns, and feeds the CC kernel states taken
   from CUBIC and DCQCN runs of the engine;
-* serving: it holds the RG-LRU scan kernel bit for bit and the flash
-  attention kernel within 2e-5 (f32) / 2e-2 (bf16 inputs) against their
-  plain versions, times both beside their plain versions and
-  ``F.scaled_dot_product_attention`` under each backend that takes the
-  serve case (the fastest is the flash row's ``library_ms``), then serves
+* serving: it holds the RG-LRU scan kernel bit for bit (both of its
+  routes: the serve shape, ragged and unaligned operands, T = 1) and the
+  flash attention kernel within 2e-5 (f32) / 2e-2 (bf16 inputs) against
+  their plain versions, times both beside their plain versions, the scan
+  beside ``torch.add`` over the same bytes (its achievable-rate
+  yardstick) and flash beside ``F.scaled_dot_product_attention`` under
+  each backend that takes the serve case (the fastest is the flash row's
+  ``library_ms``), then serves
   recurrentgemma-2b at its full published widths (batch 4, a 4096-token
   prompt, 16 new tokens, random weights from seed 0) through
   ``repro_torch.launch.serve`` and holds that prefill against the
   plain-path prefill of the same prompt.
 
-``--probe-flash`` is the short first call after a change to the flash
-kernel: it builds the kernels (``ptxas -v``), holds the checkout's flash
-kernel and each given source of the same C entry point (an earlier
-version, a variant) to the plain version on ``FLASH_CASES`` and the serve
-case, times the serve case back to back in turns (the given sources, the
-checkout twice, the given sources in reverse) and stops.
+``--probe KERNEL`` (``flash_attention`` or ``rg_lru``; ``--probe-flash``
+is ``--probe flash_attention``) is the short first call after a change to
+that kernel: it builds the kernels (``ptxas -v``), holds the checkout's
+kernel and each given source of it (an earlier version, a variant) to the
+plain version on the kernel's checks (``FLASH_CASES`` and the serve case;
+the RG-LRU cases, bit for bit), times the serve case back to back in turns
+(the given sources, the checkout twice, the given sources in reverse) and
+stops.
 
 Each phase prints one JSON line; any failure raises and the exit code is
 non-zero.  The last lines are the kernel table, the card's ``nvidia-smi``
@@ -912,7 +917,17 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4096, 16
 # over 1 KV head of width 256, window 2048), in FLASH_CASES' layout
 SERVE_FLASH_CASE = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 10, 1, 256,
                     True, 2048, None, "float32")
-RGLRU_SHAPES = ((SERVE_BATCH, SERVE_PROMPT, 2560), (3, 33, 130))
+# RG-LRU bitwise checks, each in f32 and bf16, with and without h0: the
+# serve shape (timed), then the edges of the kernel's ring and routes
+# (16-row tiles; 16-byte copies only where every row is 16-byte aligned)
+RGLRU_SHAPES = ((SERVE_BATCH, SERVE_PROMPT, 2560),
+                (3, 33, 130),   # D * elt not a multiple of 16 B: general
+                (2, 1, 2560),   # T = 1
+                (2, 9, 2560),   # T below one tile (16 rows)
+                (2, 77, 136))   # T not a whole tile, a ragged last unit
+# (shape, bytes): `a` starts that many bytes past a 16-byte boundary of its
+# storage, contiguous all the same
+RGLRU_OFFSET_CASE = ((2, 70, 256), 4)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:34"
 RGLRU_REPLACES = "src/repro/kernels/rg_lru.py:24"
@@ -1108,6 +1123,160 @@ def probe_flash(fa, ref, sources) -> dict:
     return out
 
 
+def rglru_route_taken(rl, fn):
+    """(fn's result, the one RG-LRU specialization its launches took, as
+    the wrapper counted them in ``ROUTE_LAUNCHES``); raises unless fn
+    launched the kernel and took one specialization."""
+    before = dict(rl.ROUTE_LAUNCHES)
+    result = fn()
+    taken = [r for r, n in rl.ROUTE_LAUNCHES.items() if n > before[r]]
+    if len(taken) != 1:
+        raise AssertionError(f"rg_lru launches took routes {taken}, "
+                             f"expected one")
+    return result, taken[0]
+
+
+def rglru_checks(call, ref, rl, gen) -> list:
+    """``call(a, b, h0)`` (the RG-LRU kernel through its wrapper) against
+    the plain version, bit for bit (int32 / int16 views), on RGLRU_SHAPES
+    and RGLRU_OFFSET_CASE, f32 and bf16, with and without h0; raises on a
+    difference, or unless both routes were launched in both dtypes."""
+    import torch
+
+    dev = torch.device(DEVICE)
+    cases = [(shape, 0) for shape in RGLRU_SHAPES] + [RGLRU_OFFSET_CASE]
+    checks = []
+    for (b, t, d), offset in cases:
+        for dtype in ("float32", "bfloat16"):
+            tdt = _tdtype(dtype)
+            skip = offset // tdt.itemsize
+            buf = torch.empty(skip + b * t * d, dtype=tdt, device=dev)
+            a = buf[skip:].view(b, t, d)
+            a.copy_(torch.rand((b, t, d), generator=gen, device=dev) * 0.79
+                    + 0.2)
+            x = torch.randn((b, t, d), generator=gen, device=dev).to(tdt)
+            h0 = torch.randn((b, d), generator=gen, device=dev).to(tdt)
+            bits = torch.int16 if dtype == "bfloat16" else torch.int32
+            for hh in (None, h0):
+                got, which = rglru_route_taken(rl, lambda: call(a, x, hh))
+                want = ref.ref_rg_lru(a, x, hh)
+                torch.cuda.synchronize()
+                if not torch.equal(got.view(bits), want.view(bits)):
+                    raise AssertionError(
+                        f"rg_lru kernel != plain version at {(b, t, d)} "
+                        f"{dtype} offset {offset} B h0={hh is not None} "
+                        f"({which} route)")
+                checks.append(dict(shape=[b, t, d], dtype=dtype,
+                                   offset_bytes=offset, route=which,
+                                   h0=hh is not None, bitwise=True))
+            del buf, a, x, h0, got, want
+    taken = {(c["dtype"], c["route"]) for c in checks}
+    if len(taken) != 4:
+        raise AssertionError(f"RG-LRU checks took only {sorted(taken)}")
+    return checks
+
+
+def kernels_refuse_grad(fa, rl) -> bool:
+    """Both serving kernels have no backward pass: on the card their
+    wrappers raise, and launch nothing, for inputs that need a gradient;
+    raises unless they do."""
+    import torch
+
+    x = torch.rand((2, 9, 16), device=DEVICE, requires_grad=True)
+    q = torch.rand((1, 8, 2, 64), device=DEVICE, requires_grad=True)
+    kv = torch.rand((1, 8, 1, 64), device=DEVICE)
+    before = (rl.LAUNCH_COUNT, fa.LAUNCH_COUNT)
+    for call in (lambda: rl.rg_lru(x, x.detach()),
+                 lambda: fa.flash_attention(q, kv, kv)):
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward pass" not in str(e):
+                raise
+        else:
+            raise AssertionError("a kernel wrapper took an input that needs "
+                                 "a gradient")
+    if (rl.LAUNCH_COUNT, fa.LAUNCH_COUNT) != before:
+        raise AssertionError("a refused input was launched")
+    return True
+
+
+def rglru_attributes(rl) -> dict:
+    """Registers, spills, static and dynamic shared memory of every RG-LRU
+    specialization, from the runtime; raises if any of them spills."""
+    attrs = {f"{dt}_{which}": rl.kernel_attributes(_tdtype(dt), which)
+             for dt in ("float32", "bfloat16") for which in rl.ROUTES}
+    spilled = {key: a for key, a in attrs.items() if a["local_bytes"]}
+    if spilled:
+        raise AssertionError(f"rg_lru specializations with local memory "
+                             f"(spills): {spilled}")
+    return attrs
+
+
+def rglru_units(rl, b, d, dtype) -> dict:
+    """The kernel's units at [b, *, d] and how evenly they spread over the
+    card's SMs: the mean per SM over the busiest SM's count."""
+    import torch
+
+    n = len(rl.units(b, d, dtype))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    busiest = -(-n // sms)
+    return dict(units=n, sms=sms, busiest_sm_units=busiest,
+                balance=n / sms / busiest)
+
+
+def rglru_caller(rl, lib):
+    """A function (a, b, h0) -> h that runs ``lib``'s kernel through the
+    wrapper, counted as the wrapper counts."""
+    def call(a, x, h0=None):
+        saved, rl.LIBRARY = rl.LIBRARY, lib
+        try:
+            return rl.rg_lru(a, x, h0)
+        finally:
+            rl.LIBRARY = saved
+    return call
+
+
+def probe_rg_lru(rl, ref, sources) -> dict:
+    """``--probe rg_lru``: build the kernels, hold the checkout's RG-LRU
+    kernel and each of ``sources`` (other ``rg_lru.cu`` files of the same C
+    interface: ``rg_lru_launch``, ``rg_lru_route``) bit for bit to the plain
+    version, and time the serve shape back to back in turns on this card,
+    beside the copy yardstick."""
+    from pathlib import Path
+
+    import torch
+    from repro_torch.kernels import build
+
+    libs = {"checkout": rl.LIBRARY}
+    for i, path in enumerate(sources):
+        lib = build.KernelLibrary(f"rg_lru_probe{i}", rl._bind)
+        lib.source = Path(path).resolve()
+        libs[path] = lib
+    phase_device(list(libs.values()))
+    calls = {name: rglru_caller(rl, lib) for name, lib in libs.items()}
+    gen = torch.Generator(device=DEVICE)
+    out = {name: {"back_to_back_ms": []} for name in libs}
+    for name, call in calls.items():
+        gen.manual_seed(12)
+        out[name]["checks"] = len(rglru_checks(call, ref, rl, gen))
+    out["checkout"]["attributes"] = rglru_attributes(rl)
+
+    b, t, d = RGLRU_SHAPES[0]
+    a = torch.rand((b, t, d), generator=gen, device=DEVICE) * 0.79 + 0.2
+    x = torch.randn((b, t, d), generator=gen, device=DEVICE)
+    yardstick = [back_to_back_ms(lambda: torch.add(a, x), 20)]
+    for name in list(sources) + ["checkout"] * 2 + list(sources)[::-1]:
+        out[name]["back_to_back_ms"].append(back_to_back_ms(
+            lambda: calls[name](a, x), 20))
+    yardstick.append(back_to_back_ms(lambda: torch.add(a, x), 20))
+    b_ms, b_by, nbytes = rglru_bound(b, t, d)
+    emit("probe_rg_lru", shape=[b, t, d], bound_ms=b_ms, bound_by=b_by,
+         bytes=nbytes, copy_yardstick_ms=yardstick,
+         units=rglru_units(rl, b, d, torch.float32), sources=out)
+    return out
+
+
 def rglru_bound(b, t, d, elt=4):
     """a and b read once, h written once; a multiply and an add each."""
     nbytes = 3 * elt * b * t * d
@@ -1125,28 +1294,8 @@ def phase_lm_kernels(fa, rl, ref) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
 
-    # RG-LRU: bit for bit, with and without h0, f32 and bf16
-    rg_checks = []
-    for b, t, d in RGLRU_SHAPES:
-        for dtype in ("float32", "bfloat16"):
-            a = (torch.rand((b, t, d), generator=gen, device=dev) * 0.79
-                 + 0.2).to(_tdtype(dtype))
-            x = torch.randn((b, t, d), generator=gen, device=dev
-                            ).to(_tdtype(dtype))
-            h0 = torch.randn((b, d), generator=gen, device=dev
-                             ).to(_tdtype(dtype))
-            for hh in (None, h0):
-                got, want = rl.rg_lru(a, x, hh), ref.ref_rg_lru(a, x, hh)
-                torch.cuda.synchronize()
-                if not torch.equal(got.view(torch.int16 if dtype ==
-                                            "bfloat16" else torch.int32),
-                                   want.view(torch.int16 if dtype ==
-                                             "bfloat16" else torch.int32)):
-                    raise AssertionError(f"rg_lru kernel != plain version at "
-                                         f"{(b, t, d)} {dtype} h0="
-                                         f"{hh is not None}")
-                rg_checks.append(dict(shape=[b, t, d], dtype=dtype,
-                                      h0=hh is not None, bitwise=True))
+    # RG-LRU: bit for bit, every case, both routes
+    rg_checks = rglru_checks(rl.rg_lru, ref, rl, gen)
 
     fl_checks = flash_checks(fa, ref, gen)
 
@@ -1192,17 +1341,27 @@ def phase_lm_kernels(fa, rl, ref) -> dict:
     x = torch.randn((b, t, d), generator=gen, device=dev)
     kern = lambda: rl.rg_lru(a, x)                              # noqa: E731
     plain = lambda: ref.ref_rg_lru(a, x)                        # noqa: E731
+    # the achievable rate for the same bytes (two reads, one write): not a
+    # library_ms, since add computes another function
+    yardstick = lambda: torch.add(a, x)                         # noqa: E731
     b_ms, b_by, nbytes = rglru_bound(b, t, d)
-    rglru = dict(shape=[b, t, d], ms=event_ms(kern, 20),
-                 plain_ms=event_ms(plain, 3),
+    ms, which = rglru_route_taken(rl, lambda: event_ms(kern, 20))
+    rglru = dict(shape=[b, t, d], ms=ms, plain_ms=event_ms(plain, 3),
                  back_to_back_ms=back_to_back_ms(kern, 20),
                  plain_back_to_back_ms=back_to_back_ms(plain, 2),
+                 copy_yardstick_ms=back_to_back_ms(yardstick, 20),
                  bound_ms=b_ms, bound_by=b_by, bytes=nbytes, max_abs_err=0.0,
-                 library_ms=None)
+                 library_ms=None,
+                 route=which,
+                 attributes=rglru_attributes(rl),
+                 **rglru_units(rl, b, d, a.dtype))
     rglru["gbytes_per_s"] = nbytes / (rglru["back_to_back_ms"] * 1e-3) / 1e9
+    rglru["copy_yardstick_gbytes_per_s"] = (
+        nbytes / (rglru["copy_yardstick_ms"] * 1e-3) / 1e9)
     del a, x
     torch.cuda.empty_cache()
     out = dict(rg_lru_checks=rg_checks, flash_checks=fl_checks,
+               grad_refused=kernels_refuse_grad(fa, rl),
                flash_f32_max_abs_err=max(c["max_abs_err"] for c in fl_checks
                                          if c["tol"] == FLASH_TOL["float32"]),
                flash_bf16_max_abs_err=max(c["max_abs_err"] for c in fl_checks
@@ -1287,14 +1446,20 @@ def phase_serve(fa, rl, kern) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    # the same prompt, kernel path vs plain path (not counted)
+    # the same prompt, kernel path vs plain path; the kernel path is the
+    # API's default on the card (no use_kernel), counted
+    fa.LAUNCH_COUNT = rl.LAUNCH_COUNT = 0
     with torch.no_grad():
         torch.cuda.synchronize()
         t1 = time.time()
-        logits_k, cache_k = api.prefill(cfg, model, req, out["max_len"],
-                                        use_kernel=True)
+        logits_k, cache_k = api.prefill(cfg, model, req, out["max_len"])
         torch.cuda.synchronize()
         warm_prefill_s = time.time() - t1
+        default_launches = dict(flash_attention=fa.LAUNCH_COUNT,
+                                rg_lru=rl.LAUNCH_COUNT)
+        if default_launches != {k: want[k] for k in default_launches}:
+            raise AssertionError(f"api.prefill with no use_kernel launched "
+                                 f"{default_launches}, expected {want}")
         t1 = time.time()
         logits_p, cache_p = api.prefill(cfg, model, req, out["max_len"],
                                         use_kernel=False)
@@ -1369,6 +1534,7 @@ def phase_serve(fa, rl, kern) -> dict:
         arch=SERVE_ARCH, preset="full", batch=SERVE_BATCH,
         prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW, seed=0,
         params=n_params, param_gb=n_params * 4 / 1e9, launches=launches,
+        default_prefill_launches=default_launches,
         seconds_total=seconds, prefill_ms=out["prefill_s"] * 1e3,
         warm_prefill_ms=warm_prefill_s * 1e3,
         plain_prefill_ms=plain_prefill_s * 1e3,
@@ -1398,6 +1564,8 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
                  timing: dict, prof: dict, lm: dict, served: dict) -> list:
     main_row = next(r for r in kern["main_shape"] if r["algo"] == 0)
     serve_attrs = lm["flash"]["attributes"]["float32_d256"]
+    rg_attrs = lm["rg_lru"]["attributes"][
+        f"float32_{lm['rg_lru']['route']}"]
     errs = [kern["max_abs_err"]] + [r["max_abs_err"] for r in
                                     kern["main_shape"] + kern["large"]]
     errs += [s["max_abs_err"] for s in states.values()]
@@ -1489,9 +1657,36 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
         "library_ms": None,
         "back_to_back_ms": lm["rg_lru"]["back_to_back_ms"],
         "plain_back_to_back_ms": lm["rg_lru"]["plain_back_to_back_ms"],
+        "copy_yardstick_ms": lm["rg_lru"]["copy_yardstick_ms"],
         "path_device_ms": served["path_device_ms_per_launch"]["rg_lru_kernel"],
+        "specialization": lm["rg_lru"]["route"],
+        "registers": rg_attrs["registers"],
+        "static_smem_bytes": rg_attrs["static_smem_bytes"],
+        "dynamic_smem_bytes": rg_attrs["dynamic_smem_bytes"],
+        "spill_bytes": rg_attrs["local_bytes"],
         "shape": lm["rg_lru"]["shape"],
     }]
+
+
+# every row of the kernels line has these keys; "route" says how the
+# kernel was written
+KERNEL_ROW_KEYS = ("name", "route", "source", "replaces", "launches",
+                   "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms")
+KERNEL_ROUTES = ("cuda", "triton")
+
+
+def check_kernel_table(table: list) -> None:
+    """Raises unless every row has every key of KERNEL_ROW_KEYS and a route
+    of KERNEL_ROUTES."""
+    for row in table:
+        missing = [k for k in KERNEL_ROW_KEYS if k not in row]
+        if missing or row["route"] not in KERNEL_ROUTES:
+            raise AssertionError(f"kernels row {row.get('name')!r}: missing "
+                                 f"{missing}, route {row.get('route')!r}")
+
+
+PROBES = ("flash_attention", "rg_lru")
 
 
 def write_results(path, t_start: float) -> None:
@@ -1505,10 +1700,18 @@ def write_results(path, t_start: float) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's JSON here")
-    ap.add_argument("--probe-flash", nargs="*", metavar="SOURCE",
-                    help="only the short flash probe, timing the checkout's "
+    ap.add_argument("--probe", nargs="+", metavar=("KERNEL", "SOURCE"),
+                    help="only the short probe of one kernel (" +
+                         ", ".join(PROBES) + "), timing the checkout's "
                          "kernel beside these other sources of it")
+    ap.add_argument("--probe-flash", nargs="*", metavar="SOURCE",
+                    help="the same as --probe flash_attention SOURCE ...")
     args = ap.parse_args(argv)
+    probe = args.probe
+    if args.probe_flash is not None:
+        probe = ["flash_attention", *args.probe_flash]
+    if probe and probe[0] not in PROBES:
+        ap.error(f"--probe takes one of {', '.join(PROBES)}, not {probe[0]}")
 
     import torch
 
@@ -1528,8 +1731,11 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
     sim_kernels = dict(ms=ms, nc=nc, ops=ops)
-    if args.probe_flash is not None:
-        probe_flash(fa, ref, args.probe_flash)
+    if probe:
+        if probe[0] == "flash_attention":
+            probe_flash(fa, ref, probe[1:])
+        else:
+            probe_rg_lru(rl, ref, probe[1:])
         write_results(args.out, t_start)
         return 0
     dev = phase_device([ms.LIBRARY, nc.LIBRARY, fa.LIBRARY, rl.LIBRARY])
@@ -1544,6 +1750,7 @@ def main(argv=None) -> int:
     served = phase_serve(fa, rl, sim_kernels)
     table = kernel_table(kern, main_path, states, chunks, timing, prof, lm,
                          served)
+    check_kernel_table(table)
     RESULTS["kernels"] = table
     write_results(args.out, t_start)
     print(json.dumps({"kernels": table}), flush=True)

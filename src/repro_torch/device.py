@@ -19,3 +19,22 @@ def resolve(device=None) -> torch.device:
             "but torch.cuda.is_available() is False; pass device='cpu' to "
             "run the plain PyTorch path on the CPU")
     return dev
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record an op on any of ``tensors`` (None
+    entries are skipped): grad mode is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def use_kernels(use_kernel, *operands) -> bool:
+    """Whether a model call runs the kernels on ``operands`` (the tensors it
+    would hand them): ``use_kernel`` itself when it is given, else (None)
+    the kernels when every operand is on a CUDA device and none needs a
+    gradient (the kernels have no backward pass), the plain path
+    otherwise."""
+    if use_kernel is not None:
+        return bool(use_kernel)
+    return (all(t.device.type == "cuda" for t in operands)
+            and not needs_grad(*operands))

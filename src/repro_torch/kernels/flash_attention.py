@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import needs_grad
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_attention
 
@@ -107,10 +108,11 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     """q: [B, T, H, D]; k/v: [B, S, K, D] -> [B, T, H, D] in q's dtype.
 
     The CUDA kernel for CUDA tensors (D one of `HEAD_DIMS`), the plain
-    version for CPU tensors; raises on anything the kernel does not take.
-    On the card it allocates the output, launches on the current stream
-    without synchronizing, raises if the launch was refused, and counts the
-    launch in `LAUNCH_COUNT`."""
+    version for CPU tensors; raises on anything the kernel does not take,
+    and on the card for inputs that need a gradient (the kernel has no
+    backward pass).  On the card it allocates the output, launches on the
+    current stream without synchronizing, raises if the launch was refused,
+    and counts the launch in `LAUNCH_COUNT`."""
     global LAUNCH_COUNT
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -118,6 +120,10 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                              softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if needs_grad(q, k, v):
+        raise RuntimeError("flash_attention: the CUDA kernel has no backward "
+                           "pass; call it under torch.no_grad() or take the "
+                           "plain path (use_kernel=False)")
     b, t, h, dh = q.shape
     s, kh = k.shape[1], k.shape[2]
     if dh not in HEAD_DIMS:

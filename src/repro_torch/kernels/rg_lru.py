@@ -3,10 +3,18 @@ counter.
 
 `rg_lru` computes h_t = a_t * h_{t-1} + b_t along time for [B, T, D]
 inputs (float32 or bfloat16), with an optional [B, D] initial state.  On
-CUDA tensors it launches ``csrc/rg_lru.cu`` (one thread per (b, d)
-channel walking T; it replaces the Pallas TPU kernel
-``repro/kernels/rg_lru.py::_rg_lru_kernel``); on CPU tensors it runs the
-plain version `ref.ref_rg_lru`, which the kernel equals bit for bit.
+CUDA tensors it launches ``csrc/rg_lru.cu``, which replaces the Pallas TPU
+kernel ``repro/kernels/rg_lru.py::_rg_lru_kernel``: a streamed scan in
+which one warp walks one unit (`units`: 64 bytes of adjacent channels of
+one batch row) over all of T, its a and b tiles arriving through a ring of
+shared-memory stages.  The kernel has two specializations: 16-byte
+``cp.async`` copies where every row of a and b is 16-byte aligned, plain
+loads into the same ring otherwise.  The C entry picks one by its
+``rg_lru_route``; `route` is the same rule in Python, which the wrapper
+holds to the C one at every launch.  On CPU tensors it runs the plain
+version `ref.ref_rg_lru`, which the kernel equals bit for bit.  The kernel
+has no backward pass: on the card the wrapper raises for inputs that need
+a gradient.
 """
 from __future__ import annotations
 
@@ -15,14 +23,20 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import needs_grad
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_rg_lru
 
 Tensor = torch.Tensor
 
-# Launches of the CUDA kernel (never of the plain version).
+# Launches of the CUDA kernel, both specializations (never of the plain
+# version), and the same launches by specialization.
 LAUNCH_COUNT = 0
+ROUTE_LAUNCHES = {"general": 0, "aligned": 0}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/rg_lru.cu's UNIT_BYTES: the row width of one work unit
+UNIT_BYTES = 64
+ROUTES = {"general": 0, "aligned": 1}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -31,9 +45,52 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_void_p]
+    lib.rg_lru_route.restype = ctypes.c_int
+    lib.rg_lru_route.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                 ctypes.c_void_p, ctypes.c_longlong]
+    lib.rg_lru_attributes.restype = ctypes.c_int
+    lib.rg_lru_attributes.argtypes = [
+        ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
 
 
 LIBRARY = build.KernelLibrary("rg_lru", _bind)
+
+
+def units(bsz: int, d: int, dtype: torch.dtype
+          ) -> list[tuple[int, int, int]]:
+    """The kernel's work units in launch order, one CTA (one warp) each:
+    (batch row, first channel, end channel).  A unit is UNIT_BYTES of
+    adjacent channels of one row; the last of a row is cut at D."""
+    c = UNIT_BYTES // dtype.itemsize
+    return [(bi, c0, min(c0 + c, d)) for bi in range(bsz)
+            for c0 in range(0, d, c)]
+
+
+def route(shape, dtype: torch.dtype, pointers) -> str:
+    """The kernel's specialization for operands of ``shape`` [B, T, D] and
+    ``dtype`` with a and b at the data pointers ``pointers``: "aligned"
+    (16-byte ``cp.async``) when every row of a and b starts on a 16-byte
+    boundary, i.e. D * element size and both pointers are multiples of 16,
+    else "general" (plain loads).  The C entry's ``rg_lru_route`` is the
+    same rule."""
+    row_bytes = shape[-1] * dtype.itemsize
+    if row_bytes % 16 == 0 and all(p % 16 == 0 for p in pointers):
+        return "aligned"
+    return "general"
+
+
+def kernel_attributes(dtype: torch.dtype, which: str) -> dict:
+    """One specialization's registers per thread, local memory per thread
+    (spills), static and dynamic shared memory per CTA, as
+    ``cudaFuncGetAttributes`` reports them; builds the kernel first if
+    needed."""
+    lib = LIBRARY.load()
+    vals = [ctypes.c_int() for _ in range(4)]
+    rc = lib.rg_lru_attributes(DTYPES[dtype], ROUTES[which],
+                               *(ctypes.byref(v) for v in vals))
+    build.check_launch("rg_lru_attributes", rc)
+    return dict(zip(("registers", "local_bytes", "static_smem_bytes",
+                     "dynamic_smem_bytes"), (v.value for v in vals)))
 
 
 def _check(name: str, t: Tensor, shape, dtype, device) -> None:
@@ -56,9 +113,11 @@ def rg_lru(a: Tensor, b: Tensor, h0: Optional[Tensor] = None) -> Tensor:
     """The scan: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors.  a, b: [B, T, D]; h0: [B, D] or None; one dtype, float32
     or bfloat16, all contiguous on one device.  Raises on anything else.
-    On the card it allocates the output, launches on the current stream
-    without synchronizing, raises if the launch was refused, and counts
-    the launch in `LAUNCH_COUNT`."""
+    On the card it raises if an input needs a gradient (the kernel has no
+    backward pass), allocates the output, launches on the current stream
+    without synchronizing, raises if the launch was refused, and counts the
+    launch in `LAUNCH_COUNT` and, under the specialization the C entry
+    took, in `ROUTE_LAUNCHES`."""
     global LAUNCH_COUNT
     if not isinstance(a, Tensor) or a.ndim != 3:
         raise ValueError("rg_lru: 'a' must be a [B, T, D] tensor")
@@ -74,8 +133,17 @@ def rg_lru(a: Tensor, b: Tensor, h0: Optional[Tensor] = None) -> Tensor:
         return ref_rg_lru(a, b, h0)
     if a.device.type != "cuda":
         raise ValueError(f"rg_lru: no kernel for device {a.device}")
+    if needs_grad(a, b, h0):
+        raise RuntimeError("rg_lru: the CUDA kernel has no backward pass; "
+                           "call it under torch.no_grad() or take the plain "
+                           "path (use_kernel=False)")
 
     lib = LIBRARY.load()
+    which = route(a.shape, a.dtype, (a.data_ptr(), b.data_ptr()))
+    taken = lib.rg_lru_route(DTYPES[a.dtype], a.data_ptr(), b.data_ptr(), d)
+    if taken != ROUTES[which]:
+        raise RuntimeError(f"rg_lru: the C entry takes route {taken}, "
+                           f"rg_lru.route says {which!r}")
     out = torch.empty_like(a)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -84,4 +152,5 @@ def rg_lru(a: Tensor, b: Tensor, h0: Optional[Tensor] = None) -> Tensor:
                                out.data_ptr(), bsz, t_len, d, stream)
     build.check_launch("rg_lru", rc)
     LAUNCH_COUNT += 1
+    ROUTE_LAUNCHES[which] += 1
     return out

@@ -5,6 +5,13 @@ The port of ``repro/models/api.py``.  A batch is a dict:
   patches  [B, n_vision, vit_dim]    (vlm family: stub patch embeddings)
 
 Encoder-decoder configs (``is_encdec``) are not ported yet and raise.
+
+``use_kernel=None`` (the default) runs the kernels (flash attention, the
+RG-LRU scan) when the activations are on a CUDA device and need no
+gradient (under ``torch.no_grad``, or with weights that do not require
+grad), and the plain path on the CPU or where autograd records; True or
+False forces one (`repro_torch.device.use_kernels`).  The kernels have no
+backward pass and raise for inputs that need a gradient.
 """
 from __future__ import annotations
 
@@ -28,8 +35,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return transformer.init_params(cfg, generator, device)
 
 
-def forward(cfg: ModelConfig, model, batch: dict, use_kernel: bool = False
-            ) -> tuple[Tensor, Tensor]:
+def forward(cfg: ModelConfig, model, batch: dict,
+            use_kernel: Optional[bool] = None) -> tuple[Tensor, Tensor]:
     transformer.check_decoder_only(cfg)
     return transformer.forward(cfg, model, batch["tokens"],
                                extra_embeds=batch.get("patches"),
@@ -49,7 +56,7 @@ def decode_step(cfg: ModelConfig, model, cache: dict, token: Tensor,
 
 
 def prefill(cfg: ModelConfig, model, batch: dict, max_len: int,
-            use_kernel: bool = False) -> tuple[Tensor, dict]:
+            use_kernel: Optional[bool] = None) -> tuple[Tensor, dict]:
     transformer.check_decoder_only(cfg)
     return transformer.prefill(cfg, model, batch["tokens"], max_len,
                                extra_embeds=batch.get("patches"),

@@ -17,9 +17,12 @@ traffic) and return the same dict.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
+from repro_torch.device import use_kernels
 from repro_torch.kernels.ref import NEG_INF, f32_sqrt
 from repro_torch.models import layers
 from repro_torch.models.layers import dense_init, rope, softcap
@@ -141,12 +144,14 @@ def attend(cfg, q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
 
 def attn_forward(params: Attention, cfg, x: Tensor, *, positions: Tensor,
                  causal: bool = True, window: int = 0,
-                 use_kernel: bool = False, return_kv: bool = False):
-    """Full-sequence self-attention (prefill / training)."""
+                 use_kernel: Optional[bool] = None, return_kv: bool = False):
+    """Full-sequence self-attention (prefill / training).  ``use_kernel``:
+    `device.use_kernels` (None: the flash kernel on a CUDA device when no
+    gradient is wanted)."""
     q, k, v = _project_qkv(params, cfg, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    if use_kernel:
+    if use_kernels(use_kernel, q, k, v):
         from repro_torch.kernels import ops as kernel_ops
         out = kernel_ops.flash_attention(q, k, v, causal=causal,
                                          window=window,

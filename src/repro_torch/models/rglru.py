@@ -10,8 +10,9 @@ Block: two branches from the residual stream — a gelu-gated linear branch
 and (temporal conv(width 4) -> RG-LRU) — multiplied and projected out.
 
 Full-sequence path: `scan_rg_lru`, a log-depth associative scan in torch
-(the reference's formulation), or with ``use_kernel`` the CUDA scan kernel
-(`repro_torch.kernels.ops.rg_lru`).  Decode path: a single fused step.
+(the reference's formulation), or the CUDA scan kernel
+(`repro_torch.kernels.ops.rg_lru`) where `device.use_kernels` says so: by
+default on a CUDA device when no gradient is wanted.  Decode path: a single fused step.
 ``jax.nn.gelu`` defaults to the tanh approximation and ``jax.nn.softplus``
 has no linear threshold; the port computes both the same way.
 """
@@ -23,6 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from repro_torch.device import use_kernels
 from repro_torch.models.layers import dense_init, uniform_init
 
 Tensor = torch.Tensor
@@ -107,14 +109,17 @@ def conv1d_causal(params: RGLRU, x: Tensor, state: Optional[Tensor] = None):
     return out + params.conv_b, new_state
 
 
-def rglru_forward(params: RGLRU, cfg, x: Tensor, use_kernel: bool = False,
+def rglru_forward(params: RGLRU, cfg, x: Tensor,
+                  use_kernel: Optional[bool] = None,
                   return_state: bool = False):
-    """Full-sequence recurrent block. x: [B, T, D]."""
+    """Full-sequence recurrent block. x: [B, T, D].  ``use_kernel``:
+    `device.use_kernels` (None: the scan kernel on a CUDA device when no
+    gradient is wanted)."""
     lin = F.gelu(x @ params.w_lin, approximate="tanh")
     u_raw = x @ params.w_x
     u, conv_state = conv1d_causal(params, u_raw)
     a, b = _gates(params, u)
-    if use_kernel:
+    if use_kernels(use_kernel, a, b):
         from repro_torch.kernels import ops as kernel_ops
         h = kernel_ops.rg_lru(a, b)
     else:

@@ -97,7 +97,7 @@ class Block(nn.Module):
 
 
 def _apply_block(cfg: ModelConfig, blk: Block, h: Tensor, positions: Tensor,
-                 use_kernel: bool) -> Tensor:
+                 use_kernel: Optional[bool]) -> Tensor:
     x = norm(cfg, h, blk.norm1)
     if blk.kind == "attn":
         y = attention.attn_forward(blk.attn, cfg, x, positions=positions,
@@ -111,8 +111,8 @@ def _apply_block(cfg: ModelConfig, blk: Block, h: Tensor, positions: Tensor,
 
 
 def _apply_block_prefill(cfg: ModelConfig, blk: Block, h: Tensor,
-                         positions: Tensor, use_kernel: bool, max_len: int
-                         ) -> tuple[Tensor, dict]:
+                         positions: Tensor, use_kernel: Optional[bool],
+                         max_len: int) -> tuple[Tensor, dict]:
     t, batch = h.shape[1], h.shape[0]
     x = norm(cfg, h, blk.norm1)
     if blk.kind in ("attn", "attn_local"):
@@ -229,8 +229,8 @@ def _positions(h: Tensor) -> Tensor:
 
 
 def forward(cfg: ModelConfig, model: Model, tokens: Tensor,
-            extra_embeds: Optional[Tensor] = None, use_kernel: bool = False
-            ) -> tuple[Tensor, Tensor]:
+            extra_embeds: Optional[Tensor] = None,
+            use_kernel: Optional[bool] = None) -> tuple[Tensor, Tensor]:
     """Returns (logits [B, T, V], aux_loss scalar)."""
     h = embed_inputs(cfg, model, tokens, extra_embeds)
     positions = _positions(h)
@@ -243,8 +243,8 @@ def forward(cfg: ModelConfig, model: Model, tokens: Tensor,
 
 
 def prefill(cfg: ModelConfig, model: Model, tokens: Tensor, max_len: int,
-            extra_embeds: Optional[Tensor] = None, use_kernel: bool = False
-            ) -> tuple[Tensor, dict]:
+            extra_embeds: Optional[Tensor] = None,
+            use_kernel: Optional[bool] = None) -> tuple[Tensor, dict]:
     """Process a prompt, returning (last-position logits [B, V], cache)."""
     h = embed_inputs(cfg, model, tokens, extra_embeds)
     positions = _positions(h)

@@ -5,6 +5,8 @@ place of ``lax.scan``.  The steps run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.models import api
@@ -14,7 +16,7 @@ Tensor = torch.Tensor
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int,
-                      use_kernel: bool = False):
+                      use_kernel: Optional[bool] = None):
     @torch.no_grad()
     def prefill_step(model, batch: dict):
         logits, cache = api.prefill(cfg, model, batch, max_len,
@@ -43,7 +45,7 @@ def prompt_length(cfg: ModelConfig, batch: dict) -> int:
 
 
 def generate(cfg: ModelConfig, model, batch: dict, max_new: int,
-             max_len: int, use_kernel: bool = False) -> Tensor:
+             max_len: int, use_kernel: Optional[bool] = None) -> Tensor:
     """Greedy generation: [B, max_new] token ids."""
     tok, cache = make_prefill_step(cfg, max_len, use_kernel)(model, batch)
     start = prompt_length(cfg, batch)

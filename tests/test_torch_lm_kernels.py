@@ -13,10 +13,15 @@ reference, on the CPU.
   float32, 5e-2 bf16); the models' log-depth `scan_rg_lru` likewise.
 * On CPU tensors the wrappers take the plain version and count no launch;
   they raise on operands the kernels do not take.
+* The RG-LRU kernel's launch geometry, computed in Python: its units cover
+  every (b, d) once, and the 16-byte-copy route is taken only where every
+  row of the operands is 16-byte aligned.
 The CUDA kernels run only on the card: ``chip_smoke.py`` holds them against
 their plain versions there, and the ``cuda`` test below does when a card is
 present.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -172,6 +177,64 @@ def test_wrappers_raise_on_operands_the_kernels_do_not_take():
         tfa.flash_attention(q, torch.rand(1, 4, 3, 16), torch.rand(1, 4, 3, 16))
 
 
+# (b, d) grids of the unit tests: the serve shape, a ragged D, tiny ones
+RGLRU_UNIT_SHAPES = [(4, 4096, 2560), (3, 33, 130), (2, 5, 9), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", RGLRU_UNIT_SHAPES, ids=str)
+def test_rg_lru_units_cover_every_channel_once(shape, dtype):
+    b, _, d = shape
+    tdt = TORCH_DTYPES[dtype]
+    width = trl.UNIT_BYTES // tdt.itemsize
+    units = trl.units(b, d, tdt)
+    assert len(units) == b * -(-d // width)
+    hits = np.zeros((b, d), dtype=int)
+    for bi, c0, c1 in units:
+        assert c0 % width == 0 and 0 < c1 - c0 <= width
+        hits[bi, c0:c1] += 1
+    assert (hits == 1).all()
+
+
+def test_rg_lru_units_are_the_kernel_sources_and_spread_evenly():
+    src = trl.LIBRARY.source.read_text()
+    assert re.search(r"constexpr int UNIT_BYTES = (\d+);", src).group(1) \
+        == str(trl.UNIT_BYTES)
+    # the serve shape: 640 one-warp units, 5 on the busiest of 132 SMs
+    # against a mean of 4.85
+    n = len(trl.units(4, 2560, torch.float32))
+    assert n == 640 and -(-n // 132) == 5
+
+
+# pointers: (a, b); h0 and the output are read and written an element at
+# a time, so their alignment does not enter the route
+@pytest.mark.parametrize("d,dtype,pointers,want", [
+    (2560, "float32", (0, 1 << 20), "aligned"),
+    (4, "float32", (16, 32), "aligned"),       # one 16-byte row
+    (136, "float32", (16, 32), "aligned"),     # a ragged last unit
+    (136, "bfloat16", (16, 32), "aligned"),    # 272-byte rows
+    (130, "float32", (0, 0), "general"),       # 520-byte rows
+    (130, "bfloat16", (0, 0), "general"),      # 260-byte rows
+    (1, "float32", (0, 0), "general"),
+    (2560, "float32", (4, 0), "general"),      # `a` 4 bytes off
+    (2560, "float32", (0, 4), "general"),      # `b` 4 bytes off
+    (2560, "bfloat16", (0, 6), "general"),     # `b` 6 bytes off
+    (2560, "bfloat16", (2, 0), "general"),
+], ids=str)
+def test_rg_lru_route_takes_16_byte_copies_only_where_rows_are_aligned(
+        d, dtype, pointers, want):
+    assert trl.route((2, 7, d), TORCH_DTYPES[dtype], pointers) == want
+
+
+def test_rg_lru_takes_an_operand_at_a_storage_offset():
+    (_, ta), (_, tx) = _rglru_inputs((2, 9, 16, "float32"), seed=8)
+    buf = torch.empty(1 + ta.numel())
+    a = buf[1:].view(ta.shape)
+    a.copy_(ta)
+    assert a.storage_offset() == 1 and a.is_contiguous()
+    assert torch.equal(trl.rg_lru(a, tx), tref.ref_rg_lru(ta, tx))
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_equal_their_plain_versions():
     if not torch.cuda.is_available():
@@ -179,13 +242,26 @@ def test_cuda_kernels_equal_their_plain_versions():
                     "(chip_smoke.py runs this comparison on the card)")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    for b, t, d in ((2, 64, 128), (3, 33, 130)):
-        a = torch.rand((b, t, d), generator=gen, device=dev) * 0.8 + 0.2
-        x = torch.randn((b, t, d), generator=gen, device=dev)
-        h0 = torch.randn((b, d), generator=gen, device=dev)
-        for hh in (None, h0):
-            assert torch.equal(trl.rg_lru(a, x, hh),
-                               tref.ref_rg_lru(a, x, hh))
+    # ((b, t, d), bytes of `a`'s storage offset): a whole number of 16-row
+    # tiles, a ragged D (general route), T = 1, T below one tile, a ragged
+    # T with a ragged last unit (aligned route), an operand 4 bytes off
+    for (b, t, d), offset in (((2, 64, 128), 0), ((3, 33, 130), 0),
+                              ((2, 1, 256), 0), ((2, 9, 256), 0),
+                              ((2, 77, 136), 0), ((2, 70, 256), 4)):
+        for dtype, bits in ((torch.float32, torch.int32),
+                            (torch.bfloat16, torch.int16)):
+            skip = offset // dtype.itemsize
+            a = torch.empty(skip + b * t * d, dtype=dtype, device=dev
+                            )[skip:].view(b, t, d)
+            a.copy_(torch.rand((b, t, d), generator=gen, device=dev) * 0.8
+                    + 0.2)
+            x = torch.randn((b, t, d), generator=gen, device=dev).to(dtype)
+            h0 = torch.randn((b, d), generator=gen, device=dev).to(dtype)
+            for hh in (None, h0):
+                got = trl.rg_lru(a, x, hh)
+                want = tref.ref_rg_lru(a, x, hh)
+                assert torch.equal(got.view(bits), want.view(bits)), \
+                    ((b, t, d), offset, dtype, hh is not None)
     for case in FLASH_CASES:
         b, t, s, h, kv, dh, causal, window, softcap, dtype = case
         (_, tq), (_, tk), (_, tv) = _flash_inputs(case, seed=1)
@@ -232,3 +308,54 @@ def test_flash_probe_exits_without_a_card(capsys):
     assert chip_smoke.main(["--probe-flash"]) == 2
     out = capsys.readouterr()
     assert "no CUDA device" in out.err and out.out == ""
+
+
+def test_kernel_table_rows_need_every_key_and_a_route():
+    """chip_smoke refuses a kernels line whose row lacks a key or names
+    something other than how the kernel was written as its route."""
+    import chip_smoke
+
+    row = {key: 0 for key in chip_smoke.KERNEL_ROW_KEYS}
+    row.update(name="rg_lru", route="cuda")
+    chip_smoke.check_kernel_table([row, dict(row, route="triton")])
+    for bad in (dict(row, route="aligned"),
+                {k: v for k, v in row.items() if k != "bound_ms"}):
+        with pytest.raises(AssertionError, match="rg_lru"):
+            chip_smoke.check_kernel_table([row, bad])
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_inputs_that_need_a_gradient():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels launch only there")
+    dev = torch.device("cuda")
+    a = torch.rand((2, 9, 16), device=dev, requires_grad=True)
+    x = torch.rand((2, 9, 16), device=dev)
+    q = torch.rand((1, 8, 2, 64), device=dev, requires_grad=True)
+    kv = torch.rand((1, 8, 1, 64), device=dev)
+    before = (trl.LAUNCH_COUNT, tfa.LAUNCH_COUNT)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        trl.rg_lru(a, x)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        tfa.flash_attention(q, kv, kv)
+    assert (trl.LAUNCH_COUNT, tfa.LAUNCH_COUNT) == before
+    with torch.no_grad():
+        trl.rg_lru(a, x)
+        tfa.flash_attention(q, kv, kv)
+    assert (trl.LAUNCH_COUNT, tfa.LAUNCH_COUNT) == (before[0] + 1,
+                                                    before[1] + 1)
+
+
+@pytest.mark.parametrize("argv", [["--probe", "rg_lru"],
+                                  ["--probe", "flash_attention", "x.cu"]])
+def test_kernel_probes_exit_without_a_card(capsys, argv):
+    """``--probe KERNEL`` measures nothing on the CPU either; a kernel it
+    does not know is refused before anything runs."""
+    import chip_smoke
+
+    assert chip_smoke.main(argv) == 2
+    out = capsys.readouterr()
+    assert "no CUDA device" in out.err and out.out == ""
+    with pytest.raises(SystemExit):
+        chip_smoke.main(["--probe", "mltcp_step"])
+    assert "--probe takes one of" in capsys.readouterr().err

@@ -12,6 +12,8 @@ plain path within 7.6e-7 on logits and 3.1e-6 on caches (recurrentgemma;
 bitwise for the attention-only archs).  The bounds are atol = rtol =
 1e-5.
 """
+from types import SimpleNamespace
+
 import pytest
 import torch
 
@@ -19,6 +21,7 @@ from repro.configs import get_config as ref_get_config
 from repro.models import transformer as rtransformer
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.device import needs_grad, use_kernels
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import rg_lru as trl
 from repro_torch.launch.serve import main as serve_main
@@ -120,6 +123,89 @@ def test_prefill_kernel_path_equals_plain_path(arch):
     for i in cp:
         for name in cp[i]:
             torch.testing.assert_close(ck[i][name], cp[i][name], **TOL)
+
+
+def _operand(device, requires_grad=False):
+    """What `use_kernels` reads of a tensor, for devices the CPU lacks."""
+    return SimpleNamespace(device=torch.device(device),
+                           requires_grad=requires_grad)
+
+
+# (use_kernel, operands' devices, operands require grad, grad mode, want)
+@pytest.mark.parametrize("use_kernel,devices,grad,grad_mode,want", [
+    (None, ("cuda",), False, True, True),
+    (None, ("cuda:0", "cuda:0"), False, True, True),
+    (None, ("cpu",), False, True, False),
+    (None, ("cuda", "cpu"), False, True, False),
+    # the kernels have no backward pass: not where autograd records ...
+    (None, ("cuda", "cuda"), True, True, False),
+    # ... but under no_grad
+    (None, ("cuda", "cuda"), True, False, True),
+    (True, ("cpu",), False, True, True),
+    (True, ("cuda",), True, True, True),
+    (False, ("cuda",), False, False, False),
+    (False, ("cpu",), False, True, False)])
+def test_use_kernel_none_means_the_kernels_on_a_cuda_device(
+        use_kernel, devices, grad, grad_mode, want):
+    operands = [_operand(d, requires_grad=grad and i == 0)
+                for i, d in enumerate(devices)]
+    with torch.set_grad_enabled(grad_mode):
+        assert use_kernels(use_kernel, *operands) is want
+
+
+def test_needs_grad_reads_grad_mode_and_requires_grad():
+    w = torch.ones(2, requires_grad=True)
+    x = torch.ones(2)
+    assert needs_grad(x, w) and needs_grad(w * 2, None)
+    assert not needs_grad(x, None) and not needs_grad()
+    with torch.no_grad():
+        assert not needs_grad(w) and not needs_grad(w * 2)
+
+
+def _count_kernel_calls(monkeypatch):
+    from repro_torch.kernels import ops
+
+    calls = {"flash_attention": 0, "rg_lru": 0}
+    for name in calls:
+        def counted(*args, _name=name, _fn=getattr(ops, name), **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(ops, name, counted)
+    return calls
+
+
+def test_prefill_default_is_the_plain_path_on_the_cpu(monkeypatch):
+    calls = _count_kernel_calls(monkeypatch)
+    cfg, model = _model("recurrentgemma-2b", window=5)
+    gen = torch.Generator().manual_seed(6)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 11), generator=gen)}
+    with torch.no_grad():
+        ld, cd = api.prefill(cfg, model, batch, 24)
+        assert calls == {"flash_attention": 0, "rg_lru": 0}
+        lp, _ = api.prefill(cfg, model, batch, 24, use_kernel=False)
+        assert torch.equal(ld, lp)
+        api.prefill(cfg, model, batch, 24, use_kernel=True)
+    kinds = [blk.kind for blk in model.layers]
+    assert calls == {"flash_attention": kinds.count("attn_local"),
+                     "rg_lru": kinds.count("rec")}
+
+
+@pytest.mark.cuda
+def test_prefill_default_launches_the_kernels_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels launch only there "
+                    "(chip_smoke.py counts the serve prefill's launches)")
+    cfg = get_config("recurrentgemma-2b").scaled_down(window=5)
+    dev = torch.device("cuda")
+    model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(3),
+                            device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 11), device=dev)}
+    before = (tfa.LAUNCH_COUNT, trl.LAUNCH_COUNT)
+    with torch.no_grad():
+        api.prefill(cfg, model, batch, 24)
+    kinds = [blk.kind for blk in model.layers]
+    assert (tfa.LAUNCH_COUNT - before[0], trl.LAUNCH_COUNT - before[1]) == \
+        (kinds.count("attn_local"), kinds.count("rec"))
 
 
 @pytest.mark.parametrize("arch", PORTED)
