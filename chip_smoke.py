@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
 (one nvcc per source, all started together; sm_90a, into
-``build/kernels/``) and drives two paths:
+``build/kernels/``) and drives three paths:
 
 * the simulator: it holds the fused CC-tick kernel bit for bit against its
   plain PyTorch version for every specialization, holds the chunk kernel
@@ -20,6 +20,17 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   sweep each, the suite's 1.5 s of simulated time), checks the figure
   metrics, times both paths in turns, and feeds the CC kernel states taken
   from CUBIC and DCQCN runs of the engine;
+* experiment plans: it runs the paper's fig 10 plans (Reno and DCQCN:
+  OFF/WI x 2-6 jobs, two padded groups of K=5 each) and fig 12 plan
+  (straggle probability x base/MLQCN/Cassini on DCQCN with ECN) through
+  ``netsim.run_plan`` and the chunk kernel at the suites' 1.5 s, counts
+  each plan's launches on its own, reports every cell beside the JAX
+  reference's numbers for the same plans
+  (``results/reference_plans.json``, written by
+  ``scripts/reference_plans.py``), holds a padded-jobs point bit for bit
+  against the same point run alone, serves the fig 12 plan a second time
+  from the plan cache with no launch, and times one group as K grows
+  from 2 to 264;
 * serving: it holds the RG-LRU scan kernel bit for bit (both of its
   routes: the serve shape, ragged and unaligned operands, T = 1) and the
   flash attention kernel within 2e-5 (f32) / 2e-2 (bf16 inputs) against
@@ -374,33 +385,40 @@ def n_chunks_run(cfg) -> int:
     return cfg.n_ticks // max(1, cfg.n_ticks // cfg.n_chunks)
 
 
-def run_counted(kern, cfg, sweep=None, per_tick=False):
-    """One sweep with every launch and fallback count set to 0 just before
-    and read just after; returns (raw, seconds, counts).  ``per_tick`` runs
-    the per-tick path (the chunk kernel's plain version) instead of the
-    main path."""
+def counted(kern, fn):
+    """``fn()`` with every launch and fallback count set to 0 just before
+    and read just after, timed on the host clock around a synchronized
+    run; returns (fn's result, seconds, counts)."""
     import torch
 
-    from repro_torch import netsim
-    from repro_torch.netsim import engine
-
     ms, nc, ops = kern["ms"], kern["nc"], kern["ops"]
-    if sweep is None:
-        sweep = netsim.make_sweep(cfg, device=DEVICE, seed=list(SEEDS))
     torch.cuda.synchronize()
     ms.LAUNCH_COUNT = nc.LAUNCH_COUNT = 0
     ops.FALLBACK_COUNT = ops.CHUNK_FALLBACK_COUNT = 0
     t0 = time.time()
-    if per_tick:
-        raw = engine.run_ticks(cfg, sweep, per_tick=True)
-    else:
-        raw = netsim.simulate_sweep(cfg, sweep, device=DEVICE)
+    out = fn()
     torch.cuda.synchronize()
     seconds = time.time() - t0
     counts = dict(netsim_chunk=nc.LAUNCH_COUNT, mltcp_step=ms.LAUNCH_COUNT,
                   fallbacks=ops.FALLBACK_COUNT,
                   chunk_fallbacks=ops.CHUNK_FALLBACK_COUNT)
-    return raw, seconds, counts
+    return out, seconds, counts
+
+
+def run_counted(kern, cfg, sweep=None, per_tick=False):
+    """One sweep, `counted`; returns (raw, seconds, counts).
+    ``per_tick`` runs the per-tick path (the chunk kernel's plain version)
+    instead of the main path."""
+    from repro_torch import netsim
+    from repro_torch.netsim import engine
+
+    if sweep is None:
+        sweep = netsim.make_sweep(cfg, device=DEVICE, seed=list(SEEDS))
+    if per_tick:
+        return counted(kern, lambda: engine.run_ticks(cfg, sweep,
+                                                      per_tick=True))
+    return counted(kern, lambda: netsim.simulate_sweep(cfg, sweep,
+                                                       device=DEVICE))
 
 
 def check_counts(what: str, cfg, counts: dict, per_tick=False) -> None:
@@ -444,9 +462,11 @@ def named_leaves(tree, prefix="") -> list:
                                   str(name))]
 
 
-def compare_trees(got, want) -> tuple[float, int]:
-    """Raise unless every leaf is bitwise equal (NaNs included); returns
-    (max |diff| over the float leaves, the number of leaves)."""
+def compare_trees(got, want, what="chunk kernel != per-tick path"
+                  ) -> tuple[float, int]:
+    """Raise (``what`` and the leaf) unless every leaf is bitwise equal
+    (NaNs included); returns (max |diff| over the float leaves, the number
+    of leaves)."""
     import numpy as np
     import torch
 
@@ -467,7 +487,7 @@ def compare_trees(got, want) -> tuple[float, int]:
         else:
             same = torch.equal(g, w)
         if not same:
-            raise AssertionError(f"chunk kernel != per-tick path on {name}")
+            raise AssertionError(f"{what} on {name}")
     return worst, len(a)
 
 
@@ -544,11 +564,12 @@ def phase_chunk_vs_per_tick(kern, core, netsim, workload) -> dict:
     return out
 
 
-def host_inputs(cfg, n: int = 20) -> dict:
+def host_inputs(cfg, n: int = 20, seeds=SEEDS, numpy_draws=True) -> dict:
     """The host's share of a chunk apart, each in µs per tick at the
-    config's chunk size: `chunk_inputs` (the library's C draws into pinned
-    memory, the copy, the time and start masks), the C draws alone, and
-    the numpy draws (`netsim.random.chunk_draws`, the CPU path) alone."""
+    config's chunk size for a sweep over ``seeds``: `chunk_inputs` (the
+    library's C draws into pinned memory, the copy, the time and start
+    masks), the C draws alone, and (``numpy_draws``) the numpy draws
+    (`netsim.random.chunk_draws`, the CPU path) alone."""
     import torch
 
     from repro_torch import netsim
@@ -556,7 +577,7 @@ def host_inputs(cfg, n: int = 20) -> dict:
     from repro_torch.netsim import engine
     from repro_torch.netsim import random as rng
 
-    sweep = netsim.make_sweep(cfg, device=DEVICE, seed=list(SEEDS))
+    sweep = netsim.make_sweep(cfg, device=DEVICE, seed=list(seeds))
     statics = engine._build_statics(cfg, sweep.slope.device)
     st = engine._init_state(cfg, statics, sweep)
     tpc = max(1, cfg.n_ticks // cfg.n_chunks)
@@ -570,17 +591,18 @@ def host_inputs(cfg, n: int = 20) -> dict:
     t1 = time.time()
     key = st.key
     n_flows, n_jobs = cfg.topo.n_flows, cfg.jobs.n_jobs
-    out = torch.empty((tpc, len(SEEDS), 2 * n_flows + 2 * n_jobs))
+    out = torch.empty((tpc, len(seeds), 2 * n_flows + 2 * n_jobs))
     for _ in range(n):
         key = nc.host_draws(key, tpc, n_flows, n_jobs, out)[-1]
     t2 = time.time()
-    for _ in range(n):
-        key = rng.chunk_draws(key, tpc, n_flows, n_jobs).keys[-1]
-    t3 = time.time()
-    return dict(ticks_per_chunk=tpc,
-                chunk_inputs_us_per_tick=1e6 * (t1 - t0) / (n * tpc),
-                c_draws_us_per_tick=1e6 * (t2 - t1) / (n * tpc),
-                numpy_draws_us_per_tick=1e6 * (t3 - t2) / (n * tpc))
+    out = dict(ticks_per_chunk=tpc,
+               chunk_inputs_us_per_tick=1e6 * (t1 - t0) / (n * tpc),
+               c_draws_us_per_tick=1e6 * (t2 - t1) / (n * tpc))
+    if numpy_draws:
+        for _ in range(n):
+            key = rng.chunk_draws(key, tpc, n_flows, n_jobs).keys[-1]
+        out["numpy_draws_us_per_tick"] = 1e6 * (time.time() - t2) / (n * tpc)
+    return out
 
 
 def phase_main_path(kern, core, netsim, workload) -> dict:
@@ -881,6 +903,289 @@ def phase_profile(kern, core, netsim, workload) -> dict:
     out = dict(chunk=window(chunk_cfg, False, "netsim_chunk_kernel"),
                per_tick=window(tick_cfg, True, "mltcp_step_kernel"))
     emit("profile", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# experiment plans: the paper's fig 10 and fig 12 through run_plan
+# ---------------------------------------------------------------------------
+
+# The suites' own axes (benchmarks/speedup_vs_jobs.py,
+# benchmarks/stragglers.py) at their REPRO_SMOKE depth and seed.
+PLAN_SIM_TIME = 1.5
+PLAN_SEEDS = (1,)
+FIG10_JOBS = (2, 3, 4, 5, 6)
+FIG12_PROBS = (0.0, 0.05, 0.10, 0.20, 0.30)
+VARIANT = {"OFF": 0, "WI": 1}
+# the JAX reference's numbers for the same plans, seeds 1-3
+# (scripts/reference_plans.py); the cache the second fig 12 run reads
+REFERENCE_PLANS = os.path.join(ROOT, "results", "reference_plans.json")
+PLAN_CACHE = os.path.join(ROOT, "build", "plan_cache")
+# One group at growing K: fig7-reno WI (N = 4) at 0.3 s, the point
+# repeated across seeds 1..K, in the config's 400 chunks (37 ticks each)
+# and in 80 (187 ticks, the main path's chunk size).
+K_SCALING = (2, 21, 132, 264)
+K_SIM_TIME = 0.3
+K_CHUNKS = (400, 80)
+
+
+def fig10_plan(core, netsim, workload, algo: str):
+    """speedup_vs_jobs._plan: variant x job count x seed on dumbbell(n, 2);
+    the job counts pad into one group per variant."""
+    def build(pt):
+        n = pt["n_jobs"]
+        return fig7_cfg(core, netsim, workload, algo, VARIANT[pt["variant"]],
+                        PLAN_SIM_TIME,
+                        topo=netsim.dumbbell(n, sockets_per_job=2),
+                        models=("gpt2",) * n)
+    return netsim.Plan(name=f"fig10-{algo}", build=build, axes=(
+        netsim.Axis("variant", tuple(VARIANT)),
+        netsim.Axis("n_jobs", FIG10_JOBS), netsim.Axis("seed", PLAN_SEEDS)))
+
+
+def fig12_plan(core, netsim, workload):
+    """stragglers.make_plan: straggle probability (a sweep field) x scheme
+    x seed, DCQCN with ECN, the Cassini leaves from the port's
+    `workload.cassini_schedule`."""
+    topo = netsim.dumbbell(2, sockets_per_job=2)
+    sched, _ = workload.cassini_schedule(
+        topo, [workload.profile_for("gpt2").scaled(WORK_SCALE)] * 2)
+
+    def build(pt):
+        return fig7_cfg(core, netsim, workload, "dcqcn",
+                        VARIANT["WI" if pt["scheme"] == "mlqcn" else "OFF"],
+                        PLAN_SIM_TIME, topo=topo,
+                        cassini=sched if pt["scheme"] == "cassini" else None)
+    return netsim.Plan(name="fig12", build=build, axes=(
+        netsim.Axis("p", FIG12_PROBS, field="straggle_prob"),
+        netsim.Axis("scheme", ("base", "mlqcn", "cassini")),
+        netsim.Axis("seed", PLAN_SEEDS)))
+
+
+def check_plan(pr, counts: dict, max_groups: int) -> dict:
+    """At most ``max_groups`` groups, one chunk launch per chunk per group,
+    no per-tick CC launch, no fallback, and a finite iteration on every
+    job of every point."""
+    import numpy as np
+
+    cfg = pr.results[0].cfg
+    want = dict(netsim_chunk=pr.n_compile_groups * n_chunks_run(cfg),
+                mltcp_step=0, fallbacks=0, chunk_fallbacks=0)
+    if not 1 <= pr.n_compile_groups <= max_groups or counts != want:
+        raise AssertionError(f"plan {pr.plan.name}: {pr.n_compile_groups} "
+                             f"groups, counts {counts}, expected {want}")
+    for r in pr:
+        if any(x.size == 0 or not np.all(np.isfinite(x))
+               for x in r.iter_times):
+            raise AssertionError(f"{pr.plan.name} {r.point.label()}: a job "
+                                 f"recorded no finite iteration")
+    return dict(n_compile_groups=pr.n_compile_groups,
+                groups=[dict(k=g.n_points, n_jobs=g.n_jobs,
+                             n_flows=g.n_flows, execute_s=g.execute_s)
+                        for g in pr.profile.groups],
+                points=len(pr), ticks=ticks_run(cfg), launches=counts,
+                n_kernel_launches=pr.n_kernel_launches,
+                n_kernel_fallbacks=pr.n_kernel_fallbacks)
+
+
+def plan_cells(netsim, pr) -> dict:
+    """Each cell's avg and p99 speedup, seed-paired as the suites pair
+    them: fig 10 WI over OFF per job count, fig 12 MLQCN and Cassini over
+    base DCQCN per straggle probability."""
+    def stats(base, test):
+        sp = netsim.sweep_speedup_stats(base, test)
+        return {"avg_speedup": sp["avg_speedup"],
+                "p99_speedup": sp["p99_speedup"]}
+    if pr.plan.name == "fig12":
+        return {f"{scheme}@{p}": stats(pr.select(p=p, scheme="base"),
+                                       pr.select(p=p, scheme=scheme))
+                for p in FIG12_PROBS for scheme in ("mlqcn", "cassini")}
+    return {str(n): stats(pr.select(variant="OFF", n_jobs=n),
+                          pr.select(variant="WI", n_jobs=n))
+            for n in FIG10_JOBS}
+
+
+def tier_b(name: str, cells: dict, ref: dict) -> dict:
+    """The port's cells against the reference's at the same seed.  The
+    runs diverge chaotically (loss and CNP draws threshold on ``expm1``,
+    which differs by a few ulp across frameworks), so the port's run is in
+    effect one more seed: a metric's tolerance is the widest spread the
+    reference itself shows across seeds 1-3 in any cell of the plan.
+    Cells outside are reported; more than half of a plan's cells outside
+    for one metric is a systematic gap and fails."""
+    plan = ref["plans"][name]
+    col = ref["seeds"].index(PLAN_SEEDS[0])
+    out = {"tolerance": {}, "cells": {}, "outside": []}
+    for metric in ("avg_speedup", "p99_speedup"):
+        tol = max(max(c[metric]) - min(c[metric])
+                  for c in plan["cells"].values())
+        out["tolerance"][metric] = tol
+        n_out = 0
+        for cell, got in cells.items():
+            want = plan["cells"][cell][metric][col]
+            gap = got[metric] - want
+            out["cells"].setdefault(cell, {})[metric] = dict(
+                port=got[metric], reference=want, gap=gap)
+            if abs(gap) > tol:
+                n_out += 1
+                out["outside"].append(dict(cell=cell, metric=metric,
+                                           port=got[metric], reference=want,
+                                           gap=gap, tolerance=tol))
+        if 2 * n_out > len(cells):
+            raise AssertionError(f"{name}: {n_out} of {len(cells)} cells "
+                                 f"outside the {metric} tolerance {tol}: "
+                                 f"{out['outside']}")
+    return out
+
+
+def compare_prefix(padded, slot: int, alone) -> dict:
+    """Raise unless every leaf of point ``slot`` of a padded group's output
+    equals the K=1 run ``alone`` bitwise on the active jobs and flows, the
+    prefix of each padded axis."""
+    a, b = named_leaves(padded), named_leaves(alone)
+    if [n for n, _ in a] != [n for n, _ in b]:
+        raise AssertionError("the two outputs have different leaves")
+    cut = 0
+    for (name, g), (_, w) in zip(a, b):
+        g, w = g[slot], w[0]
+        cut += tuple(g.shape) != tuple(w.shape)
+        compare_trees([g[tuple(slice(0, n) for n in w.shape)]], [w],
+                      what=f"padded point != unpadded run on {name}")
+    return dict(leaves=len(a), cut_to_active=cut)
+
+
+def padded_vs_alone(kern, netsim, plan, n_jobs: int) -> dict:
+    """The WI point with ``n_jobs`` jobs of a fig 10 plan, run in its padded
+    group (the group's sweep as `run_plan` stacks it) and alone on its own
+    fabric, both through the chunk kernel."""
+    from repro_torch.netsim import experiment
+
+    points, cfgs, overrides, groups = experiment.resolve_plan(plan)
+    i = next(i for i, pt in enumerate(points)
+             if pt["variant"] == "WI" and pt["n_jobs"] == n_jobs)
+    group = next(g for g in groups if i in g.idxs)
+    sweep = experiment.group_sweep(cfgs, overrides, group, device=DEVICE)
+    padded, _, counts = run_counted(kern, group.cfg, sweep)
+    check_counts("padded group", group.cfg, counts)
+    alone, _, counts = run_counted(
+        kern, cfgs[i], netsim.make_sweep(cfgs[i], device=DEVICE,
+                                         seed=[points[i]["seed"]]))
+    check_counts("unpadded point", cfgs[i], counts)
+    return dict(point=points[i], group_k=len(group.idxs),
+                group_jobs=group.cfg.jobs.n_jobs, bitwise=True,
+                **compare_prefix(padded, group.idxs.index(i), alone))
+
+
+def same_results(a, b) -> bool:
+    import numpy as np
+
+    return all(
+        x.point.axes == y.point.axes
+        and all(np.array_equal(p, q) for p, q in zip(x.iter_times,
+                                                     y.iter_times))
+        and all(np.array_equal(getattr(x, f), getattr(y, f))
+                for f in ("trace_t", "trace_util", "trace_incomm",
+                          "trace_drops", "trace_jobtput"))
+        for x, y in zip(a, b))
+
+
+def k_scaling(kern, core, netsim, workload) -> list:
+    """One group at K = 2 .. 264 (fig7-reno WI, the point repeated across
+    seeds) at each chunk count of K_CHUNKS."""
+    return [k_row(kern, netsim, fig7_cfg(core, netsim, workload, "reno", 1,
+                                         K_SIM_TIME, n_chunks=n_chunks), k)
+            for n_chunks in K_CHUNKS for k in K_SCALING]
+
+
+def k_row(kern, netsim, cfg, k: int) -> dict:
+    """Wall µs per tick of a K-point group (median of three synchronized
+    runs after a first), the card's busy time per tick and the chunk
+    kernel's own (a profiled run), the host's `chunk_inputs` per tick
+    apart (100 chunks), and µs per point-tick; ``paced_by`` names the
+    larger of the host's time and the kernel's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ticks = ticks_run(cfg)
+    seeds = list(range(1, k + 1))
+    sweep = netsim.make_sweep(cfg, device=DEVICE, seed=seeds)
+    walls = []
+    for _ in range(4):
+        _, seconds, counts = run_counted(kern, cfg, sweep)
+        check_counts(f"K={k}", cfg, counts)
+        walls.append(seconds)
+    wall_s = statistics.median(walls[1:])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        netsim.simulate_sweep(cfg, sweep, device=DEVICE)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    kern_us = sum(_device_us(e) for e in rows
+                  if "netsim_chunk_kernel" in e.key)
+    host = host_inputs(cfg, n=100, seeds=seeds, numpy_draws=False)
+    row = dict(k=k, ticks=ticks, ticks_per_chunk=host["ticks_per_chunk"],
+               wall_s=walls, wall_us_per_tick=1e6 * wall_s / ticks,
+               device_busy_us_per_tick=sum(_device_us(e) for e in rows)
+               / ticks,
+               kernel_us_per_tick=kern_us / ticks,
+               host_chunk_inputs_us_per_tick=host["chunk_inputs_us_per_tick"],
+               c_draws_us_per_tick=host["c_draws_us_per_tick"],
+               us_per_point_tick=1e6 * wall_s / ticks / k)
+    row["paced_by"] = ("host" if row["host_chunk_inputs_us_per_tick"]
+                       > row["kernel_us_per_tick"] else "kernel")
+    return row
+
+
+def phase_plans(kern, core, netsim, workload) -> dict:
+    """The paper's fig 10 (Reno and DCQCN) and fig 12 plans through
+    `netsim.run_plan` on the card, each counted on its own; their cells
+    against the reference's numbers (Tier B); a padded point against its
+    unpadded run, bitwise; the fig 12 plan again from the cache; and the
+    chunk kernel's time per tick as one group's K grows."""
+    import shutil
+
+    with open(REFERENCE_PLANS) as f:
+        ref = json.load(f)
+    out, plans = {}, {}
+    for algo in ("reno", "dcqcn"):
+        plans[f"fig10-{algo}"] = (fig10_plan(core, netsim, workload, algo),
+                                  2, {})
+    shutil.rmtree(PLAN_CACHE, ignore_errors=True)
+    plans["fig12"] = (fig12_plan(core, netsim, workload), 2,
+                      dict(cache_dir=PLAN_CACHE))
+    results = {}
+    for name, (plan, max_groups, kw) in plans.items():
+        pr, seconds, counts = counted(
+            kern, lambda: netsim.run_plan(plan, device=DEVICE, **kw))
+        info = check_plan(pr, counts, max_groups)
+        if name.startswith("fig10") and (
+                info["n_compile_groups"] != 2
+                or any((g["k"], g["n_jobs"], g["n_flows"]) != (5, 6, 12)
+                       for g in info["groups"])):
+            raise AssertionError(f"{name}: groups {info['groups']}, "
+                                 f"expected two of K=5 on 6 jobs x 2 flows")
+        cells = plan_cells(netsim, pr)
+        results[name] = pr
+        out[name] = dict(seconds=seconds,
+                         us_per_tick=1e6 * seconds / info["ticks"],
+                         **info, cells=cells,
+                         tier_b=tier_b(name, cells, ref))
+    out["padded_vs_alone"] = padded_vs_alone(kern, netsim,
+                                             plans["fig10-reno"][0], 3)
+    again, seconds, counts = counted(kern, lambda: netsim.run_plan(
+        plans["fig12"][0], device=DEVICE, cache_dir=PLAN_CACHE))
+    if (again.n_cache_hits != len(again) or again.n_compile_groups
+            or any(counts.values())
+            or not same_results(results["fig12"], again)):
+        raise AssertionError(f"fig12 from the cache: {again.n_cache_hits} "
+                             f"hits of {len(again)}, "
+                             f"{again.n_compile_groups} groups, {counts}")
+    out["cache"] = dict(hits=again.n_cache_hits, points=len(again),
+                        launches=counts, seconds=seconds, equal=True)
+    out["k_scaling"] = k_scaling(kern, core, netsim, workload)
+    out["reference_source"] = os.path.relpath(REFERENCE_PLANS, ROOT)
+    out["outside_tolerance"] = [dict(plan=name, **o) for name in plans
+                                for o in out[name]["tier_b"]["outside"]]
+    emit("plans", **out)
     return out
 
 
@@ -1561,7 +1866,8 @@ def phase_serve(fa, rl, kern) -> dict:
 
 
 def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
-                 timing: dict, prof: dict, lm: dict, served: dict) -> list:
+                 timing: dict, prof: dict, plans: dict, lm: dict,
+                 served: dict) -> list:
     main_row = next(r for r in kern["main_shape"] if r["algo"] == 0)
     serve_attrs = lm["flash"]["attributes"]["float32_d256"]
     rg_attrs = lm["rg_lru"]["attributes"][
@@ -1602,6 +1908,11 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
         "replaces": REPLACES,
         "launches": main["launches"],
         "path": "main",
+        # each plan's own run, counted on its own (one launch per chunk
+        # per group)
+        "plan_launches": {name: plans[name]["launches"]["netsim_chunk"]
+                          for name in ("fig10-reno", "fig10-dcqcn",
+                                       "fig12")},
         "max_abs_err": max([timing["max_abs_err"]]
                            + [c["max_abs_err"] for c in chunks.values()]),
         "ms": timing["ms"],
@@ -1746,10 +2057,11 @@ def main(argv=None) -> int:
     states = phase_engine_states(sim_kernels, core, netsim, workload)
     timing = phase_chunk_timing(sim_kernels, core, netsim, workload)
     prof = phase_profile(sim_kernels, core, netsim, workload)
+    plans = phase_plans(sim_kernels, core, netsim, workload)
     lm = phase_lm_kernels(fa, rl, ref)
     served = phase_serve(fa, rl, sim_kernels)
-    table = kernel_table(kern, main_path, states, chunks, timing, prof, lm,
-                         served)
+    table = kernel_table(kern, main_path, states, chunks, timing, prof,
+                         plans, lm, served)
     check_kernel_table(table)
     RESULTS["kernels"] = table
     write_results(args.out, t_start)

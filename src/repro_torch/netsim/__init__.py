@@ -3,7 +3,11 @@
 Links with FIFO queues and RED/ECN, per-flow multi-hop routing,
 RTT-delayed feedback and periodic DNN-job traffic, stepped tick by tick
 with the fused CC-tick kernel.  Sweeps batch K simulations over a leading
-tensor axis (`simulate_sweep`).
+tensor axis (`simulate_sweep`).  The experiment layer (`Axis`/`Plan`/
+`run_plan`) declares whole evaluation matrices over static and dynamic
+axes and runs them as one batched sweep per compile group; job-count
+grids pad and mask into one group, and `run_plan(..., cache_dir=)` makes
+runs resumable.
 """
 
 from repro_torch.netsim.topology import Topology, dumbbell, triangle, two_tier
@@ -18,7 +22,19 @@ from repro_torch.netsim.engine import (
     simulate,
     simulate_sweep,
     sweep_len,
+    sweep_of,
     sweep_slice,
+)
+from repro_torch.netsim.experiment import (
+    Axis,
+    GroupError,
+    GroupProfile,
+    Plan,
+    PlanProfile,
+    PlanResult,
+    prune_cache,
+    restrict_workload,
+    run_plan,
 )
 from repro_torch.netsim.metrics import (
     SimResult,
@@ -35,7 +51,9 @@ __all__ = [
     "Topology", "dumbbell", "triangle", "two_tier",
     "CassiniSchedule", "JobSpec", "SimConfig", "SweepParams", "SweepPoint",
     "grid_sweep", "make_sweep", "simulate", "simulate_sweep", "sweep_len",
-    "sweep_slice",
+    "sweep_of", "sweep_slice",
+    "Axis", "Plan", "PlanResult", "GroupError", "GroupProfile",
+    "PlanProfile", "prune_cache", "restrict_workload", "run_plan",
     "SimResult", "interleave_score", "iteration_times",
     "mean_pairwise_interleave", "postprocess", "postprocess_sweep",
     "speedup_stats", "sweep_speedup_stats",

@@ -261,6 +261,18 @@ def _point_values(cfg: SimConfig) -> dict:
     return out
 
 
+def sweep_of(cfg: SimConfig, device=None) -> SweepParams:
+    """Lift a config's dynamic values into an unbatched SweepParams (no
+    leading [K] axis), on the card unless ``device="cpu"``."""
+    dev = device_mod.resolve(device)
+    _check_cfg(cfg)
+    base = _point_values(cfg)
+    return SweepParams(**{
+        name: None if base[name] is None
+        else _field_tensor(name, base[name], dev)
+        for name in SweepParams._fields})
+
+
 def make_sweep(cfg: SimConfig, device=None, **overrides) -> SweepParams:
     """A [K]-batched SweepParams from a config plus per-field overrides.
 
@@ -905,6 +917,12 @@ def run_chunk_reference(cfg: SimConfig, statics: TickStatics,
     return st, _chunk_probes(cfg, statics, st, n_ticks)
 
 
+# Runs of `run_ticks` this process: one per `simulate_sweep` call, the
+# port's counterpart of the reference's sweep-program traces
+# (`netsim.counters.traces`).
+RUN_COUNT = 0
+
+
 def run_ticks(cfg: SimConfig, sweep: SweepParams,
               per_tick: bool = False) -> RawSimOutput:
     """The chunked run loop: ``n_chunks`` chunks of ticks, recording the
@@ -915,6 +933,8 @@ def run_ticks(cfg: SimConfig, sweep: SweepParams,
     runs `run_chunk_reference`.  Nothing in the loop reads back to the
     host, so the host draws the next chunk's inputs while the card runs
     the last."""
+    global RUN_COUNT
+    RUN_COUNT += 1
     dev = sweep.slope.device
     statics = _build_statics(cfg, dev)
     st = _init_state(cfg, statics, sweep)

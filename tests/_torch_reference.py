@@ -13,16 +13,29 @@ It then takes the reference's modules back out of ``sys.modules`` (the
 tests keep the module objects): a test worker imports every test file,
 and the reference's own test files must keep importing ``repro`` as they
 always do, unaided.
+
+Some reference code imports lazily: ``counters.traces`` imports
+``repro.netsim.engine`` when called (``run_plan`` calls it), and the
+models' ``use_kernel=True`` path imports ``repro.kernels.ops``.  With the
+reference out of ``sys.modules`` such an import would build a second copy
+of the package and die at the same line.  A test calls such code inside
+``with reference_modules():``, which puts every module `load_reference`
+kept back into ``sys.modules``, under the shim, for the block's length.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import sys
 import types
 
-_MODULES = ("repro.core", "repro.netsim", "repro.kernels.ops",
+_MODULES = ("repro.core", "repro.netsim", "repro.netsim.experiment",
+            "repro.netsim.counters", "repro.kernels.ops",
             "repro.kernels.mltcp_step", "repro.workload")
 _loaded: dict[str, types.ModuleType] = {}
+# every reference module the imports brought in, by dotted name: what
+# `reference_modules` puts back
+_kept: dict[str, types.ModuleType] = {}
 
 
 class _AnswersContains:
@@ -44,24 +57,37 @@ class _AnswersContains:
         return getattr(self._inner, name)
 
 
+def _is_reference(name: str) -> bool:
+    return name == "repro" or name.startswith("repro.")
+
+
+@contextlib.contextmanager
+def _shimmed():
+    from jax.interpreters import batching
+
+    original = batching.primitive_batchers
+    batching.primitive_batchers = _AnswersContains(original)
+    try:
+        yield
+    finally:
+        batching.primitive_batchers = original
+
+
 def load_reference() -> dict[str, types.ModuleType]:
     """Import the reference modules once; returns them by dotted name."""
     if _loaded:
         return _loaded
-    from jax.interpreters import batching
-
-    original = batching.primitive_batchers
     before = set(sys.modules)
-    batching.primitive_batchers = _AnswersContains(original)
     try:
-        for name in _MODULES:
-            _loaded[name] = importlib.import_module(name)
+        with _shimmed():
+            for name in _MODULES:
+                _loaded[name] = importlib.import_module(name)
     finally:
-        batching.primitive_batchers = original
         added = {name for name in set(sys.modules) - before
-                 if name == "repro" or name.startswith("repro.")}
+                 if _is_reference(name)}
         for name in added:
             module = sys.modules.pop(name)
+            _kept[name] = module
             # a package that was there before keeps no handle on it either
             parent, _, child = name.rpartition(".")
             if (parent not in added
@@ -69,6 +95,27 @@ def load_reference() -> dict[str, types.ModuleType]:
                     is module):
                 delattr(sys.modules[parent], child)
     return _loaded
+
+
+@contextlib.contextmanager
+def reference_modules():
+    """For the block's length ``sys.modules`` holds the reference's modules
+    (the objects `load_reference` returned) and the shim is in place, so
+    the reference's lazy imports find them.  On exit the ``repro`` modules
+    that were there before come back, and a module the block imported is
+    kept for the next block."""
+    load_reference()
+    saved = {name: sys.modules.pop(name) for name in list(sys.modules)
+             if _is_reference(name)}
+    sys.modules.update(_kept)
+    try:
+        with _shimmed():
+            yield _loaded
+    finally:
+        for name in list(sys.modules):
+            if _is_reference(name):
+                _kept[name] = sys.modules.pop(name)
+        sys.modules.update(saved)
 
 
 def ulp_diff(a, b):
