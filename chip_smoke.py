@@ -14,7 +14,9 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   plain PyTorch version for every specialization, holds the chunk kernel
   (a whole chunk of fabric ticks per launch) bit for bit against the
   per-tick path on every output leaf for each algorithm, variant and
-  engine option at the paper's widths, drives the simulator's main path
+  engine option at the paper's widths, and its armed specializations
+  (every telemetry probe and detector, all four fault channels) on every
+  leaf, the telemetry state's included, drives the simulator's main path
   through the chunk kernel at full width (the paper's Fig. 7-9 convergence
   setup: two GPT-2 jobs on a 50 Gbps dumbbell, Reno OFF and WI, a two-seed
   sweep each, the suite's 1.5 s of simulated time), checks the figure
@@ -30,7 +32,16 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   ``scripts/reference_plans.py``), holds a padded-jobs point bit for bit
   against the same point run alone, serves the fig 12 plan a second time
   from the plan cache with no launch, and times one group as K grows
-  from 2 to 264;
+  from 2 to 264; fig 10 Reno runs at seeds 1-3, beside the reference's
+  three seeds;
+* telemetry and faults: the fig 5 timeline plan (benchmarks/timeline.py:
+  Reno, CUBIC, DCQCN x OFF/WI x seeds 1-3 with the suite's probes and
+  detectors) and the churn gauntlet (benchmarks/churn.py: three jobs on a
+  100 Gbps dumbbell, churn, flaps and blackholes as a schedule axis)
+  through ``run_plan`` and the armed chunk kernel, each counted, held to
+  its suite's assertions and beside the reference's numbers; the
+  sketch's ``logf`` against ``torch.log`` on every float32 in its range;
+  fig7-reno armed and unarmed in turns;
 * serving: it holds the RG-LRU scan kernel bit for bit (both of its
   routes: the serve shape, ragged and unaligned operands, T = 1) and the
   flash attention kernel within 2e-5 (f32) / 2e-2 (bf16 inputs) against
@@ -93,6 +104,9 @@ AGREE_SIM_TIME = 0.06
 # side sets its cost)
 CHUNK_CASE_SIM_TIME = 0.06
 CHUNK_CASE_SCALE = 0.25
+# depth of the armed kernel's cases (telemetry and faults armed: the
+# per-tick side costs more a tick)
+ARMED_CASE_SIM_TIME = 0.03
 SEEDS = (1, 2)
 # paper §4.1 (slope, intercept) and RED/ECN thresholds, benchmarks/common.py
 PARAMS = {"reno": (1.75, 0.25), "cubic": (1.0, 0.5), "dcqcn": (1.067, 0.267)}
@@ -113,6 +127,10 @@ DEVICE = "cuda"
 # (`sm_clock_hz`).
 SMEM_LATENCY_CYCLES = 30
 BARRIER_CYCLES = 20
+# The unarmed chunk kernel's fig7-reno specialization (Reno WI, job
+# statistics, no factors): its registers as PERF.md §6 row 1 records them;
+# arming telemetry and faults must leave its code as it was.
+UNARMED_FIG7_REGISTERS = 117
 
 RESULTS: dict = {}
 
@@ -456,7 +474,10 @@ def named_leaves(tree, prefix="") -> list:
         return [(prefix, tree)]
     if tree is None:
         return []
-    names = getattr(tree, "_fields", None) or range(len(tree))
+    if isinstance(tree, dict):          # a TelemetryState's probe rings
+        names, tree = list(tree), list(tree.values())
+    else:
+        names = getattr(tree, "_fields", None) or range(len(tree))
     return [x for name, v in zip(names, tree)
             for x in named_leaves(v, f"{prefix}.{name}" if prefix else
                                   str(name))]
@@ -533,13 +554,83 @@ def chunk_cases(core, netsim, workload, sim_time: float) -> list:
     ]
 
 
+def armed_cases(core, netsim, workload, sim_time: float) -> list:
+    """(name, config, sweep overrides) of the armed kernel's check.  Every
+    algorithm (WI) at the fig 7 width (2 jobs) and at 3 jobs, with every
+    built-in probe, the three detectors and all four fault channels; point
+    0 under a schedule that departs and re-admits the last job, flaps the
+    bottleneck, blackholes flow 0 and bursts the straggle probability,
+    point 1 under the identity schedule.  Then the specializations the two
+    plan phases run, at their widths (`SUITE_SOCKETS`: DCQCN one socket a
+    job), OFF and WI: the fig 5 plan's (telemetry alone, `fig5_spec`) and
+    the churn gauntlet's (`churn_spec` and its fault spec on the 100 Gbps
+    3-job dumbbell, point 0 under the gauntlet schedule, point 1 under the
+    staggered one)."""
+    import numpy as np
+
+    from repro_torch.netsim import telemetry
+
+    spec = netsim.TelemetrySpec(probes=telemetry.BUILTIN_PROBES, stride=7,
+                                detectors=telemetry.DETECTORS)
+    faults = netsim.FaultSpec(n_events=10, churn=True, link_flaps=True,
+                              blackholes=True, straggle_bursts=True)
+    out = []
+    for algo in ("reno", "cubic", "dcqcn"):
+        for n_jobs in (2, 3):
+            cfg = fig7_cfg(core, netsim, workload, algo, 1, sim_time,
+                           topo=netsim.dumbbell(n_jobs, sockets_per_job=2),
+                           models=("gpt2",) * n_jobs, scale=CHUNK_CASE_SCALE,
+                           telemetry=spec, faults=faults)
+            t = sim_time
+            sched = netsim.fault_schedule(cfg, [
+                netsim.job_departs(0.2 * t, n_jobs - 1),
+                netsim.job_arrives(0.45 * t, n_jobs - 1),
+                netsim.link_flap(0.3 * t, 0.6 * t, 0, 0.5),
+                netsim.blackhole(0.1 * t, 0.35 * t, [0]),
+                netsim.straggle_burst(0.05 * t, 0.7 * t, 0.5)], spec=faults)
+            ident = netsim.identity_schedule(cfg, faults)
+            out.append((f"{algo}_wi_armed_{n_jobs}jobs", cfg, dict(
+                seed=list(SEEDS),
+                **{f: np.stack([sched.values[f], ident.values[f]])
+                   for f in sched.values})))
+    churn_faults = netsim.FaultSpec(n_events=8, churn=True, link_flaps=True,
+                                    blackholes=True)
+    for algo, sockets in SUITE_SOCKETS.items():
+        for variant in VARIANT:
+            cfg = fig7_cfg(core, netsim, workload, algo, VARIANT[variant],
+                           sim_time, topo=netsim.dumbbell(
+                               2, sockets_per_job=sockets),
+                           scale=CHUNK_CASE_SCALE,
+                           telemetry=fig5_spec(netsim))
+            out.append((f"{algo}_{variant.lower()}_fig5", cfg,
+                        dict(seed=list(SEEDS))))
+            cfg = fig7_cfg(core, netsim, workload, algo, VARIANT[variant],
+                           sim_time, topo=netsim.dumbbell(
+                               CHURN_JOBS, sockets_per_job=sockets,
+                               cap_gbps=CHURN_CAP_GBPS),
+                           models=("gpt2",) * CHURN_JOBS,
+                           scale=CHUNK_CASE_SCALE, telemetry=churn_spec(netsim),
+                           faults=churn_faults)
+            scheds = [netsim.fault_schedule(
+                cfg, churn_events(netsim, cfg, label), spec=churn_faults)
+                for label in CHURN_SCHEDULES]
+            out.append((f"{algo}_{variant.lower()}_churn", cfg, dict(
+                seed=list(SEEDS),
+                **{f: np.stack([sc.values[f] for sc in scheds])
+                   for f in scheds[0].values})))
+    return out
+
+
 def phase_chunk_vs_per_tick(kern, core, netsim, workload) -> dict:
     """The chunk kernel against the per-tick path (its plain version, with
     the per-tick CC kernel) on the card: every leaf of RawSimOutput,
-    final_state included, bit for bit."""
+    final_state and telemetry included, bit for bit; the unarmed kernel on
+    the engine options, the armed one on `armed_cases`."""
     out = {}
     sim_time = CHUNK_CASE_SIM_TIME
-    for name, cfg, overrides in chunk_cases(core, netsim, workload, sim_time):
+    cases = (chunk_cases(core, netsim, workload, sim_time)
+             + armed_cases(core, netsim, workload, ARMED_CASE_SIM_TIME))
+    for name, cfg, overrides in cases:
         sweep = netsim.make_sweep(cfg, device=DEVICE, **overrides)
         got, chunk_s, counts = run_counted(kern, cfg, sweep)
         check_counts(name, cfg, counts)
@@ -554,13 +645,15 @@ def phase_chunk_vs_per_tick(kern, core, netsim, workload) -> dict:
         out[name] = dict(
             k=int(sweep.slope.shape[0]), m=cfg.topo.n_links,
             n=cfg.topo.n_flows, j=cfg.jobs.n_jobs, ticks=ticks,
+            armed=kern["nc"].armed_bits(cfg),
             chunks=n_chunks_run(cfg), leaves=n_leaves, bitwise=True,
             max_abs_err=err,
             iterations=int(want.iter_counts.sum()),
             boundaries=int(want.final_state.proto.det.n_boundaries.sum()),
             chunk_us_per_tick=1e6 * chunk_s / ticks,
             per_tick_us_per_tick=1e6 * tick_s / ticks)
-    emit("chunk_vs_per_tick", sim_time=sim_time, cases=out)
+    emit("chunk_vs_per_tick", sim_time=sim_time,
+         armed_sim_time=ARMED_CASE_SIM_TIME, cases=out)
     return out
 
 
@@ -769,7 +862,8 @@ def chunk_bound(nc, cfg, st, after, run, inputs, traces) -> dict:
     constants, the chunk's inputs and the probes' trace column."""
     cs = nc.pack_state(st)
     state = sum(t.numel() * t.element_size() for name, t in
-                zip(cs._fields, cs) if name not in ("iter_times", "acc"))
+                zip(cs._fields, cs)
+                if t is not None and name not in ("iter_times", "acc"))
     slots = int((after.iter_idx - st.iter_idx).sum())
     const = sum(t.numel() * t.element_size() for t in run[:7]
                 if t is not None)
@@ -842,6 +936,13 @@ def phase_chunk_timing(kern, core, netsim, workload) -> dict:
              nc.kernel_attributes(a, v, g, f)
              for a in (0, 1, 2) for v in (0, 1, 2, 3)
              for g in (False, True) for f in (False, True)}
+    main_attrs = every["algo0_var1_agg1_fac0"]
+    if (main_attrs["registers"], main_attrs["local_bytes"]) != (
+            UNARMED_FIG7_REGISTERS, 0):
+        raise AssertionError(f"the unarmed fig7-reno specialization "
+                             f"changed: {main_attrs}, expected "
+                             f"{UNARMED_FIG7_REGISTERS} registers and no "
+                             f"spill")
     out = dict(k=len(SEEDS), ticks=tpc, shape=nc.shape_of(cfg),
                smem_bytes=nc.launch_smem_bytes(run), threads=run.threads,
                ms=event_ms(launch, 20), plain_ms=event_ms(plain, 2, warm=1),
@@ -911,9 +1012,13 @@ def phase_profile(kern, core, netsim, workload) -> dict:
 # ---------------------------------------------------------------------------
 
 # The suites' own axes (benchmarks/speedup_vs_jobs.py,
-# benchmarks/stragglers.py) at their REPRO_SMOKE depth and seed.
+# benchmarks/stragglers.py) at their REPRO_SMOKE depth and seed; fig 10
+# Reno at seeds 1-3 (the reference's seeds in results/reference_plans.json:
+# its spread across them is what settles whether the port's cells differ
+# from the reference's by chaos).
 PLAN_SIM_TIME = 1.5
 PLAN_SEEDS = (1,)
+FIG10_RENO_SEEDS = (1, 2, 3)
 FIG10_JOBS = (2, 3, 4, 5, 6)
 FIG12_PROBS = (0.0, 0.05, 0.10, 0.20, 0.30)
 VARIANT = {"OFF": 0, "WI": 1}
@@ -929,7 +1034,7 @@ K_SIM_TIME = 0.3
 K_CHUNKS = (400, 80)
 
 
-def fig10_plan(core, netsim, workload, algo: str):
+def fig10_plan(core, netsim, workload, algo: str, seeds=PLAN_SEEDS):
     """speedup_vs_jobs._plan: variant x job count x seed on dumbbell(n, 2);
     the job counts pad into one group per variant."""
     def build(pt):
@@ -940,7 +1045,7 @@ def fig10_plan(core, netsim, workload, algo: str):
                         models=("gpt2",) * n)
     return netsim.Plan(name=f"fig10-{algo}", build=build, axes=(
         netsim.Axis("variant", tuple(VARIANT)),
-        netsim.Axis("n_jobs", FIG10_JOBS), netsim.Axis("seed", PLAN_SEEDS)))
+        netsim.Axis("n_jobs", FIG10_JOBS), netsim.Axis("seed", seeds)))
 
 
 def fig12_plan(core, netsim, workload):
@@ -989,13 +1094,14 @@ def check_plan(pr, counts: dict, max_groups: int) -> dict:
 
 
 def plan_cells(netsim, pr) -> dict:
-    """Each cell's avg and p99 speedup, seed-paired as the suites pair
-    them: fig 10 WI over OFF per job count, fig 12 MLQCN and Cassini over
-    base DCQCN per straggle probability."""
+    """Each cell's avg and p99 speedup per seed (the plan's seed order),
+    seed-paired as the suites pair them: fig 10 WI over OFF per job count,
+    fig 12 MLQCN and Cassini over base DCQCN per straggle probability; the
+    layout of results/reference_plans.json."""
     def stats(base, test):
-        sp = netsim.sweep_speedup_stats(base, test)
-        return {"avg_speedup": sp["avg_speedup"],
-                "p99_speedup": sp["p99_speedup"]}
+        per = [netsim.speedup_stats(b, t) for b, t in zip(base, test)]
+        return {m: [p[m] for p in per]
+                for m in ("avg_speedup", "p99_speedup")}
     if pr.plan.name == "fig12":
         return {f"{scheme}@{p}": stats(pr.select(p=p, scheme="base"),
                                        pr.select(p=p, scheme=scheme))
@@ -1005,37 +1111,71 @@ def plan_cells(netsim, pr) -> dict:
             for n in FIG10_JOBS}
 
 
-def tier_b(name: str, cells: dict, ref: dict) -> dict:
-    """The port's cells against the reference's at the same seed.  The
-    runs diverge chaotically (loss and CNP draws threshold on ``expm1``,
-    which differs by a few ulp across frameworks), so the port's run is in
-    effect one more seed: a metric's tolerance is the widest spread the
-    reference itself shows across seeds 1-3 in any cell of the plan.
-    Cells outside are reported; more than half of a plan's cells outside
-    for one metric is a systematic gap and fails."""
+def tier_b(name: str, cells: dict, ref: dict, seeds,
+           metrics=("avg_speedup", "p99_speedup")) -> dict:
+    """The port's cells against the reference's at the same seeds (each
+    cell a {metric: [value per seed]}; None for "never", an infinite
+    time).  The runs diverge chaotically (loss and CNP draws threshold on
+    ``expm1``, which differs by a few ulp across frameworks), so the
+    port's run is in effect one more seed: a metric's tolerance is the
+    widest spread the reference itself shows across seeds 1-3 in any cell
+    of the plan.  A value within it of the reference's (or None where the
+    reference's is None) is inside.  Outside values are reported; more
+    than half of a metric's values outside is a systematic gap and
+    fails."""
     plan = ref["plans"][name]
-    col = ref["seeds"].index(PLAN_SEEDS[0])
-    out = {"tolerance": {}, "cells": {}, "outside": []}
-    for metric in ("avg_speedup", "p99_speedup"):
-        tol = max(max(c[metric]) - min(c[metric])
-                  for c in plan["cells"].values())
+    cols = [ref["seeds"].index(seed) for seed in seeds]
+    out = {"seeds": list(seeds), "tolerance": {}, "cells": {},
+           "outside": []}
+    for metric in metrics:
+        spreads = [max(v) - min(v) for v in (
+            [x for x in c[metric] if x is not None]
+            for c in plan["cells"].values()) if v]
+        tol = max(spreads) if spreads else 0.0
         out["tolerance"][metric] = tol
-        n_out = 0
+        n_out = n = 0
         for cell, got in cells.items():
-            want = plan["cells"][cell][metric][col]
-            gap = got[metric] - want
-            out["cells"].setdefault(cell, {})[metric] = dict(
-                port=got[metric], reference=want, gap=gap)
-            if abs(gap) > tol:
-                n_out += 1
-                out["outside"].append(dict(cell=cell, metric=metric,
-                                           port=got[metric], reference=want,
-                                           gap=gap, tolerance=tol))
-        if 2 * n_out > len(cells):
-            raise AssertionError(f"{name}: {n_out} of {len(cells)} cells "
-                                 f"outside the {metric} tolerance {tol}: "
+            for col, seed, value in zip(cols, seeds, got[metric]):
+                want = plan["cells"][cell][metric][col]
+                gap = (None if value is None or want is None
+                       else float(value) - float(want))
+                inside = (value is None and want is None) or (
+                    gap is not None and abs(gap) <= tol)
+                out["cells"].setdefault(cell, {}).setdefault(
+                    metric, []).append(dict(seed=seed, port=value,
+                                            reference=want, gap=gap))
+                n += 1
+                if not inside:
+                    n_out += 1
+                    out["outside"].append(dict(
+                        cell=cell, seed=seed, metric=metric, port=value,
+                        reference=want, gap=gap, tolerance=tol))
+        if 2 * n_out > n:
+            raise AssertionError(f"{name}: {n_out} of {n} values outside "
+                                 f"the {metric} tolerance {tol}: "
                                  f"{out['outside']}")
     return out
+
+
+def seed_spread(name: str, cells: dict, ref: dict, cell: str, metric: str,
+                tol: float) -> dict:
+    """One cell of a multi-seed plan against the reference at the same
+    seeds: each seed's gap and whether it is outside the plan's tolerance
+    ``tol``, and the gap between the two packages' means over the seeds.
+    The cell's gap reads as chaos, not a fault, when it is not outside at
+    every seed and the port's own spread across its seeds covers the gap
+    of the means; a fault would stay outside at every seed."""
+    port = cells[cell][metric]
+    want = ref["plans"][name]["cells"][cell][metric]
+    gaps = [p - w for p, w in zip(port, want)]
+    spread = max(port) - min(port)
+    mean_gap = statistics.mean(port) - statistics.mean(want)
+    outside = [abs(g) > tol for g in gaps]
+    return dict(cell=cell, metric=metric, port=port, reference=want,
+                gaps=gaps, tolerance=tol, outside=outside,
+                port_spread=spread, reference_spread=max(want) - min(want),
+                mean_gap=mean_gap,
+                chaos=bool(not all(outside) and abs(mean_gap) <= spread))
 
 
 def compare_prefix(padded, slot: int, alone) -> dict:
@@ -1146,29 +1286,35 @@ def phase_plans(kern, core, netsim, workload) -> dict:
     with open(REFERENCE_PLANS) as f:
         ref = json.load(f)
     out, plans = {}, {}
-    for algo in ("reno", "dcqcn"):
-        plans[f"fig10-{algo}"] = (fig10_plan(core, netsim, workload, algo),
-                                  2, {})
+    for algo, seeds in (("reno", FIG10_RENO_SEEDS), ("dcqcn", PLAN_SEEDS)):
+        plans[f"fig10-{algo}"] = (fig10_plan(core, netsim, workload, algo,
+                                             seeds), 2, {}, seeds)
     shutil.rmtree(PLAN_CACHE, ignore_errors=True)
     plans["fig12"] = (fig12_plan(core, netsim, workload), 2,
-                      dict(cache_dir=PLAN_CACHE))
+                      dict(cache_dir=PLAN_CACHE), PLAN_SEEDS)
     results = {}
-    for name, (plan, max_groups, kw) in plans.items():
+    for name, (plan, max_groups, kw, seeds) in plans.items():
         pr, seconds, counts = counted(
             kern, lambda: netsim.run_plan(plan, device=DEVICE, **kw))
         info = check_plan(pr, counts, max_groups)
         if name.startswith("fig10") and (
                 info["n_compile_groups"] != 2
-                or any((g["k"], g["n_jobs"], g["n_flows"]) != (5, 6, 12)
-                       for g in info["groups"])):
+                or any((g["k"], g["n_jobs"], g["n_flows"])
+                       != (5 * len(seeds), 6, 12) for g in info["groups"])):
             raise AssertionError(f"{name}: groups {info['groups']}, "
-                                 f"expected two of K=5 on 6 jobs x 2 flows")
+                                 f"expected two of K={5 * len(seeds)} on "
+                                 f"6 jobs x 2 flows")
         cells = plan_cells(netsim, pr)
         results[name] = pr
         out[name] = dict(seconds=seconds,
                          us_per_tick=1e6 * seconds / info["ticks"],
                          **info, cells=cells,
-                         tier_b=tier_b(name, cells, ref))
+                         tier_b=tier_b(name, cells, ref, seeds))
+    # ROADMAP queue 3 item 1: fig 10 Reno 6 jobs, p99, against the
+    # reference's seeds 1-3
+    out["fig10_reno_6_jobs_p99"] = seed_spread(
+        "fig10-reno", out["fig10-reno"]["cells"], ref, "6", "p99_speedup",
+        out["fig10-reno"]["tier_b"]["tolerance"]["p99_speedup"])
     out["padded_vs_alone"] = padded_vs_alone(kern, netsim,
                                              plans["fig10-reno"][0], 3)
     again, seconds, counts = counted(kern, lambda: netsim.run_plan(
@@ -1186,6 +1332,357 @@ def phase_plans(kern, core, netsim, workload) -> dict:
     out["outside_tolerance"] = [dict(plan=name, **o) for name in plans
                                 for o in out[name]["tier_b"]["outside"]]
     emit("plans", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# telemetry and faults: the fig 5 timeline and the churn gauntlet plans
+# ---------------------------------------------------------------------------
+
+# benchmarks/timeline.py at REPRO_SMOKE depth (common.SIM_TIME), seeds 1-3
+FIG5_SIM_TIME = 1.5
+FIG5_SEEDS = (1, 2, 3)
+FIG5_PROBES = ("flow_cwnd", "flow_rate", "link_queue", "link_mark_rate",
+               "job_incomm", "job_iter", "interleave_overlap")
+# paper §4.1: TCP jobs open parallel sockets, RoCE one QP (both suites)
+SUITE_SOCKETS = {"reno": 2, "cubic": 2, "dcqcn": 1}
+MAX_TTI_ITERS = 10.0
+FIG5_METRICS = ("tti_iters", "tti_seconds", "interleave_stability",
+                "p50_iter_s", "p99_iter_s")
+# benchmarks/churn.py: three GPT-2 jobs on a 100 Gbps dumbbell for
+# 18 s x WORK_SCALE, an 8-row schedule of churn, flaps and blackholes
+CHURN_SIM_TIME = 18.0 * WORK_SCALE
+CHURN_CAP_GBPS = 100.0
+CHURN_JOBS = 3
+CHURN_SEEDS = (1, 2, 3)
+CHURN_SCHEDULES = ("gauntlet", "staggered")
+# label -> (churned job, blackholed job, arrival, departure, re-arrival,
+# blackhole window, flap window and scale), as fractions of the run
+CHURN_EVENTS = {
+    "gauntlet": (2, 0, 0.08, 0.30, 0.38, (0.18, 0.22), (0.50, 0.64, 0.88)),
+    "staggered": (1, 2, 0.10, 0.32, 0.40, (0.20, 0.24), (0.52, 0.66, 0.9)),
+}
+CHURN_MAX_ITERS = 10.0
+CHURN_EXEMPT = ("blackhole-active", "cold-start")
+CHURN_REQUIRED = ("departure", "arrival", "re-arrival", "flap", "flap-clear",
+                  "blackhole-clear")
+CHURN_ML_MIN_STABILITY = 0.95
+CHURN_BASE_MARGIN = {"reno": 0.02, "cubic": 0.02, "dcqcn": 0.0}
+CHURN_METRICS = ("interleave_stability", "max_reinterleave_iters")
+
+
+def reference_plan_script():
+    """scripts/reference_plans.py as a module (its cell extraction reads a
+    PlanResult of either package through the netsim accessors; it imports
+    nothing of the reference until its main runs)."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import reference_plans
+    return reference_plans
+
+
+def fig5_spec(netsim):
+    """timeline.telemetry_spec: the suite's probes, ~1000 samples a run."""
+    n_ticks = int(round(FIG5_SIM_TIME / DT))
+    return netsim.TelemetrySpec(probes=FIG5_PROBES,
+                                stride=max(1, n_ticks // 1000))
+
+
+def fig5_plan(core, netsim, workload):
+    """timeline.make_plan: algo x variant x seed, two GPT-2 jobs on
+    dumbbell(2, sockets per algo)."""
+    def build(pt):
+        algo = pt["algo"]
+        return fig7_cfg(core, netsim, workload, algo, VARIANT[pt["variant"]],
+                        FIG5_SIM_TIME, topo=netsim.dumbbell(
+                            2, sockets_per_job=SUITE_SOCKETS[algo]))
+    return netsim.Plan(name="fig5-timeline", build=build, axes=(
+        netsim.Axis("algo", tuple(SUITE_SOCKETS)),
+        netsim.Axis("variant", tuple(VARIANT)),
+        netsim.Axis("seed", FIG5_SEEDS)))
+
+
+def fig5_claims(cells: dict) -> dict:
+    """timeline._summarize's assertions per algorithm on {algo/variant:
+    per-seed values}: every MLTCP seed interleaves within MAX_TTI_ITERS
+    iterations, no baseline seed converges."""
+    out = {}
+    for algo in SUITE_SOCKETS:
+        ml, base = cells[f"{algo}/WI"], cells[f"{algo}/OFF"]
+        failed = []
+        if not all(x is not None and x <= MAX_TTI_ITERS
+                   for x in ml["tti_iters"]):
+            failed.append(f"MLTCP time to interleave {ml['tti_iters']} "
+                          f"exceeds {MAX_TTI_ITERS}")
+        if any(base["converged"]):
+            failed.append(f"baseline interleaved: {base['converged']}")
+        out[algo] = dict(tti_iters=ml["tti_iters"], failed=failed)
+    return out
+
+
+def armed_turns(kern, core, netsim, workload) -> dict:
+    """fig7-reno WI at 1.5 s (K = 2 seeds) unarmed and with the fig 5
+    spec armed, in turns (unarmed, armed, armed, unarmed): µs per tick."""
+    import dataclasses
+
+    base = fig7_cfg(core, netsim, workload, "reno", 1, MAIN_SIM_TIME)
+    cfgs = {"unarmed": base,
+            "armed": dataclasses.replace(base, telemetry=fig5_spec(netsim))}
+    turns = []
+    for name in ("unarmed", "armed", "armed", "unarmed"):
+        cfg = cfgs[name]
+        _, seconds, counts = run_counted(kern, cfg)
+        check_counts(f"turn {name}", cfg, counts)
+        turns.append(dict(run=name, seconds=seconds,
+                          us_per_tick=1e6 * seconds / ticks_run(cfg)))
+    med = {name: statistics.median(t["us_per_tick"] for t in turns
+                                   if t["run"] == name) for name in cfgs}
+    return dict(turns=turns, unarmed_us_per_tick=med["unarmed"],
+                armed_us_per_tick=med["armed"],
+                armed_over_unarmed=med["armed"] / med["unarmed"])
+
+
+def sketch_check(nc, netsim) -> dict:
+    """The iteration-time sketch's one transcendental on the card: the
+    chunk kernel's ``logf`` against ``torch.log`` on CUDA, and its bins
+    against `telemetry.sketch_bins`, on every float32 in [sketch_lo,
+    sketch_hi] (one launch).  Unequal bins would break the kernel's bitwise
+    parity with the per-tick path and fail."""
+    import numpy as np
+    import torch
+
+    from repro_torch.netsim import telemetry
+
+    spec = netsim.TelemetrySpec()
+    lo, hi = (int(np.float32(v).view(np.int32))
+              for v in (spec.sketch_lo, spec.sketch_hi))
+    x = torch.arange(lo, hi + 1, dtype=torch.int32,
+                     device=DEVICE).view(torch.float32)
+    logs, bins = nc.sketch_check(x, spec)
+    log_diff = int((logs.view(torch.int32)
+                    != torch.log(x).view(torch.int32)).sum())
+    bin_diff = int((bins != telemetry.sketch_bins(x, spec)).sum())
+    out = dict(values=x.numel(), lo=spec.sketch_lo, hi=spec.sketch_hi,
+               log_differs=log_diff, bins_differ=bin_diff)
+    del x, logs, bins
+    torch.cuda.empty_cache()
+    if bin_diff:
+        raise AssertionError(f"sketch bins: kernel != torch on {bin_diff} "
+                             f"float32 values: {out}")
+    return out
+
+
+def phase_telemetry(kern, core, netsim, workload) -> dict:
+    """The fig 5 timeline plan (benchmarks/timeline.py) through the port's
+    `run_plan` with the suite's telemetry spec on the card, counted: the
+    suite's assertions, each cell beside the reference's
+    (results/reference_plans.json, Tier B as the plans phase), the groups
+    equal to the reference's; the sketch's logf on the card; and fig7-reno
+    µs per tick armed and unarmed in turns."""
+    rp = reference_plan_script()
+    with open(REFERENCE_PLANS) as f:
+        ref = json.load(f)
+    want = ref["plans"]["fig5"]
+    plan = fig5_plan(core, netsim, workload)
+    pr, seconds, counts = counted(kern, lambda: netsim.run_plan(
+        plan, device=DEVICE, telemetry=fig5_spec(netsim)))
+    info = check_plan(pr, counts, want["n_compile_groups"])
+    if info["n_compile_groups"] != want["n_compile_groups"]:
+        raise AssertionError(f"fig5: {info['n_compile_groups']} groups, the "
+                             f"reference {want['n_compile_groups']}")
+    cells = rp.timeline_cells(netsim, pr)
+    claims = fig5_claims(cells)
+    failed = {a: c["failed"] for a, c in claims.items() if c["failed"]}
+    if failed:
+        raise AssertionError(f"fig5: the suite's assertions fail: {failed}")
+    out = dict(seconds=seconds, us_per_tick=1e6 * seconds / info["ticks"],
+               **info, cells=cells, claims=claims,
+               reference_claims=fig5_claims(want["cells"]),
+               tier_b=tier_b("fig5", cells, ref, FIG5_SEEDS, FIG5_METRICS),
+               sketch=sketch_check(kern["nc"], netsim),
+               fig7_reno=armed_turns(kern, core, netsim, workload))
+    emit("telemetry", **out)
+    return out
+
+
+def churn_events(netsim, cfg, label: str) -> list:
+    """churn._events: the labeled gauntlet on ``cfg``'s fabric."""
+    t = cfg.sim_time
+    churn_job, bh_job, arr, dep, rearr, bh, flap = CHURN_EVENTS[label]
+    bh_flow = [int(f) for f in
+               (cfg.topo.flow_to_job == bh_job).nonzero()[0]][:1]
+    return [
+        netsim.job_departs(0.0, churn_job),
+        netsim.job_arrives(arr * t, churn_job),
+        netsim.job_departs(dep * t, churn_job),
+        netsim.job_arrives(rearr * t, churn_job),
+        netsim.link_flap(flap[0] * t, flap[1] * t, 0, flap[2]),
+        netsim.blackhole(bh[0] * t, bh[1] * t, bh_flow),
+    ]
+
+
+def churn_window_names(label: str) -> dict:
+    """churn._window_names: start tick -> window name."""
+    t = CHURN_SIM_TIME
+    _, _, arr, dep, rearr, bh, flap = CHURN_EVENTS[label]
+
+    def tick(x):
+        return max(0, int(round(x / DT)))
+    return {0: "cold-start", tick(arr * t): "arrival",
+            tick(dep * t): "departure", tick(rearr * t): "re-arrival",
+            tick(flap[0] * t): "flap", tick(flap[1] * t): "flap-clear",
+            tick(bh[0] * t): "blackhole-active",
+            tick(bh[1] * t): "blackhole-clear"}
+
+
+def churn_spec(netsim):
+    """churn.telemetry_spec: overlap and iterations, the three detectors,
+    the 0.8 overlap threshold, ~1000 samples a run."""
+    n_ticks = int(round(CHURN_SIM_TIME / DT))
+    return netsim.TelemetrySpec(
+        probes=("interleave_overlap", "job_iter"),
+        detectors=("interleave", "iter_sketch", "reinterleave"),
+        overlap_threshold=0.8, stride=max(1, n_ticks // 1000))
+
+
+def churn_plan(core, netsim, workload):
+    """churn.make_plan: algo x variant x schedule x seed; the schedule a
+    ``field="*"`` axis resolving, per point config, to the schedule's
+    sweep overrides."""
+    faults = netsim.FaultSpec(n_events=8, churn=True, link_flaps=True,
+                              blackholes=True)
+    tel = churn_spec(netsim)
+
+    def build(pt):
+        algo = pt["algo"]
+        return fig7_cfg(core, netsim, workload, algo, VARIANT[pt["variant"]],
+                        CHURN_SIM_TIME, topo=netsim.dumbbell(
+                            CHURN_JOBS, sockets_per_job=SUITE_SOCKETS[algo],
+                            cap_gbps=CHURN_CAP_GBPS),
+                        models=("gpt2",) * CHURN_JOBS, faults=faults,
+                        telemetry=tel)
+
+    def schedule(label):
+        return lambda cfg: netsim.fault_schedule(
+            cfg, churn_events(netsim, cfg, label), spec=faults).overrides()
+    return netsim.Plan(name="churn-gauntlet", build=build, axes=(
+        netsim.Axis("algo", tuple(SUITE_SOCKETS)),
+        netsim.Axis("variant", tuple(VARIANT)),
+        netsim.Axis("schedule", CHURN_SCHEDULES, field="*",
+                    resolve=schedule),
+        netsim.Axis("seed", CHURN_SEEDS)))
+
+
+def churn_claims(cells: dict) -> dict:
+    """churn._summarize's assertions per (algo, schedule) on {algo/variant/
+    schedule: per-seed reports}: after every non-exempt fault window MLTCP
+    re-interleaves within CHURN_MAX_ITERS iterations (worst over seeds),
+    every required window is seen, MLTCP stability holds, no baseline run
+    re-converges from every window, and the baseline's stability sits
+    below MLTCP's by the algorithm's margin.  Each failure names its kind
+    and, for the first two, its windows."""
+    out = {}
+    for algo in SUITE_SOCKETS:
+        for label in CHURN_SCHEDULES:
+            ml = cells[f"{algo}/WI/{label}"]
+            base = cells[f"{algo}/OFF/{label}"]
+            names = churn_window_names(label)
+            worst: dict = {}
+            for events in ml["events"]:
+                for e in events:
+                    name = names.get(e["start_tick"],
+                                     f"tick{e['start_tick']}")
+                    it = e["reinterleave_iters"]
+                    it = float("inf") if it is None else it
+                    worst[name] = max(worst.get(name, 0.0), it)
+            held = {k: v for k, v in worst.items() if k not in CHURN_EXEMPT}
+            ml_stab = min(ml["interleave_stability"])
+            base_stab = max(base["interleave_stability"])
+            failed = []
+            missing = [w for w in CHURN_REQUIRED if w not in held]
+            if missing:
+                failed.append(dict(kind="missing", windows=missing,
+                                   msg="fault windows never observed"))
+            bad = {k: v for k, v in held.items() if v > CHURN_MAX_ITERS}
+            if bad:
+                failed.append(dict(
+                    kind="reinterleave", windows=sorted(bad),
+                    msg=f"MLTCP re-interleave over {CHURN_MAX_ITERS} "
+                        f"iterations: {bad}"))
+            if ml_stab < CHURN_ML_MIN_STABILITY:
+                failed.append(dict(kind="ml_stability",
+                                   msg=f"MLTCP stability {ml_stab}"))
+            if any(base["all_events_reconverged"]):
+                failed.append(dict(kind="baseline_reconverged",
+                                   msg="a baseline run re-converged after "
+                                       "every fault window"))
+            if base_stab > ml_stab - CHURN_BASE_MARGIN[algo]:
+                failed.append(dict(
+                    kind="margin",
+                    msg=f"baseline stability {base_stab} not below MLTCP's "
+                        f"{ml_stab} by {CHURN_BASE_MARGIN[algo]}"))
+            out[f"{algo}/{label}"] = dict(
+                worst_reinterleave_iters={k: (None if v == float("inf")
+                                              else v)
+                                          for k, v in worst.items()},
+                ml_stability=ml_stab, baseline_stability=base_stab,
+                failed=failed)
+    return out
+
+
+def unshared_failures(claim: dict, ref_claim: dict) -> list:
+    """The failures of one churn cell's `churn_claims` that the reference's
+    same cell does not share: a kind the reference holds, or a window the
+    reference holds of a kind it fails."""
+    ref = {f["kind"]: set(f.get("windows", ())) for f in ref_claim["failed"]}
+    out = []
+    for f in claim["failed"]:
+        if f["kind"] not in ref:
+            out.append(f)
+        elif "windows" in f:
+            extra = [w for w in f["windows"] if w not in ref[f["kind"]]]
+            if extra:
+                out.append(dict(f, windows=extra))
+    return out
+
+
+def phase_faults(kern, core, netsim, workload) -> dict:
+    """The churn gauntlet (benchmarks/churn.py) through the port's
+    `run_plan` on the card, counted: each of the suite's assertions held
+    in every cell, but for those the reference itself fails in that cell
+    on the same seeds (results/reference_plans.json: at seeds 1-3 it
+    fails Reno's re-interleave bound after flap-clear and, in the
+    gauntlet, re-arrival), assertion by assertion and window by window;
+    each cell beside the reference's (Tier B); the groups equal to the
+    reference's."""
+    rp = reference_plan_script()
+    with open(REFERENCE_PLANS) as f:
+        ref = json.load(f)
+    want = ref["plans"]["churn"]
+    plan = churn_plan(core, netsim, workload)
+    pr, seconds, counts = counted(
+        kern, lambda: netsim.run_plan(plan, device=DEVICE))
+    info = check_plan(pr, counts, want["n_compile_groups"])
+    if info["n_compile_groups"] != want["n_compile_groups"]:
+        raise AssertionError(f"churn: {info['n_compile_groups']} groups, "
+                             f"the reference {want['n_compile_groups']}")
+    cells = rp.churn_cells(netsim, pr)
+    claims, ref_claims = churn_claims(cells), churn_claims(want["cells"])
+    failed = {cell: bad for cell, c in claims.items()
+              if (bad := unshared_failures(c, ref_claims[cell]))}
+    if failed:
+        raise AssertionError(f"churn: the suite's assertions fail where the "
+                             f"reference holds them: {failed}")
+    worst = max((v for c in claims.values()
+                 for name, v in c["worst_reinterleave_iters"].items()
+                 if name not in CHURN_EXEMPT and v is not None),
+                default=None)
+    out = dict(seconds=seconds, us_per_tick=1e6 * seconds / info["ticks"],
+               **info, cells=cells, claims=claims,
+               reference_claims=ref_claims,
+               worst_reinterleave_iters=worst,
+               tier_b=tier_b("churn", cells, ref, CHURN_SEEDS,
+                             CHURN_METRICS))
+    emit("faults", **out)
     return out
 
 
@@ -1865,9 +2362,34 @@ def phase_serve(fa, rl, kern) -> dict:
     return res
 
 
+def armed_attributes(nc, netsim, core, workload) -> dict:
+    """Registers, spills and static shared memory of each armed
+    specialization, and the dynamic shared memory of the armed plans'
+    points (the fig 5 and churn widths)."""
+    import dataclasses
+
+    out = {}
+    for armed in (nc.ARM_TEL, nc.ARM_FAULTS, nc.ARM_TEL | nc.ARM_FAULTS):
+        for algo, variant, agg, fac in sorted(nc.ARMED_SPECIALIZATIONS):
+            out[f"armed{armed}_algo{algo}_var{variant}"] = \
+                nc.kernel_attributes(algo, variant, agg, fac, armed)
+    fig5 = dataclasses.replace(
+        fig7_cfg(core, netsim, workload, "reno", 1, FIG5_SIM_TIME),
+        telemetry=fig5_spec(netsim))
+    churn = churn_plan(core, netsim, workload).build(
+        dict(algo="reno", variant="WI", schedule="gauntlet", seed=1))
+    return dict(specializations=out,
+                registers_range=[min(x["registers"] for x in out.values()),
+                                 max(x["registers"] for x in out.values())],
+                spilling={k: x["local_bytes"] for k, x in out.items()
+                          if x["local_bytes"]},
+                smem_bytes={"fig5": nc.smem_bytes(**nc.shape_of(fig5)),
+                            "churn": nc.smem_bytes(**nc.shape_of(churn))})
+
+
 def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
                  timing: dict, prof: dict, plans: dict, lm: dict,
-                 served: dict) -> list:
+                 served: dict, armed: dict, tel: dict, flt: dict) -> list:
     main_row = next(r for r in kern["main_shape"] if r["algo"] == 0)
     serve_attrs = lm["flash"]["attributes"]["float32_d256"]
     rg_attrs = lm["rg_lru"]["attributes"][
@@ -1913,8 +2435,17 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
         "plan_launches": {name: plans[name]["launches"]["netsim_chunk"]
                           for name in ("fig10-reno", "fig10-dcqcn",
                                        "fig12")},
+        # the armed kernel (telemetry and faults): its plans' launches, its
+        # specializations, and fig7-reno armed against unarmed
+        "armed_plan_launches": {"fig5": tel["launches"]["netsim_chunk"],
+                                "churn": flt["launches"]["netsim_chunk"]},
+        "armed": armed,
+        "armed_us_per_tick": tel["fig7_reno"]["armed_us_per_tick"],
+        "unarmed_us_per_tick": tel["fig7_reno"]["unarmed_us_per_tick"],
         "max_abs_err": max([timing["max_abs_err"]]
                            + [c["max_abs_err"] for c in chunks.values()]),
+        "armed_cases_bitwise": sorted(name for name, c in chunks.items()
+                                      if c["armed"]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
         "device_ms": chunk_prof["kernel_device_us_per_launch"] * 1e-3,
@@ -2058,10 +2589,13 @@ def main(argv=None) -> int:
     timing = phase_chunk_timing(sim_kernels, core, netsim, workload)
     prof = phase_profile(sim_kernels, core, netsim, workload)
     plans = phase_plans(sim_kernels, core, netsim, workload)
+    tel = phase_telemetry(sim_kernels, core, netsim, workload)
+    flt = phase_faults(sim_kernels, core, netsim, workload)
+    armed = armed_attributes(nc, netsim, core, workload)
     lm = phase_lm_kernels(fa, rl, ref)
     served = phase_serve(fa, rl, sim_kernels)
     table = kernel_table(kern, main_path, states, chunks, timing, prof,
-                         plans, lm, served)
+                         plans, lm, served, armed, tel, flt)
     check_kernel_table(table)
     RESULTS["kernels"] = table
     write_results(args.out, t_start)

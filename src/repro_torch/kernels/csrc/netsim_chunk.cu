@@ -33,6 +33,26 @@
 // own.  The engine-level options (ECN vs RED, Cassini, the CUBIC epoch
 // reset) are runtime branches uniform across the CTA; the CC
 // specializations stay template parameters.
+//
+// Telemetry and faults (netsim/telemetry.py, netsim/faults.py) are the
+// template parameter ARMED (bit 0 telemetry, bit 1 faults); ARMED == 0 is
+// the unarmed kernel, whose code every armed hook leaves untouched (each
+// sits under `if constexpr`).  Which probes, detectors and fault channels
+// an armed launch runs are runtime flags uniform across the CTA.  The
+// fault row of each tick comes from the host with the chunk's other
+// inputs (engine.chunk_inputs ranks the tick against the schedule): the
+// churn mask, the blackhole mask and the flapped capacity (cap * scale)
+// * dt, and the row index for the re-interleave detector.  The probes
+// write their samples straight into the run's ring buffers in global
+// memory ([K, cap, W]) from the phase that owns the value: the injection
+// rate in phase 2, the queue and RED probability in 3a, the job state in
+// 5, cwnd and bytes_ratio in 6.  The detectors' state lives in shared
+// memory through the chunk: the iteration-time histogram row of a job is
+// its owner's (phase 5); the pair EWMAs, the overlap fold and the
+// re-interleave arrays are thread 0's, run serially in pair order after
+// its phase-6 flows, on a snapshot of the job state that phase 5 writes
+// (the next tick's phase 1 may already be rewriting the live one).  The
+// per-job mean F (probe job_f) folds the flows' F after one more barrier.
 #include "mltcp_cc.cuh"
 
 namespace netsim_chunk {
@@ -63,9 +83,21 @@ enum Param {
   Q_SLOPE, Q_INTERCEPT, Q_G, Q_GAMMA, Q_INIT_GAP,
   Q_RED_QMIN, Q_RED_QMAX, Q_RED_PMAX, Q_CASSINI_EPS, N_PARAM
 };
+// TEL_INT_FIELDS: the interleave detector's scalars and the ring's write
+// count, int32 [N_TELI, K]
+enum TelI { T_LAST_BAD, T_ITERS_AT_BAD, T_TAIL_BAD, T_TAIL_TICKS,
+            T_N_SAMPLES, N_TELI };
+// TEL_EV_FIELDS: the re-interleave detector's per-event arrays, int32
+// [N_TELEV, K, E]
+enum TelEv { E_START_TICK, E_START_ITER, E_END_TICK, E_LAST_BAD,
+             E_ITERS_AT_BAD, N_TELEV };
 // OPERANDS: the pointer array's order.  State (read at the start and
 // written at the end, in place), run constants, the chunk inputs, then
-// the run's trace buffers ([K, C, ...], column D_CHUNK written).
+// the run's trace buffers ([K, C, ...], column D_CHUNK written); then the
+// armed kernel's: the chunk's fault rows ([T, K, ...]: row index, churn
+// mask, blackhole mask, flapped cap * dt), the padded-jobs mask [K, J],
+// the telemetry state (EWMAs [K, 2 * P2], TelI, the histogram [K, J, B],
+// TelEv) and the rings (samples [K, cap, W], their ticks [K, cap]).
 enum Operand {
   O_FFLOW, O_IFLOW, O_LINK, O_RING_DEL, O_RING_FLAGS, O_FJOB, O_IJOB,
   O_POINT, O_ITER_TIMES, O_ACC,
@@ -74,18 +106,38 @@ enum Operand {
   O_T, O_STARTED, O_LOSS_U, O_CNP_U, O_STRAGGLES, O_STRAG_AMT,
   O_TRACE_UTIL, O_TRACE_DROPS, O_TRACE_MARKS, O_TRACE_INCOMM, O_TRACE_T,
   O_TRACE_JOBTPUT, O_TRACE_RATIO,
+  O_FAULT_IDX, O_CHURN, O_BLACKHOLE, O_CAP_DT, O_JOB_ACTIVE,
+  O_TEL_F, O_TEL_I, O_TEL_HIST, O_TEL_EV, O_SERIES, O_SAMPLE_TICK,
   N_OPERAND
 };
-// DIMS: the int array's order
+// DIMS: the int array's order.  D_ARMED is the specialization's ARMED;
+// the armed launch's flags and sizes follow: fault channels, the
+// detectors, the ring (stride, slots, width), the tail's first tick, the
+// sketch's bins, the schedule's rows, and each built-in probe's column
+// offset in the ring's rows (-1: not armed), in telemetry.BUILTIN_PROBES
+// order.
 enum Dim {
   D_K, D_M, D_N, D_J, D_S, D_D, D_P, D_MAX_ITERS, D_TICKS, D_U_STRIDE,
-  D_ECN, D_CASSINI, D_CUBIC_RESET, D_N_CHUNKS, D_CHUNK, N_DIM
+  D_ECN, D_CASSINI, D_CUBIC_RESET, D_N_CHUNKS, D_CHUNK,
+  D_ARMED, D_CHURN, D_BLACKHOLE, D_FLAPS, D_JOB_ACTIVE, D_INTERLEAVE,
+  D_SKETCH, D_REINTERLEAVE, D_STRIDE, D_CAP, D_SERIES_W, D_TAIL_START,
+  D_BINS, D_EVENTS,
+  D_OFF_FLOW_CWND, D_OFF_FLOW_RATE, D_OFF_FLOW_RATIO, D_OFF_LINK_QUEUE,
+  D_OFF_LINK_MARK_RATE, D_OFF_JOB_INCOMM, D_OFF_JOB_PHASE, D_OFF_JOB_ITER,
+  D_OFF_JOB_F, D_OFF_INTERLEAVE_OVERLAP,
+  N_DIM
 };
 // SCALARS: the float array's order (python floats rounded once): the
-// probes divide by S_TPC (the chunk's ticks) and S_SPAN (its seconds)
+// probes divide by S_TPC (the chunk's ticks) and S_SPAN (its seconds);
+// then the detectors' constants (telemetry.ewma_alpha, the threshold,
+// telemetry.sketch_constants)
 enum Scalar {
-  S_DT, S_MSS, S_HALF_MSS, S_BUFFER, S_TPC, S_SPAN, N_SCALAR
+  S_DT, S_MSS, S_HALF_MSS, S_BUFFER, S_TPC, S_SPAN,
+  S_ALPHA, S_THRESHOLD, S_SKETCH_LO, S_SKETCH_HI, S_LOG_LO, S_INV_W,
+  N_SCALAR
 };
+// ARMED bits
+constexpr int ARM_TEL = 1, ARM_FAULTS = 2;
 // per-flow scratch, float then int
 enum FX {
   X_INJ, X_DELIVERED, X_DROPPED, X_MARKED, X_FB_DEL, X_TOTAL, X_FACTOR,
@@ -102,8 +154,8 @@ struct Args {
 
 // Shared-memory layout of one point, in 4-byte words; the static int and
 // float blocks are copied whole, in the layout of netsim_chunk.py's
-// STATIC_INTS / STATIC_FLOATS.  netsim_chunk.py::smem_bytes is the same
-// count.
+// STATIC_INTS / STATIC_FLOATS.  An armed launch appends ArmedLayout.
+// netsim_chunk.py::smem_words is the same count.
 struct Layout {
   int fflow, iflow, fx, ix, link, row, acc_util, ring_del, ring_flags;
   int sints, sfloats, fjob, ijob, acc_jb, enter, pbytes, jnumer, jtab, cas;
@@ -134,11 +186,59 @@ struct Layout {
   }
 };
 
+// The armed kernel's words after Layout::total: per flow the blackholed
+// bytes and F * spj_inv; per job the snapshot phase 5 takes for thread 0
+// (in_comm, iter_idx, activity) and the padded-jobs mask; the pair EWMAs
+// (both, then either), the histogram and the per-event arrays.
+struct ArmedLayout {
+  int lost, fjob, snap_in, snap_iter, snap_act, ja, ewma, hist, ev, total;
+  __host__ __device__ ArmedLayout(int base, int N, int J, int P2, int B,
+                                  int E) {
+    int o = base;
+    lost = o; o += N;
+    fjob = o; o += N;
+    snap_in = o; o += J;
+    snap_iter = o; o += J;
+    snap_act = o; o += J;
+    ja = o; o += J;
+    ewma = o; o += 2 * P2;
+    hist = o; o += J * B;
+    ev = o; o += N_TELEV * E;
+    total = o;
+  }
+};
+
+// The armed launch's pair count (0 without the interleave detector).
+__host__ __device__ inline int n_pairs(const int* dims) {
+  const int J = dims[D_J];
+  return dims[D_INTERLEAVE] ? J * (J - 1) / 2 : 0;
+}
+
+// The armed launch's layout after `base` words (its sizes from the dims).
+__host__ __device__ inline ArmedLayout armed_layout(const int* dims,
+                                                    int base) {
+  const bool tel = (dims[D_ARMED] & ARM_TEL) != 0;
+  return ArmedLayout(base, dims[D_N], dims[D_J], tel ? n_pairs(dims) : 0,
+                     tel && dims[D_SKETCH] ? dims[D_BINS] : 0,
+                     tel && dims[D_REINTERLEAVE] ? dims[D_EVENTS] : 0);
+}
+
+// The iteration-time sketch's bin of `x` seconds (telemetry.tick_update:
+// clamp, log, scale, clamp, truncate).
+__device__ __forceinline__ int sketch_bin(float x, float lo, float hi,
+                                          float log_lo, float inv_w,
+                                          int bins) {
+  const float c = clamp_f(x, lo, hi);
+  return (int)clamp_f((logf(c) - log_lo) * inv_w, 0.0f, (float)(bins - 1));
+}
+
 // Advance point k by D_TICKS ticks.  Called by all `nt` threads of the
 // point's CTA with the same arguments; `smem` holds Layout::total words.
-template <int ALGO, int VARIANT, bool AGG, bool FACTORS>
+template <int ALGO, int VARIANT, bool AGG, bool FACTORS, int ARMED>
 __device__ void run_point(const Args& a, int k, int tid, int nt,
                           float* smem) {
+  constexpr bool TEL = (ARMED & ARM_TEL) != 0;
+  constexpr bool FLT = (ARMED & ARM_FAULTS) != 0;
   const int K = a.dim[D_K], M = a.dim[D_M], N = a.dim[D_N], J = a.dim[D_J];
   const int S = a.dim[D_S], D = a.dim[D_D], P = a.dim[D_P];
   const int max_iters = a.dim[D_MAX_ITERS], T = a.dim[D_TICKS];
@@ -261,11 +361,94 @@ __device__ void run_point(const Args& a, int k, int tid, int nt,
   const int* const gpoint = static_cast<const int*>(a.op[O_POINT]);
   int ptr = gpoint[P_RING_PTR * K + k], tick = gpoint[P_TICK * K + k];
   float acc_drops = 0.0f, acc_marks = 0.0f;  // thread 0's
+
+  // ---------------- the armed kernel's flags, operands and state ----------
+  // (all constant and dead in the unarmed kernel)
+  const bool churn = FLT && a.dim[D_CHURN] != 0;
+  const bool bhole = FLT && a.dim[D_BLACKHOLE] != 0;
+  const bool flaps = FLT && a.dim[D_FLAPS] != 0;
+  const bool interleave = TEL && a.dim[D_INTERLEAVE] != 0;
+  const bool sketch = TEL && a.dim[D_SKETCH] != 0;
+  const bool reint = TEL && FLT && a.dim[D_REINTERLEAVE] != 0;
+  const int stride = TEL ? a.dim[D_STRIDE] : 1;
+  const int cap = TEL ? a.dim[D_CAP] : 1;
+  const int W = TEL ? a.dim[D_SERIES_W] : 0;
+  const int bins = TEL ? a.dim[D_BINS] : 0;
+  const int E = TEL ? a.dim[D_EVENTS] : 0;
+  const int P2 = TEL ? n_pairs(a.dim) : 0;
+  const int tail_start = TEL ? a.dim[D_TAIL_START] : 0;
+  const int off_cwnd = TEL ? a.dim[D_OFF_FLOW_CWND] : -1;
+  const int off_rate = TEL ? a.dim[D_OFF_FLOW_RATE] : -1;
+  const int off_ratio = TEL ? a.dim[D_OFF_FLOW_RATIO] : -1;
+  const int off_queue = TEL ? a.dim[D_OFF_LINK_QUEUE] : -1;
+  const int off_mark = TEL ? a.dim[D_OFF_LINK_MARK_RATE] : -1;
+  const int off_incomm = TEL ? a.dim[D_OFF_JOB_INCOMM] : -1;
+  const int off_phase = TEL ? a.dim[D_OFF_JOB_PHASE] : -1;
+  const int off_iter = TEL ? a.dim[D_OFF_JOB_ITER] : -1;
+  const int off_f = TEL ? a.dim[D_OFF_JOB_F] : -1;
+  const int off_overlap = TEL ? a.dim[D_OFF_INTERLEAVE_OVERLAP] : -1;
+  const bool jobf = off_f >= 0;
+  const float alpha = TEL ? a.sc[S_ALPHA] : 0.0f;
+  const float threshold = TEL ? a.sc[S_THRESHOLD] : 0.0f;
+  const float s_lo = TEL ? a.sc[S_SKETCH_LO] : 0.0f;
+  const float s_hi = TEL ? a.sc[S_SKETCH_HI] : 0.0f;
+  const float log_lo = TEL ? a.sc[S_LOG_LO] : 0.0f;
+  const float inv_w = TEL ? a.sc[S_INV_W] : 0.0f;
+  const ArmedLayout alay =
+      ARMED != 0 ? armed_layout(a.dim, lay.total) : ArmedLayout(0, 0, 0, 0, 0, 0);
+  float* const x_lost = smem + alay.lost;
+  float* const x_fjob = smem + alay.fjob;
+  int* const snap_in = ismem + alay.snap_in;
+  int* const snap_iter = ismem + alay.snap_iter;
+  int* const snap_act = ismem + alay.snap_act;
+  int* const s_ja = ismem + alay.ja;
+  float* const ewma = smem + alay.ewma;
+  int* const hist = ismem + alay.hist;
+  int* const ev = ismem + alay.ev;
+  const int* const fidx_in = static_cast<const int*>(a.op[O_FAULT_IDX]);
+  const bool* const churn_in = static_cast<const bool*>(a.op[O_CHURN]);
+  const bool* const bh_in = static_cast<const bool*>(a.op[O_BLACKHOLE]);
+  const float* const capdt_in = static_cast<const float*>(a.op[O_CAP_DT]);
+  float* const series = static_cast<float*>(a.op[O_SERIES]) +
+                        (TEL ? (long long)k * cap * W : 0);
+  int* const sample_tick =
+      static_cast<int*>(a.op[O_SAMPLE_TICK]) + (TEL ? (long long)k * cap : 0);
+  // thread 0's detector scalars (TelI)
+  int last_bad = 0, iters_at_bad = 0, tail_bad = 0, tail_ticks = 0;
+  int n_samples = 0;
+  if constexpr (TEL) {
+    const bool* gja = static_cast<const bool*>(a.op[O_JOB_ACTIVE]);
+    const bool has_ja = a.dim[D_JOB_ACTIVE] != 0;
+    for (int j = tid; j < J; j += nt)
+      s_ja[j] = (!has_ja || gja[(long long)k * J + j]) ? 1 : 0;
+    const float* gtf = static_cast<const float*>(a.op[O_TEL_F]) +
+                       (long long)k * 2 * P2;
+    for (int i = tid; i < 2 * P2; i += nt) ewma[i] = gtf[i];
+    const int* gh = static_cast<const int*>(a.op[O_TEL_HIST]) +
+                    (long long)k * J * bins;
+    for (int i = tid; i < J * bins; i += nt) hist[i] = gh[i];
+    const int* gev = static_cast<const int*>(a.op[O_TEL_EV]);
+    for (int i = tid; i < N_TELEV * E; i += nt)
+      ev[i] = gev[((long long)(i / E) * K + k) * E + i % E];
+    const int* gti = static_cast<const int*>(a.op[O_TEL_I]);
+    last_bad = gti[T_LAST_BAD * K + k];
+    iters_at_bad = gti[T_ITERS_AT_BAD * K + k];
+    tail_bad = gti[T_TAIL_BAD * K + k];
+    tail_ticks = gti[T_TAIL_TICKS * K + k];
+    n_samples = gti[T_N_SAMPLES * K + k];
+  }
   __syncthreads();
 
   for (int it = 0; it < T; ++it) {
     const long long row = (long long)it * K + k;
     const float tc = t_in[row];
+    // this tick's ring sample: its slot's row of the point's ring
+    bool take = false;
+    long long srow = 0;
+    if constexpr (TEL) {
+      take = tick % stride == 0;
+      srow = (long long)((tick / stride) % cap) * W;
+    }
 
     // 1. job phase machine: compute countdown -> comm-phase entry
     for (int j = tid; j < J; j += nt) {
@@ -294,6 +477,10 @@ __device__ void run_point(const Args& a, int k, int tid, int nt,
         sjf[J_HOLD_UNTIL * J + j] = hold;
       }
       in_comm = in_comm || enter;
+      if constexpr (FLT) {
+        // churn: a departed job's comm phase is force-exited
+        if (churn) in_comm = in_comm && churn_in[row * J + j];
+      }
       sji[J_IN_COMM * J + j] = in_comm ? 1 : 0;
       s_enter[j] = enter ? 1 : 0;
       s_pbytes[j] = s_comm[j * P + sji[J_PHASE_IDX * J + j]];
@@ -316,8 +503,20 @@ __device__ void run_point(const Args& a, int k, int tid, int nt,
                              ? sf[F_RATE_CUR * N + n]
                              : sf[F_CWND * N + n] * c.v[C_MSS_OVER_RTT];
       const bool active = sji[J_IN_COMM * J + j] != 0 && (to_send > 0.0f);
-      const float inj = active ? minimum_f(rate * dt, to_send) : 0.0f;
+      float inj = active ? minimum_f(rate * dt, to_send) : 0.0f;
       sf[F_TO_SEND * N + n] = to_send - inj;
+      if constexpr (FLT) {
+        // a blackholed flow's injected bytes vanish at the first hop, as
+        // drops (folded into dropped_f in 3c)
+        if (bhole) {
+          const float lost = bh_in[row * N + n] ? inj : 0.0f;
+          inj = inj - lost;
+          x_lost[n] = lost;
+        }
+      }
+      if constexpr (TEL) {
+        if (take && off_rate >= 0) series[srow + off_rate + n] = rate;
+      }
       sx[X_INJ * N + n] = inj;
       sxi[X_ENTER * N + n] = enter_f ? 1 : 0;
       sx[X_FB_DEL * N + n] = ring_del[ptr * N + n];
@@ -331,6 +530,12 @@ __device__ void run_point(const Args& a, int k, int tid, int nt,
       const float ramp2 = clamp_f((q_len - qmax) / qmax, 0.0f, 1.0f) * rest;
       p_red[l] = ramp1 + ramp2;
       overflow[l] = q_len >= buffer ? 1.0f : 0.0f;
+      if constexpr (TEL) {
+        if (take) {
+          if (off_queue >= 0) series[srow + off_queue + l] = q_len;
+          if (off_mark >= 0) series[srow + off_mark + l] = ramp1 + ramp2;
+        }
+      }
     }
     __syncthreads();
 
@@ -355,14 +560,18 @@ __device__ void run_point(const Args& a, int k, int tid, int nt,
     for (int l = tid; l < M; l += nt) {
       float tot = backlog[l * N];
       for (int n = 1; n < N; ++n) tot = tot + backlog[l * N + n];
+      // a flap scales the service capacity only (acc_util keeps cap_dt)
+      const float cdt = FLT && flaps ? capdt_in[row * M + l] : cap_dt[l];
       serve[l] = tot > 0.0f
-                     ? clamp_max_f(cap_dt[l] / clamp_min_f(tot, (float)1e-9),
-                                   1.0f)
+                     ? clamp_max_f(cdt / clamp_min_f(tot, (float)1e-9), 1.0f)
                      : 0.0f;
     }
     for (int n = tid; n < N; n += nt) {
       float dropped_f = dropped[n];
       for (int l = 1; l < M; ++l) dropped_f = dropped_f + dropped[l * N + n];
+      if constexpr (FLT) {
+        if (bhole) dropped_f = dropped_f + x_lost[n];
+      }
       const bool loss_evt = loss_u[row * us + n] < -expm1f(-dropped_f / mss);
       bool cnp_evt = false;
       float marked_f = 0.0f;
@@ -454,6 +663,28 @@ __device__ void run_point(const Args& a, int k, int tid, int nt,
         const float extra = iter_done ? sjf[J_STRAGGLE_EXTRA * J + j] : 0.0f;
         sjf[J_T_REM * J + j] = s_compute[j * P + new_phase] + extra;
       }
+      if constexpr (TEL) {
+        // the iteration-time sketch (the job's row is its owner's), the
+        // job probes, and the snapshot thread 0's detectors read
+        const bool in_post = in_comm && !comm_done;
+        const int iter_post = iter_done ? iter_idx + 1 : iter_idx;
+        if (sketch && iter_done)
+          hist[j * bins + sketch_bin(tc - iter_start, s_lo, s_hi, log_lo,
+                                     inv_w, bins)] += 1;
+        bool act = s_ja[j] != 0;
+        if constexpr (FLT) {
+          if (churn) act = act && churn_in[row * J + j];
+        }
+        snap_in[j] = in_post ? 1 : 0;
+        snap_iter[j] = iter_post;
+        snap_act[j] = act ? 1 : 0;
+        if (take) {
+          if (off_incomm >= 0)
+            series[srow + off_incomm + j] = in_post ? 1.0f : 0.0f;
+          if (off_phase >= 0) series[srow + off_phase + j] = (float)new_phase;
+          if (off_iter >= 0) series[srow + off_iter + j] = (float)iter_post;
+        }
+      }
       // a member slot past the job's last flow adds 0.0, as the gather's
       // fill does
       const float* del = sx + X_DELIVERED * N;
@@ -505,6 +736,19 @@ __device__ void run_point(const Args& a, int k, int tid, int nt,
         s.epoch = tc;
         s.w_max = s.cwnd;
       }
+      if constexpr (TEL) {
+        if (jobf) {
+          // F of the post-update detection state (core.f_values)
+          float f = 1.0f;
+          if (VARIANT != VAR_OFF) f = dyn.slope * s.ratio + dyn.intercept;
+          if (FACTORS) f = x.factor >= 0.0f ? x.factor : f;
+          x_fjob[n] = f * spj_inv[n];
+        }
+        if (take) {
+          if (off_cwnd >= 0) series[srow + off_cwnd + n] = s.cwnd;
+          if (off_ratio >= 0) series[srow + off_ratio + n] = s.ratio;
+        }
+      }
       sf[F_BYTES_SENT * N + n] = s.bytes_sent;
       sf[F_RATIO * N + n] = s.ratio;
       sf[F_PREV_ACK * N + n] = s.prev_ack;
@@ -522,6 +766,77 @@ __device__ void run_point(const Args& a, int k, int tid, int nt,
       sf[F_T_INC * N + n] = s.t_inc;
       sf[F_T_ALPHA * N + n] = s.t_alpha;
       si[I_STAGE * N + n] = s.stage;
+    }
+    if constexpr (TEL) {
+      if (tid == 0) {
+        if (interleave) {
+          // the pair EWMAs and the overlap, folded in pair order
+          // (telemetry.tick_update)
+          float acc_pw = 0.0f, acc_w = 0.0f;
+          int p = 0;
+          for (int ja = 0; ja < J; ++ja)
+            for (int jb = ja + 1; jb < J; ++jb, ++p) {
+              const bool in_a = snap_in[ja] != 0, in_b = snap_in[jb] != 0;
+              const float w =
+                  (snap_act[ja] != 0 && snap_act[jb] != 0) ? 1.0f : 0.0f;
+              const float both = w * ((in_a && in_b) ? 1.0f : 0.0f);
+              const float either = w * ((in_a || in_b) ? 1.0f : 0.0f);
+              float eb = ewma[p], ee = ewma[P2 + p];
+              eb = eb + alpha * (both - eb);
+              ee = ee + alpha * (either - ee);
+              ewma[p] = eb;
+              ewma[P2 + p] = ee;
+              const float pw = (eb / clamp_min_f(ee, (float)1e-6)) * w;
+              acc_pw = p == 0 ? pw : acc_pw + pw;
+              acc_w = p == 0 ? w : acc_w + w;
+            }
+          const float overlap =
+              P2 > 0 ? acc_pw / clamp_min_f(acc_w, 1.0f) : 0.0f;
+          const bool bad = overlap > threshold;
+          int cur_iters = 0;
+          for (int j = 0; j < J; ++j) {
+            const int v = snap_act[j] != 0 ? snap_iter[j] : 0;
+            cur_iters = j == 0 ? v : (v > cur_iters ? v : cur_iters);
+          }
+          const bool in_tail = tick >= tail_start;
+          if (bad) {
+            last_bad = tick;
+            iters_at_bad = cur_iters;
+          }
+          tail_bad += (bad && in_tail) ? 1 : 0;
+          tail_ticks += in_tail ? 1 : 0;
+          if (reint) {
+            // segment by the current fault row
+            const int e = fidx_in[row];
+            if (ev[E_START_TICK * E + e] < 0) {
+              ev[E_START_TICK * E + e] = tick;
+              ev[E_START_ITER * E + e] = cur_iters;
+            }
+            ev[E_END_TICK * E + e] = tick;
+            if (bad) {
+              ev[E_LAST_BAD * E + e] = tick;
+              ev[E_ITERS_AT_BAD * E + e] = cur_iters;
+            }
+          }
+          if (take && off_overlap >= 0) series[srow + off_overlap] = overlap;
+        }
+        if (take) {
+          sample_tick[(tick / stride) % cap] = tick;
+          n_samples += 1;
+        }
+      }
+      if (jobf) {
+        // the per-job mean F: each job folds its flows' F * spj_inv in
+        // member order (JobGroups.sum)
+        __syncthreads();
+        for (int j = tid; j < J; j += nt) {
+          const int* mem = members + j * S;
+          float v = mem[0] >= 0 ? x_fjob[mem[0]] : 0.0f;
+          for (int s2 = 1; s2 < S; ++s2)
+            v = v + (mem[s2] >= 0 ? x_fjob[mem[s2]] : 0.0f);
+          if (take) series[srow + off_f + j] = v;
+        }
+      }
     }
     ptr = ptr + 1 == D ? 0 : ptr + 1;
     tick += 1;
@@ -569,6 +884,24 @@ __device__ void run_point(const Args& a, int k, int tid, int nt,
       gp[P_RING_PTR * K + k] = ptr;
       gp[P_TICK * K + k] = tick;
     }
+    if constexpr (TEL) {
+      float* gtf = static_cast<float*>(a.op[O_TEL_F]) + (long long)k * 2 * P2;
+      for (int i = tid; i < 2 * P2; i += nt) gtf[i] = ewma[i];
+      int* gh = static_cast<int*>(a.op[O_TEL_HIST]) +
+                (long long)k * J * bins;
+      for (int i = tid; i < J * bins; i += nt) gh[i] = hist[i];
+      int* gev = static_cast<int*>(a.op[O_TEL_EV]);
+      for (int i = tid; i < N_TELEV * E; i += nt)
+        gev[((long long)(i / E) * K + k) * E + i % E] = ev[i];
+      if (tid == 0) {
+        int* gti = static_cast<int*>(a.op[O_TEL_I]);
+        gti[T_LAST_BAD * K + k] = last_bad;
+        gti[T_ITERS_AT_BAD * K + k] = iters_at_bad;
+        gti[T_TAIL_BAD * K + k] = tail_bad;
+        gti[T_TAIL_TICKS * K + k] = tail_ticks;
+        gti[T_N_SAMPLES * K + k] = n_samples;
+      }
+    }
   }
 
   // ---------------- the chunk's probes (engine._chunk_probes) ----------------
@@ -609,7 +942,59 @@ inline void fill_args(Args& a, void* const* operands, const int* dims,
 inline long long smem_bytes(const int* dims) {
   const Layout lay(dims[D_M], dims[D_N], dims[D_J], dims[D_S], dims[D_D],
                    dims[D_P]);
-  return 4LL * lay.total;
+  return 4LL * (dims[D_ARMED] ? armed_layout(dims, lay.total).total
+                              : lay.total);
+}
+
+// Host-side dispatch over the chunk kernel's specializations: the CC
+// specializations of mltcp::dispatch unarmed (ARMED = 0), and for each
+// ARMED in 1..3 the ones the telemetry and fault plans run (Reno, CUBIC,
+// DCQCN; OFF and WI; job-aggregated statistics; no Static factors,
+// netsim_chunk.py::ARMED_SPECIALIZATIONS).  Returns -1 for one it does
+// not instantiate.
+template <class F>
+struct Unarmed {
+  template <int ALGO, int VARIANT, bool AGG, bool FACTORS, class... A>
+  static int run(A&&... a) {
+    return F::template run<ALGO, VARIANT, AGG, FACTORS, 0>(a...);
+  }
+};
+template <class F, int ALGO, int ARMED, class... A>
+int dispatch_armed_variant(int variant, A&&... a) {
+  if (variant == VAR_OFF)
+    return F::template run<ALGO, VAR_OFF, true, false, ARMED>(a...);
+  if (variant == VAR_WI)
+    return F::template run<ALGO, VAR_WI, true, false, ARMED>(a...);
+  return -1;
+}
+template <class F, int ARMED, class... A>
+int dispatch_armed_algo(int algo, int variant, A&&... a) {
+  switch (algo) {
+    case ALGO_RENO:
+      return dispatch_armed_variant<F, ALGO_RENO, ARMED>(variant, a...);
+    case ALGO_CUBIC:
+      return dispatch_armed_variant<F, ALGO_CUBIC, ARMED>(variant, a...);
+    case ALGO_DCQCN:
+      return dispatch_armed_variant<F, ALGO_DCQCN, ARMED>(variant, a...);
+  }
+  return -1;
+}
+template <class F, class... A>
+int dispatch_chunk(int armed, int algo, int variant, bool agg, bool fac,
+                   A&&... a) {
+  if (armed == 0)
+    return mltcp::dispatch<Unarmed<F>>(algo, variant, agg, fac, a...);
+  if (!agg || fac) return -1;
+  switch (armed) {
+    case ARM_TEL:
+      return dispatch_armed_algo<F, ARM_TEL>(algo, variant, a...);
+    case ARM_FAULTS:
+      return dispatch_armed_algo<F, ARM_FAULTS>(algo, variant, a...);
+    case ARM_TEL | ARM_FAULTS:
+      return dispatch_armed_algo<F, ARM_TEL | ARM_FAULTS>(algo, variant,
+                                                          a...);
+  }
+  return -1;
 }
 
 }  // namespace netsim_chunk
@@ -703,17 +1088,17 @@ extern "C" void netsim_chunk_draws(const uint32_t* keys, int K, int T,
 
 namespace netsim_chunk {
 
-template <int ALGO, int VARIANT, bool AGG, bool FACTORS>
+template <int ALGO, int VARIANT, bool AGG, bool FACTORS, int ARMED>
 __global__ void __launch_bounds__(256) netsim_chunk_kernel(Args a) {
   extern __shared__ float smem[];
-  run_point<ALGO, VARIANT, AGG, FACTORS>(a, blockIdx.x, threadIdx.x,
-                                         blockDim.x, smem);
+  run_point<ALGO, VARIANT, AGG, FACTORS, ARMED>(a, blockIdx.x, threadIdx.x,
+                                                blockDim.x, smem);
 }
 
 struct Launch {
-  template <int ALGO, int VARIANT, bool AGG, bool FACTORS>
+  template <int ALGO, int VARIANT, bool AGG, bool FACTORS, int ARMED>
   static int run(const Args& a, int threads, cudaStream_t stream) {
-    auto kernel = netsim_chunk_kernel<ALGO, VARIANT, AGG, FACTORS>;
+    auto kernel = netsim_chunk_kernel<ALGO, VARIANT, AGG, FACTORS, ARMED>;
     const long long bytes = smem_bytes(a.dim);
     if (bytes > 48 * 1024) {
       const cudaError_t rc = cudaFuncSetAttribute(
@@ -726,11 +1111,11 @@ struct Launch {
 };
 
 struct Attributes {
-  template <int ALGO, int VARIANT, bool AGG, bool FACTORS>
+  template <int ALGO, int VARIANT, bool AGG, bool FACTORS, int ARMED>
   static int run(int* out) {
     cudaFuncAttributes attr;
     const cudaError_t rc = cudaFuncGetAttributes(
-        &attr, netsim_chunk_kernel<ALGO, VARIANT, AGG, FACTORS>);
+        &attr, netsim_chunk_kernel<ALGO, VARIANT, AGG, FACTORS, ARMED>);
     if (rc != cudaSuccess) return (int)rc;
     out[0] = attr.numRegs;
     out[1] = (int)attr.localSizeBytes;
@@ -740,13 +1125,40 @@ struct Attributes {
   }
 };
 
+// The sketch's bins (and the logf under them) of n floats, by the chunk
+// kernel's own device function: the card check that the kernel's logf is
+// torch.log's on CUDA.  scalars: lo, hi, log_lo, inv_w.
+__global__ void sketch_check_kernel(const float* x, long long n,
+                                    float* log_out, int* bin_out, float lo,
+                                    float hi, float log_lo, float inv_w,
+                                    int bins) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  log_out[i] = logf(x[i]);
+  bin_out[i] = sketch_bin(x[i], lo, hi, log_lo, inv_w, bins);
+}
+
 }  // namespace netsim_chunk
+
+extern "C" int netsim_chunk_sketch_check(const float* x, long long n,
+                                         float* log_out, int* bin_out,
+                                         const float* scalars, int bins,
+                                         void* stream) {
+  const int threads = 256;
+  const long long blocks = (n + threads - 1) / threads;
+  netsim_chunk::sketch_check_kernel<<<(unsigned)blocks, threads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      x, n, log_out, bin_out, scalars[0], scalars[1], scalars[2], scalars[3],
+      bins);
+  return (int)cudaGetLastError();
+}
 
 // Launch one chunk on `stream`: one CTA of `threads` threads per sweep
 // point.  `operands` holds device pointers in OPERANDS order, `dims` the
-// DIMS, `scalars` the SCALARS and `consts` the CC constants (CONST_FIELDS
-// of mltcp_step.py).  Returns 0, a CUDA error code, or -1 for an unknown
-// specialization.
+// DIMS (the specialization's ARMED among them), `scalars` the SCALARS and
+// `consts` the CC constants (CONST_FIELDS of mltcp_step.py).  Returns 0, a
+// CUDA error code, or -1 for a specialization the library does not
+// instantiate.
 extern "C" int netsim_chunk_launch(int algo, int variant, int aggregate,
                                    int use_factors, void* const* operands,
                                    const int* dims, const float* scalars,
@@ -756,9 +1168,9 @@ extern "C" int netsim_chunk_launch(int algo, int variant, int aggregate,
   netsim_chunk::Args a;
   netsim_chunk::fill_args(a, operands, dims, scalars, consts,
                           fast_recovery_stages);
-  const int rc = mltcp::dispatch<netsim_chunk::Launch>(
-      algo, variant, aggregate != 0, use_factors != 0, a, threads,
-      static_cast<cudaStream_t>(stream));
+  const int rc = netsim_chunk::dispatch_chunk<netsim_chunk::Launch>(
+      dims[netsim_chunk::D_ARMED], algo, variant, aggregate != 0,
+      use_factors != 0, a, threads, static_cast<cudaStream_t>(stream));
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
@@ -766,9 +1178,9 @@ extern "C" int netsim_chunk_launch(int algo, int variant, int aggregate,
 // Registers, local (spill) bytes, static shared bytes and the most threads
 // a block of one specialization, from cudaFuncGetAttributes, into out[4].
 extern "C" int netsim_chunk_attributes(int algo, int variant, int aggregate,
-                                       int use_factors, int* out) {
-  return mltcp::dispatch<netsim_chunk::Attributes>(
-      algo, variant, aggregate != 0, use_factors != 0, out);
+                                       int use_factors, int armed, int* out) {
+  return netsim_chunk::dispatch_chunk<netsim_chunk::Attributes>(
+      armed, algo, variant, aggregate != 0, use_factors != 0, out);
 }
 
 #else  // a host compiler: the CPU check of the kernel's logic
@@ -779,7 +1191,7 @@ extern "C" int netsim_chunk_attributes(int algo, int variant, int aggregate,
 namespace netsim_chunk {
 
 struct HostRun {
-  template <int ALGO, int VARIANT, bool AGG, bool FACTORS>
+  template <int ALGO, int VARIANT, bool AGG, bool FACTORS, int ARMED>
   static int run(const Args& a, int threads) {
     std::vector<float> smem(smem_bytes(a.dim) / 4);
     for (int k = 0; k < a.dim[D_K]; ++k) {
@@ -788,8 +1200,8 @@ struct HostRun {
       for (int tid = 0; tid < threads; ++tid)
         pool.emplace_back([&, tid] {
           host_compat::cta_barrier = threads > 1 ? &bar : nullptr;
-          run_point<ALGO, VARIANT, AGG, FACTORS>(a, k, tid, threads,
-                                                 smem.data());
+          run_point<ALGO, VARIANT, AGG, FACTORS, ARMED>(a, k, tid, threads,
+                                                        smem.data());
         });
       for (auto& t : pool) t.join();
     }
@@ -809,8 +1221,9 @@ extern "C" int netsim_chunk_host(int algo, int variant, int aggregate,
   netsim_chunk::Args a;
   netsim_chunk::fill_args(a, operands, dims, scalars, consts,
                           fast_recovery_stages);
-  return mltcp::dispatch<netsim_chunk::HostRun>(
-      algo, variant, aggregate != 0, use_factors != 0, a, threads);
+  return netsim_chunk::dispatch_chunk<netsim_chunk::HostRun>(
+      dims[netsim_chunk::D_ARMED], algo, variant, aggregate != 0,
+      use_factors != 0, a, threads);
 }
 
 #endif

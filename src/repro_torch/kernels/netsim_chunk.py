@@ -36,6 +36,15 @@ scalars, workload tables, routing) are packed once per run (`prepare`);
 the chunk inputs are `engine.TickInputs` as `engine.chunk_inputs` makes
 them.  The name lists below are the enums of ``csrc/netsim_chunk.cu``, in
 order (tests/test_torch_chunk.py parses the source to hold them equal).
+
+Telemetry and faults (``cfg.telemetry``, ``cfg.faults``) run in the armed
+kernel (the template's ARMED, `armed_bits`): the ten built-in probes and
+the three detectors of `netsim.telemetry`, the four fault channels of
+`netsim.faults`; `ARMED_SPECIALIZATIONS` lists the CC specializations it
+is built for (an armed run on another raises on the card,
+`ops.check_armed_specialization`).  The telemetry state packs into the ``tel_*`` operands and
+the probes' rings into one ``[K, cap, W]`` buffer (`series_layout`);
+an unarmed run passes none of them.
 """
 from __future__ import annotations
 
@@ -45,9 +54,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.cc.types import Algo
+from repro_torch.core.cc.types import Algo, Variant
 from repro_torch.kernels import build
 from repro_torch.kernels import mltcp_step as ms
+from repro_torch.netsim import telemetry as telem
 
 Tensor = torch.Tensor
 
@@ -83,6 +93,16 @@ FJOB_FIELDS = (("J_T_REM", "t_rem"), ("J_ITER_START", "iter_start"),
 IJOB_FIELDS = (("J_PHASE_IDX", "phase_idx"), ("J_ITER_IDX", "iter_idx"),
                ("J_IN_COMM", "in_comm"))
 POINT_FIELDS = (("P_RING_PTR", "ring_ptr"), ("P_TICK", "tick"))
+# (enum name, TelemetryState field) of the packed telemetry ints
+TEL_INT_FIELDS = (("T_LAST_BAD", "last_bad_tick"),
+                  ("T_ITERS_AT_BAD", "iters_at_last_bad"),
+                  ("T_TAIL_BAD", "tail_bad"), ("T_TAIL_TICKS", "tail_ticks"),
+                  ("T_N_SAMPLES", "n_samples"))
+TEL_EV_FIELDS = (("E_START_TICK", "ev_start_tick"),
+                 ("E_START_ITER", "ev_start_iter"),
+                 ("E_END_TICK", "ev_end_tick"),
+                 ("E_LAST_BAD", "ev_last_bad_tick"),
+                 ("E_ITERS_AT_BAD", "ev_iters_at_last_bad"))
 # (enum name, SweepParams / DynamicParams field) of the per-point scalars
 PARAM_FIELDS = (("Q_SLOPE", "slope"), ("Q_INTERCEPT", "intercept"),
                 ("Q_G", "g"), ("Q_GAMMA", "gamma"),
@@ -97,11 +117,36 @@ OPERANDS = (
     "O_STATIC_INTS", "O_STATIC_FLOATS",
     "O_T", "O_STARTED", "O_LOSS_U", "O_CNP_U", "O_STRAGGLES", "O_STRAG_AMT",
     "O_TRACE_UTIL", "O_TRACE_DROPS", "O_TRACE_MARKS", "O_TRACE_INCOMM",
-    "O_TRACE_T", "O_TRACE_JOBTPUT", "O_TRACE_RATIO")
+    "O_TRACE_T", "O_TRACE_JOBTPUT", "O_TRACE_RATIO",
+    "O_FAULT_IDX", "O_CHURN", "O_BLACKHOLE", "O_CAP_DT", "O_JOB_ACTIVE",
+    "O_TEL_F", "O_TEL_I", "O_TEL_HIST", "O_TEL_EV", "O_SERIES",
+    "O_SAMPLE_TICK")
+# the ring's column offset of each built-in probe, telemetry.BUILTIN_PROBES
+# order
+PROBE_DIMS = tuple(f"D_OFF_{name.upper()}" for name in telem.BUILTIN_PROBES)
 DIMS = ("D_K", "D_M", "D_N", "D_J", "D_S", "D_D", "D_P", "D_MAX_ITERS",
         "D_TICKS", "D_U_STRIDE", "D_ECN", "D_CASSINI", "D_CUBIC_RESET",
-        "D_N_CHUNKS", "D_CHUNK")
-SCALARS = ("S_DT", "S_MSS", "S_HALF_MSS", "S_BUFFER", "S_TPC", "S_SPAN")
+        "D_N_CHUNKS", "D_CHUNK",
+        "D_ARMED", "D_CHURN", "D_BLACKHOLE", "D_FLAPS", "D_JOB_ACTIVE",
+        "D_INTERLEAVE", "D_SKETCH", "D_REINTERLEAVE", "D_STRIDE", "D_CAP",
+        "D_SERIES_W", "D_TAIL_START", "D_BINS", "D_EVENTS") + PROBE_DIMS
+SCALARS = ("S_DT", "S_MSS", "S_HALF_MSS", "S_BUFFER", "S_TPC", "S_SPAN",
+           "S_ALPHA", "S_THRESHOLD", "S_SKETCH_LO", "S_SKETCH_HI",
+           "S_LOG_LO", "S_INV_W")
+# the chunk's fault rows ([T, K, ...]: engine.TickInputs), each with its
+# dtype
+FAULT_INPUTS = (("O_FAULT_IDX", "fault_idx", torch.int32),
+                ("O_CHURN", "churn", torch.bool),
+                ("O_BLACKHOLE", "blackhole", torch.bool),
+                ("O_CAP_DT", "cap_dt", torch.float32))
+# ARMED's bits (the kernel's ARM_TEL, ARM_FAULTS), and the CC
+# specializations (algo, variant, aggregate, factors) each armed kernel is
+# built for: the telemetry and fault plans' (every algorithm, OFF and WI,
+# job-aggregated statistics, no Static factors)
+ARM_TEL, ARM_FAULTS = 1, 2
+ARMED_SPECIALIZATIONS = frozenset(
+    (int(a), int(v), True, False) for a in Algo
+    for v in (Variant.OFF, Variant.WI))
 # the trace buffers the kernel's epilogue writes (`engine.CHUNK_FIELDS`
 # order, each [K, n_chunks, ...]), with a chunk's probe's per-point shape
 TRACE_OPERANDS = ("O_TRACE_UTIL", "O_TRACE_DROPS", "O_TRACE_MARKS",
@@ -115,6 +160,10 @@ ACC_FIELDS = ("acc_util", "acc_drops", "acc_marks", "acc_jobbytes")
 # counts enter the budget
 N_FLOW_SCRATCH = 8
 N_FLOW_ISCRATCH = 3
+# the armed kernel's words per flow (blackholed bytes, F * spj_inv) and
+# per job (three snapshots, the padded-jobs mask): ArmedLayout
+N_ARMED_FLOW = 2
+N_ARMED_JOB = 4
 
 # The card's shared memory a block may use (H100: 227 KB, after the
 # launch's opt-in above 48 KB), and the CTA's most threads (the kernel's
@@ -136,8 +185,11 @@ def _get(tree, path: str):
 # Budget
 # ---------------------------------------------------------------------------
 
-def smem_words(M: int, N: int, J: int, S: int, D: int, P: int) -> int:
-    """4-byte words of one point's shared memory: the kernel's ``Layout``."""
+def smem_words(M: int, N: int, J: int, S: int, D: int, P: int,
+               A: int = 0, P2: int = 0, B: int = 0, E: int = 0) -> int:
+    """4-byte words of one point's shared memory: the kernel's ``Layout``,
+    and for an armed launch (``A`` its ARMED) its ``ArmedLayout`` with
+    ``P2`` job pairs, ``B`` sketch bins and ``E`` schedule rows."""
     L = M + 1
     flow = (len(FLOW_FIELDS) + len(IFLOW_FIELDS) + N_FLOW_SCRATCH
             + N_FLOW_ISCRATCH) * N
@@ -145,22 +197,42 @@ def smem_words(M: int, N: int, J: int, S: int, D: int, P: int) -> int:
     ring = 2 * D * N
     statics = (2 * N + J * S + J + L * N) + (N + M + 2 * L * N + J)
     jobs = (len(FJOB_FIELDS) + len(IJOB_FIELDS) + 4) * J + 2 * J * P + 2 * J
-    return flow + link + ring + statics + jobs
+    armed = 0
+    if A:
+        armed = (N_ARMED_FLOW * N + N_ARMED_JOB * J + 2 * P2 + J * B
+                 + len(TEL_EV_FIELDS) * E)
+    return flow + link + ring + statics + jobs + armed
 
 
-def smem_bytes(M: int, N: int, J: int, S: int, D: int, P: int) -> int:
-    return 4 * smem_words(M, N, J, S, D, P)
+def smem_bytes(M: int, N: int, J: int, S: int, D: int, P: int,
+               A: int = 0, P2: int = 0, B: int = 0, E: int = 0) -> int:
+    return 4 * smem_words(M, N, J, S, D, P, A, P2, B, E)
+
+
+def armed_bits(cfg) -> int:
+    """The kernel's ARMED for a config: telemetry, faults, both or none."""
+    return ((ARM_TEL if cfg.telemetry is not None else 0)
+            | (ARM_FAULTS if cfg.faults is not None else 0))
 
 
 def shape_of(cfg) -> dict:
     """The budget's dimensions of a `SimConfig`: links M, flows N, jobs J,
-    the most flows of one job S, the ring depth D and phases P."""
+    the most flows of one job S, the ring depth D and phases P; and the
+    armed kernel's: its ARMED A, the detectors' job pairs P2, sketch bins
+    B and schedule rows E (0 where unarmed)."""
     n_jobs = cfg.jobs.n_jobs
     f2j = np.asarray(cfg.topo.flow_to_job)
     per_job = np.bincount(f2j, minlength=n_jobs) if f2j.size else [0]
+    spec = cfg.telemetry
+    tel = spec is not None
     return dict(M=cfg.topo.n_links, N=cfg.topo.n_flows, J=n_jobs,
                 S=max(int(np.max(per_job)), 1), D=cfg.rtt_ticks,
-                P=int(cfg.jobs.compute.shape[1]))
+                P=int(cfg.jobs.compute.shape[1]), A=armed_bits(cfg),
+                P2=(n_jobs * (n_jobs - 1) // 2
+                    if tel and spec.needs_interleave() else 0),
+                B=spec.sketch_bins if tel and spec.needs_sketch() else 0,
+                E=(cfg.faults.n_events
+                   if tel and spec.needs_reinterleave() else 0))
 
 
 def budget_reason(cfg) -> Optional[str]:
@@ -199,6 +271,66 @@ class ChunkState(NamedTuple):
     iter_times: Tensor   # [K, J, MAX_ITERS] float32
     acc: Tensor          # [K*M + K + K + K*J] float32 (ACC_FIELDS): the
                          # kernel zeroes them at the chunk's start
+    # telemetry (None unless cfg.telemetry arms it): the pair EWMAs (both
+    # then either), TEL_INT_FIELDS, the histogram, TEL_EV_FIELDS, the
+    # probes' rings (`TelemetryLayout` columns) and their sample ticks
+    tel_f: Optional[Tensor] = None        # [K, 2 * P2] float32
+    tel_i: Optional[Tensor] = None        # [5, K] int32
+    tel_hist: Optional[Tensor] = None     # [K, J, B] int32
+    tel_ev: Optional[Tensor] = None       # [5, K, E] int32
+    series: Optional[Tensor] = None       # [K, cap, W] float32
+    sample_tick: Optional[Tensor] = None  # [K, cap] int32
+
+
+class TelemetryLayout(NamedTuple):
+    """Where a spec's probes sit in the packed ring ``[K, cap, W]``
+    (``probes``: (name, first column, per-sample shape) in spec order) and
+    which detectors' state the packed operands carry."""
+
+    probes: tuple
+    width: int
+    interleave: bool
+    sketch: bool
+    reinterleave: bool
+
+
+def telemetry_layout(cfg) -> Optional[TelemetryLayout]:
+    spec = cfg.telemetry
+    if spec is None:
+        return None
+    probes, off = [], 0
+    for name in spec.probes:
+        shape = telem.probe_shape(name, cfg)
+        probes.append((name, off, shape))
+        off += int(np.prod(shape)) if shape else 1
+    return TelemetryLayout(tuple(probes), off, spec.needs_interleave(),
+                           spec.needs_sketch(), spec.needs_reinterleave())
+
+
+def _pack_telemetry(tel, k: int, j: int) -> dict:
+    dev = tel.sample_tick.device
+    cap = tel.sample_tick.shape[1]
+
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def ints(fields):
+        return torch.stack([getattr(tel, f) if getattr(tel, f) is not None
+                            else zeros(k) for _, f in fields])
+
+    return dict(
+        tel_f=(torch.cat([tel.ewma_both, tel.ewma_either], dim=1)
+               if tel.ewma_both is not None
+               else zeros(k, 0, dtype=torch.float32)),
+        tel_i=ints(TEL_INT_FIELDS),
+        tel_hist=(tel.iter_hist.clone() if tel.iter_hist is not None
+                  else zeros(k, j, 0)),
+        tel_ev=(ints(TEL_EV_FIELDS) if tel.ev_start_tick is not None
+                else zeros(len(TEL_EV_FIELDS), k, 0)),
+        series=(torch.cat([v.reshape(k, cap, -1)
+                           for v in tel.series.values()], dim=2)
+                if tel.series else zeros(k, cap, 0, dtype=torch.float32)),
+        sample_tick=tel.sample_tick.clone())
 
 
 def pack_state(st) -> ChunkState:
@@ -210,18 +342,42 @@ def pack_state(st) -> ChunkState:
             parts = [p.to(dtype) for p in parts]
         return torch.stack(parts)
 
+    k, j = st.phase_idx.shape
     return ChunkState(
         fflow=stack(FLOW_FIELDS), iflow=stack(IFLOW_FIELDS),
         link=stack(LINK_FIELDS), ring_del=st.ring_del.clone(),
         ring_flags=stack(RING_FLAG_FIELDS), fjob=stack(FJOB_FIELDS),
         ijob=stack(IJOB_FIELDS, torch.int32), point=stack(POINT_FIELDS),
         iter_times=st.iter_times.clone(),
-        acc=torch.cat([getattr(st, f).reshape(-1) for f in ACC_FIELDS]))
+        acc=torch.cat([getattr(st, f).reshape(-1) for f in ACC_FIELDS]),
+        **({} if st.telemetry is None
+           else _pack_telemetry(st.telemetry, k, j)))
 
 
-def unpack_state(cs: ChunkState, key: np.ndarray):
+def _unpack_telemetry(cs: ChunkState, layout: TelemetryLayout):
+    k, cap = cs.sample_tick.shape
+    series = {name: cs.series[:, :, off:off + (
+        int(np.prod(shape)) if shape else 1)].reshape((k, cap) + shape)
+        for name, off, shape in layout.probes}
+    kw = dict(n_samples=cs.tel_i[-1])
+    if layout.interleave:
+        p2 = cs.tel_f.shape[1] // 2
+        kw.update(ewma_both=cs.tel_f[:, :p2], ewma_either=cs.tel_f[:, p2:],
+                  **{f: x for (_, f), x in zip(TEL_INT_FIELDS[:-1],
+                                               cs.tel_i[:-1])})
+    if layout.sketch:
+        kw["iter_hist"] = cs.tel_hist
+    if layout.reinterleave:
+        kw.update({f: x for (_, f), x in zip(TEL_EV_FIELDS, cs.tel_ev)})
+    return telem.TelemetryState(series=series, sample_tick=cs.sample_tick,
+                                **kw)
+
+
+def unpack_state(cs: ChunkState, key: np.ndarray,
+                 layout: Optional[TelemetryLayout] = None):
     """The `engine.EngineState` the buffers hold (views, no copies but
-    ``in_comm``), with the host-side ``key``."""
+    ``in_comm``), with the host-side ``key``; ``layout`` (the run's
+    `telemetry_layout`) unpacks the telemetry state."""
     from repro_torch.core import iteration
     from repro_torch.core.cc.types import FlowCCState
     from repro_torch.core.mltcp import MLTCPState
@@ -249,7 +405,9 @@ def unpack_state(cs: ChunkState, key: np.ndarray):
                         if f in vals},
         ring_del=cs.ring_del, iter_times=cs.iter_times, key=key,
         acc_util=acc_util.view(k, m), acc_drops=acc_drops,
-        acc_marks=acc_marks, acc_jobbytes=acc_jobbytes.view(k, j))
+        acc_marks=acc_marks, acc_jobbytes=acc_jobbytes.view(k, j),
+        telemetry=(None if cs.series is None
+                   else _unpack_telemetry(cs, layout)))
 
 
 class RunOperands(NamedTuple):
@@ -265,10 +423,13 @@ class RunOperands(NamedTuple):
     static_floats: Tensor     # spj_inv [N], cap_dt [M], first_hot [M+1, N],
                               # keep = ~is_final [M+1, N], flows_per_job [J]
     dims: dict                # DIMS but the chunk's (ticks, stride, column)
-    scalars: tuple            # SCALARS but the chunk's (S_TPC, S_SPAN)
+    scalars: tuple            # SCALARS before the chunk's (S_TPC, S_SPAN)
     cc: object                # CCParams
     aggregate: bool
     threads: int
+    job_active: Optional[Tensor] = None  # [K, J] bool, read when armed
+    layout: Optional[TelemetryLayout] = None
+    tel_scalars: tuple = (0.0,) * 6      # SCALARS after S_SPAN
 
 
 def prepare(cfg, statics, sweep, wl) -> RunOperands:
@@ -306,6 +467,15 @@ def prepare(cfg, statics, sweep, wl) -> RunOperands:
                 D_MAX_ITERS=cfg.max_iters_recorded,
                 D_ECN=int(cfg.is_ecn()), D_CASSINI=int(cassini is not None),
                 D_CUBIC_RESET=int(cfg.cubic_epoch_reset_on_comm_start))
+    dims.update(_armed_dims(cfg, sweep))
+    layout = telemetry_layout(cfg)
+    tel_scalars = (0.0,) * 6
+    if cfg.telemetry is not None:
+        spec = cfg.telemetry
+        c = telem.sketch_constants(spec)
+        tel_scalars = (telem.ewma_alpha(cfg, spec),
+                       float(np.float32(spec.overlap_threshold)),
+                       c["lo"], c["hi"], c["log_lo"], c["inv_w"])
     return RunOperands(
         params=torch.stack(cols, dim=1).contiguous(),
         flow_total=wl.flow_total.contiguous(),
@@ -317,7 +487,37 @@ def prepare(cfg, statics, sweep, wl) -> RunOperands:
         static_floats=floats.contiguous(), dims=dims,
         scalars=(cfg.dt, cc.mss, 0.5 * cc.mss, cfg.buffer_bytes),
         cc=cc, aggregate=bool(cfg.protocol.aggregate_by_job),
-        threads=threads_for(M, N, J))
+        threads=threads_for(M, N, J),
+        job_active=(None if sweep.job_active is None
+                    else sweep.job_active.contiguous()),
+        layout=layout, tel_scalars=tel_scalars)
+
+
+def _armed_dims(cfg, sweep) -> dict:
+    """The armed kernel's DIMS of a run (all 0, offsets -1, unarmed)."""
+    spec, fs = cfg.telemetry, cfg.faults
+    dims = {name: 0 for name in DIMS[DIMS.index("D_ARMED"):]}
+    dims.update({name: -1 for name in PROBE_DIMS})
+    dims["D_ARMED"] = armed_bits(cfg)
+    if fs is not None:
+        dims.update(D_CHURN=int(fs.churn), D_BLACKHOLE=int(fs.blackholes),
+                    D_FLAPS=int(fs.link_flaps))
+    if spec is not None:
+        shape = shape_of(cfg)
+        dims.update(
+            D_JOB_ACTIVE=int(sweep.job_active is not None),
+            D_INTERLEAVE=int(spec.needs_interleave()),
+            D_SKETCH=int(spec.needs_sketch()),
+            D_REINTERLEAVE=int(spec.needs_reinterleave()),
+            D_STRIDE=spec.stride, D_CAP=spec.n_slots(cfg.n_ticks),
+            D_TAIL_START=cfg.n_ticks // 2, D_BINS=shape["B"],
+            D_EVENTS=shape["E"])
+        layout = telemetry_layout(cfg)
+        dims["D_SERIES_W"] = layout.width
+        for name, off, _ in layout.probes:
+            if telem.is_builtin(name):
+                dims[f"D_OFF_{name.upper()}"] = off
+    return dims
 
 
 def _check(name: str, t: Tensor, shape, dtype, device) -> None:
@@ -377,6 +577,24 @@ def launch_arguments(run: RunOperands, cs: ChunkState, inputs,
                 or t.device != device):
             raise ValueError(f"netsim_chunk: trace {name} is not a "
                              f"contiguous [K, C, ...] buffer on {device}")
+    # the chunk's fault rows: present exactly where the run arms them
+    want_rows = dict(fault_idx=bool(d["D_ARMED"] & ARM_FAULTS),
+                     churn=bool(d["D_CHURN"]), blackhole=bool(d["D_BLACKHOLE"]),
+                     cap_dt=bool(d["D_FLAPS"]))
+    widths = dict(fault_idx=(), churn=(J,), blackhole=(N,),
+                  cap_dt=(d["D_M"],))
+    for _, name, dtype in FAULT_INPUTS:
+        t = getattr(inputs, name)
+        if (t is not None) != want_rows[name]:
+            raise ValueError(f"netsim_chunk: chunk input {name!r} is "
+                             f"{'missing' if t is None else 'unexpected'}")
+        if t is not None:
+            _check(name, t, (n_ticks, K) + widths[name], dtype, device)
+            if not t.is_contiguous():
+                raise ValueError(f"netsim_chunk: {name!r} is not contiguous")
+    if (cs.series is not None) != bool(d["D_ARMED"] & ARM_TEL):
+        raise ValueError("netsim_chunk: the state's telemetry does not "
+                         "match the run's")
     ptrs = {
         "O_FFLOW": cs.fflow, "O_IFLOW": cs.iflow, "O_LINK": cs.link,
         "O_RING_DEL": cs.ring_del, "O_RING_FLAGS": cs.ring_flags,
@@ -389,7 +607,12 @@ def launch_arguments(run: RunOperands, cs: ChunkState, inputs,
         "O_T": inputs.t, "O_STARTED": inputs.started,
         "O_LOSS_U": inputs.loss_u, "O_CNP_U": inputs.cnp_u,
         "O_STRAGGLES": inputs.straggles, "O_STRAG_AMT": inputs.strag_amt,
-        **dict(zip(TRACE_OPERANDS, traces))}
+        **dict(zip(TRACE_OPERANDS, traces)),
+        **{o: getattr(inputs, name) for o, name, _ in FAULT_INPUTS},
+        "O_JOB_ACTIVE": run.job_active, "O_TEL_F": cs.tel_f,
+        "O_TEL_I": cs.tel_i, "O_TEL_HIST": cs.tel_hist,
+        "O_TEL_EV": cs.tel_ev, "O_SERIES": cs.series,
+        "O_SAMPLE_TICK": cs.sample_tick}
     for name, t in ptrs.items():
         if t is not None and t.device != device:
             raise ValueError(f"netsim_chunk: operand {name} is on "
@@ -398,7 +621,7 @@ def launch_arguments(run: RunOperands, cs: ChunkState, inputs,
                 D_CHUNK=chunk)
     # engine._chunk_probes divides by float32 tensors of these
     dt = run.scalars[0]
-    scalars = run.scalars + (float(n_ticks), n_ticks * dt)
+    scalars = run.scalars + (float(n_ticks), n_ticks * dt) + run.tel_scalars
     consts = ms._consts(run.cc)
     return (
         (ctypes.c_void_p * len(OPERANDS))(*[
@@ -411,7 +634,8 @@ def launch_arguments(run: RunOperands, cs: ChunkState, inputs,
 
 
 def specialization(run: RunOperands) -> tuple:
-    """(algo, variant, aggregate, factors): the kernel's template."""
+    """(algo, variant, aggregate, factors): the kernel's CC template
+    arguments (its ARMED travels in the dims, ``D_ARMED``)."""
     return (int(run.cc.algo), int(run.cc.variant), int(run.aggregate),
             int(run.factors is not None))
 
@@ -429,7 +653,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.netsim_chunk_attributes.restype = ctypes.c_int
     lib.netsim_chunk_attributes.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p]
+    lib.netsim_chunk_sketch_check.restype = ctypes.c_int
+    lib.netsim_chunk_sketch_check.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.netsim_chunk_smem_bytes.restype = ctypes.c_longlong
     lib.netsim_chunk_smem_bytes.argtypes = [ctypes.c_void_p]
     bind_draws(lib)
@@ -506,7 +734,7 @@ class ChunkRun:
         self.chunk += 1
 
     def state(self):
-        return unpack_state(self.cs, self.key)
+        return unpack_state(self.cs, self.key, self.run.layout)
 
 
 def host_draws(key: np.ndarray, n_ticks: int, n_flows: int, n_jobs: int,
@@ -540,13 +768,37 @@ def launch_smem_bytes(run: RunOperands) -> int:
 
 
 def kernel_attributes(algo: int = int(Algo.RENO), variant: int = 1,
-                      aggregate: bool = True, factors: bool = False) -> dict:
+                      aggregate: bool = True, factors: bool = False,
+                      armed: int = 0) -> dict:
     """Registers, local (spill) bytes, static shared bytes and the most
     threads a block of one specialization, from the runtime."""
     lib = LIBRARY.load()
     out = (ctypes.c_int * 4)()
     build.check_launch("netsim_chunk attributes", lib.netsim_chunk_attributes(
-        algo, variant, int(aggregate), int(factors),
+        algo, variant, int(aggregate), int(factors), armed,
         ctypes.cast(out, ctypes.c_void_p)))
     return dict(registers=out[0], local_bytes=out[1],
                 static_smem_bytes=out[2], max_threads=out[3])
+
+
+def sketch_check(x: Tensor, spec) -> tuple[Tensor, Tensor]:
+    """``logf`` and the sketch's bin of every element of the float32 CUDA
+    tensor ``x`` by the chunk kernel's own device function (its
+    `telemetry.sketch_constants` from ``spec``): what the card's check
+    holds against ``torch.log`` and `telemetry.tick_update`'s bins."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 \
+            or not x.is_contiguous():
+        raise ValueError("sketch_check: x must be a contiguous float32 "
+                         "CUDA tensor")
+    c = telem.sketch_constants(spec)
+    scalars = (ctypes.c_float * 4)(c["lo"], c["hi"], c["log_lo"], c["inv_w"])
+    logs = torch.empty_like(x)
+    bins = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    lib = LIBRARY.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.netsim_chunk_sketch_check(
+            x.data_ptr(), x.numel(), logs.data_ptr(), bins.data_ptr(),
+            ctypes.cast(scalars, ctypes.c_void_p), spec.sketch_bins, stream)
+    build.check_launch("netsim_chunk sketch check", rc)
+    return logs, bins

@@ -25,9 +25,14 @@ the chunk kernel: on the card it does, but for two structural cases that
 keep the per-tick path there (`engine._tick` per tick, its CC update
 through `mltcp_cc_tick`) — loudly, via ``CHUNK_FALLBACK_COUNT`` and one
 warning per reason: a configuration that `fallback_reason` sends to
-`core.cc_tick`, and a point whose state does not fit the kernel's
-shared-memory budget (`netsim_chunk.budget_reason`).  On the CPU the
-per-tick path is the plain version and nothing is counted.
+`core.cc_tick`, a telemetry spec that arms a probe added with
+`telemetry.register_probe` (a Python callable the kernel cannot run), and
+a point whose state does not fit the kernel's shared-memory budget
+(`netsim_chunk.budget_reason`).  Built-in probes, detectors and fault
+tables armed on a CC specialization the armed kernel is not built for
+(`netsim_chunk.ARMED_SPECIALIZATIONS`) raise on the card, naming the
+specialization.  On the CPU the per-tick path is the plain version and
+nothing is counted.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mltcp_step as ms
 from repro_torch.kernels import netsim_chunk as nc
 from repro_torch.kernels import rg_lru as rl
+from repro_torch.netsim import telemetry as telem
 
 Tensor = torch.Tensor
 
@@ -168,13 +174,51 @@ def mltcp_cc_tick(cfg: core.MLTCPConfig, state: core.MLTCPState,
     return core.MLTCPState(cc=ccs, det=det), out["rate"]
 
 
+def custom_probe_reason(cfg) -> Optional[str]:
+    """Why the armed chunk kernel cannot run a configuration's telemetry
+    (None: it can, or nothing is armed): a probe added with
+    `telemetry.register_probe`, a Python callable."""
+    if cfg.telemetry is not None:
+        for name in cfg.telemetry.probes:
+            if not telem.is_builtin(name):
+                return (f"telemetry probe {name!r} is a Python callable "
+                        f"(register_probe)")
+    return None
+
+
+def check_armed_specialization(cfg, sweep) -> None:
+    """Raises ValueError where telemetry or faults are armed on a CC
+    specialization the armed chunk kernel is not built for."""
+    if not nc.armed_bits(cfg):
+        return
+    cc = cfg.protocol.cc
+    spec = (int(cc.algo), int(cc.variant),
+            bool(cfg.protocol.aggregate_by_job),
+            sweep.static_job_factors is not None)
+    if spec not in nc.ARMED_SPECIALIZATIONS:
+        raise ValueError(
+            f"netsim_chunk: telemetry/faults armed on "
+            f"algo={nc.Algo(spec[0]).name} "
+            f"variant={nc.Variant(spec[1]).name} aggregate_by_job={spec[2]} "
+            f"static factors={spec[3]}: the armed chunk kernel is not built "
+            f"for this CC specialization (it is for every algorithm, OFF "
+            f"and WI, job-aggregated statistics, no Static factors); run "
+            f"it with device='cpu'")
+
+
 def chunk_fallback_reason(cfg, sweep) -> Optional[str]:
     """Why a simulator configuration cannot run the chunk kernel (None: it
-    can): the CC kernel's own structural fallback, or the shared-memory
-    budget."""
+    can): the CC kernel's own structural fallback, an armed configuration
+    the armed kernel cannot run (`custom_probe_reason`), or the
+    shared-memory budget.  Raises for an armed specialization the kernel
+    is not built for (`check_armed_specialization`)."""
     reason = fallback_reason(cfg.protocol, sweep.static_job_factors)
     if reason is not None:
         return reason
+    reason = custom_probe_reason(cfg)
+    if reason is not None:
+        return reason
+    check_armed_specialization(cfg, sweep)
     return nc.budget_reason(cfg)
 
 

@@ -17,10 +17,15 @@ from repro_torch.core import iteration
 from repro_torch.core import mltcp as core
 from repro_torch.core.cc.types import FlowCCState
 from repro_torch.netsim import engine
+from repro_torch.netsim import telemetry as telem
 
 _INT32 = {"inc_stage", "n_boundaries", "phase_idx", "iter_idx", "tick",
-          "ring_ptr", "seed"}
-_BOOL = {"ring_loss", "ring_cnp", "in_comm", "job_active"}
+          "ring_ptr", "seed", "fault_tick", "sample_tick", "n_samples",
+          "last_bad_tick", "iters_at_last_bad", "tail_bad", "tail_ticks",
+          "iter_hist", "ev_start_tick", "ev_start_iter", "ev_end_tick",
+          "ev_last_bad_tick", "ev_iters_at_last_bad"}
+_BOOL = {"ring_loss", "ring_cnp", "in_comm", "job_active",
+         "fault_job_active", "fault_blackhole"}
 
 
 def _fields(obj) -> dict:
@@ -42,10 +47,8 @@ def sweep_from_numpy(d, device=None) -> engine.SweepParams:
     None), with or without the leading K axis."""
     dev = device_mod.resolve(device)
     d = _fields(d)
-    for name, v in d.items():
-        if name in engine.FAULT_FIELDS and v is not None:
-            raise engine._unknown_field_error(name)
-        if name not in engine.SweepParams._fields + engine.FAULT_FIELDS:
+    for name in d:
+        if name not in engine.SweepParams._fields:
             raise engine._unknown_field_error(name)
     batched = np.asarray(d["slope"]).ndim == 1
     out = {}
@@ -79,18 +82,35 @@ def proto_state_from_numpy(d, device=None) -> core.MLTCPState:
         det=iteration.IterDetectState(**_batch(det, batched, dev)))
 
 
+def telemetry_state_from_numpy(d, batched: bool,
+                               device=None) -> telem.TelemetryState:
+    """A TelemetryState from the reference's (its NamedTuple of numpy
+    arrays, or a mapping): the ``series`` dict and every detector leaf
+    that is not None, each gaining the K axis unless ``batched``."""
+    dev = device_mod.resolve(device)
+    d = dict(_fields(d))
+    series = {name: _tensor(name, v, dev) for name, v in
+              _fields(d.pop("series")).items()}
+    if not batched:
+        series = {name: t.unsqueeze(0) for name, t in series.items()}
+    rest = _batch({k: v for k, v in d.items() if v is not None}, batched,
+                  dev)
+    return telem.TelemetryState(series=series, **rest)
+
+
 def engine_state_from_numpy(d, device=None) -> engine.EngineState:
     """An EngineState from the reference's state fields (``final_state``
     through ``np.asarray``): the threefry key as uint32 pairs, the ring
-    buffers and pointer, every accumulator.  Fault and telemetry state
-    must be absent or None."""
+    buffers and pointer, every accumulator, and the telemetry state when
+    the reference's run armed it."""
     dev = device_mod.resolve(device)
     d = dict(_fields(d))
-    if d.pop("telemetry", None) is not None:
-        raise engine._not_ported("telemetry state", "item 10")
+    tstate = d.pop("telemetry", None)
     batched = np.asarray(d["tick"]).ndim == 1
     key = np.asarray(d.pop("key"), np.uint32)
     proto = proto_state_from_numpy(d.pop("proto"), device=dev)
     rest = _batch(d, batched, dev)
+    if tstate is not None:
+        rest["telemetry"] = telemetry_state_from_numpy(tstate, batched, dev)
     return engine.EngineState(proto=proto,
                               key=key if batched else key[None], **rest)

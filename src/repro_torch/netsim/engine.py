@@ -35,9 +35,16 @@ Model summary:
 The tick never reads a tensor back to the host (no ``.item()``, no branch
 on a tensor value; the ring pointer stays a tensor).  The random bits do
 not depend on the state, so the host draws them a chunk at a time
-(`netsim.random`) and ships them in one copy.  Fault injection
-(``cfg.faults``) and telemetry probes (``cfg.telemetry``) are not ported
-yet (ROADMAP.md queue 1 items 10-11); a config that sets either raises.
+(`netsim.random`) and ships them in one copy.
+
+Fault injection (``cfg.faults``, `netsim.faults`) and telemetry
+(``cfg.telemetry``, `netsim.telemetry`) hook into the tick; every hook is
+gated on a python-level ``is not None``, so an unarmed config runs the
+code it ran without them.  What a fault row changes depends only on the
+tick, so `chunk_inputs` ranks each tick against the schedule's tick column
+and ships the current row's churn mask, blackhole mask and flapped
+capacity with the chunk's other inputs (the churn mask and the straggle
+boost fold into ``started`` and ``straggles`` there).
 """
 from __future__ import annotations
 
@@ -54,7 +61,9 @@ from repro_torch.core.cc.types import col
 from repro_torch.core.segment import JobGroups, fold_sum
 from repro_torch.kernels import netsim_chunk as chunk_kernel
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.netsim import faults as faults_mod
 from repro_torch.netsim import random as rng
+from repro_torch.netsim import telemetry as telem
 from repro_torch.netsim.topology import HashableConfig, Topology
 
 Tensor = torch.Tensor
@@ -139,9 +148,13 @@ class SimConfig(HashableConfig):
     max_iters_recorded: int = 4096
     n_chunks: int = 400               # trace resolution
     seed: int = 0
-    # not ported yet: must stay None (ROADMAP.md queue 1 items 10 and 11)
-    telemetry: Optional[object] = None
-    faults: Optional[object] = None
+    # probes and streaming detectors (netsim.telemetry); None runs none of
+    # their code
+    telemetry: Optional[telem.TelemetrySpec] = None
+    # fault structure (netsim.faults): the schedule's row count and armed
+    # channels; its values are SweepParams leaves.  None runs none of the
+    # fault code
+    faults: Optional[faults_mod.FaultSpec] = None
 
     @property
     def n_ticks(self) -> int:
@@ -170,7 +183,10 @@ class SweepParams(NamedTuple):
     ``straggle_prob``/``iso_iter`` [K, J]), the Static-baseline job factors,
     the padded-jobs mask ``job_active`` [K, J] (masked jobs never start, so
     their flows stay inert) and the Cassini schedule (period <= 0 disables
-    it for that job).  Optional leaves are None when no point needs them.
+    it for that job).  The ``fault_*`` leaves are the fault schedule's
+    event table (`netsim.faults`; present exactly for the channels
+    ``cfg.faults`` arms).  Optional leaves are None when no point needs
+    them.
     """
 
     slope: Tensor
@@ -191,6 +207,11 @@ class SweepParams(NamedTuple):
     cassini_offset: Optional[Tensor] = None
     cassini_period: Optional[Tensor] = None
     cassini_eps: Optional[Tensor] = None
+    fault_tick: Optional[Tensor] = None        # [K, E] int32 start ticks
+    fault_job_active: Optional[Tensor] = None  # [K, E, J] bool churn masks
+    fault_link_scale: Optional[Tensor] = None  # [K, E, M] capacity scales
+    fault_blackhole: Optional[Tensor] = None   # [K, E, N] bool null routes
+    fault_straggle: Optional[Tensor] = None    # [K, E, J] straggle boosts
 
     def dyn(self) -> core.DynamicParams:
         """The protocol-layer slice, for `core.cc_tick`."""
@@ -199,9 +220,8 @@ class SweepParams(NamedTuple):
                                   init_comm_gap=self.init_comm_gap)
 
 
-# the reference's fault-schedule leaves, which this slice does not port
-FAULT_FIELDS = ("fault_tick", "fault_job_active", "fault_link_scale",
-                "fault_blackhole", "fault_straggle")
+# the fault schedule's leaves, in field order
+FAULT_FIELDS = faults_mod.FIELDS
 
 # per-point (unbatched) rank of each field; the rest are scalars
 _POINT_NDIM = {
@@ -209,16 +229,26 @@ _POINT_NDIM = {
     "compute": 2, "comm_bytes": 2,
     "straggle_prob": 1, "iso_iter": 1,
     "cassini_offset": 1, "cassini_period": 1,
+    "fault_tick": 1, "fault_job_active": 2, "fault_link_scale": 2,
+    "fault_blackhole": 2, "fault_straggle": 2,
 }
-_FIELD_DTYPE = {"seed": torch.int32, "job_active": torch.bool}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"repro_torch: {what} is not ported yet (ROADMAP.md queue 1, {item})")
+_FIELD_DTYPE = {"seed": torch.int32, "job_active": torch.bool,
+                "fault_tick": torch.int32, "fault_job_active": torch.bool,
+                "fault_blackhole": torch.bool}
 
 
 def _point_shape(name: str, cfg: SimConfig) -> tuple[int, ...]:
+    if name in FAULT_FIELDS:
+        if cfg.faults is None:
+            raise ValueError(
+                f"sweep field {name!r} needs cfg.faults (a FaultSpec): "
+                f"fault schedule values have no meaning on an unfaulted "
+                f"config")
+        e = cfg.faults.n_events
+        return {"fault_tick": (e,),
+                "fault_link_scale": (e, cfg.topo.n_links),
+                "fault_blackhole": (e, cfg.topo.n_flows)}.get(
+                    name, (e, cfg.jobs.n_jobs))
     nd = _POINT_NDIM.get(name, 0)
     if nd == 0:
         return ()
@@ -227,8 +257,6 @@ def _point_shape(name: str, cfg: SimConfig) -> tuple[int, ...]:
 
 
 def _unknown_field_error(name: str) -> Exception:
-    if name in FAULT_FIELDS:
-        return _not_ported(f"sweep field {name!r}", "item 11 (netsim.faults)")
     return ValueError(
         f"unknown sweep field {name!r}: not a SweepParams leaf; valid "
         f"leaves: {', '.join(SweepParams._fields)}")
@@ -253,11 +281,15 @@ def _point_values(cfg: SimConfig) -> dict:
         static_job_factors=(None if cfg.static_job_factors is None
                             else np.asarray(cfg.static_job_factors)),
         job_active=None, cassini_offset=None, cassini_period=None,
-        cassini_eps=None)
+        cassini_eps=None, **{name: None for name in FAULT_FIELDS})
     if cfg.cassini is not None:
         out.update(cassini_offset=cfg.cassini.offset,
                    cassini_period=cfg.cassini.period,
                    cassini_eps=cfg.cassini.eps)
+    if cfg.faults is not None:
+        # an armed spec defaults to the identity schedule (exact no-ops);
+        # real schedules arrive as make_sweep overrides
+        out.update(faults_mod.identity_schedule(cfg, cfg.faults).values)
     return out
 
 
@@ -418,6 +450,8 @@ class EngineState(NamedTuple):
     acc_drops: Tensor     # [K] (packets)
     acc_marks: Tensor     # [K] (packets)
     acc_jobbytes: Tensor  # [K, J] delivered bytes per job
+    # probe ring buffers and detector state when cfg.telemetry arms them
+    telemetry: Optional[telem.TelemetryState] = None
 
 
 class TickStatics(NamedTuple):
@@ -549,6 +583,8 @@ def _init_state(cfg: SimConfig, statics: TickStatics,
         key=rng.prng_key(sweep.seed.cpu().numpy()),
         tick=z(K, dtype=torch.int32),
         acc_util=z(K, M), acc_drops=z(K), acc_marks=z(K), acc_jobbytes=z(K, J),
+        telemetry=(None if cfg.telemetry is None
+                   else telem.init_state(cfg, cfg.telemetry, K, dev)),
     )
 
 
@@ -558,21 +594,26 @@ def _init_state(cfg: SimConfig, statics: TickStatics,
 
 class TickInputs(NamedTuple):
     """What a tick needs that does not depend on the simulation state: its
-    time, which jobs have started, and its random draws (`netsim.random`)
-    with the straggler decisions they imply.  `chunk_inputs` computes them
-    for a chunk of ticks at once, each leaf with a leading [T]; `at`
-    picks one tick's."""
+    time, which jobs have started, its random draws (`netsim.random`) with
+    the straggler decisions they imply, and the current fault row.
+    `chunk_inputs` computes them for a chunk of ticks at once, each leaf
+    with a leading [T]; `at` picks one tick's.  The fault leaves are None
+    unless ``cfg.faults`` arms their channel."""
 
     key: np.ndarray       # [K, 2] the key after this tick (host)
     t: Tensor             # [K] tick * dt
-    started: Tensor       # [K, J] bool
+    started: Tensor       # [K, J] bool (padding and churn folded in)
     loss_u: Tensor        # [K, N] loss-event uniforms
     cnp_u: Tensor         # [K, N] CNP uniforms
     straggles: Tensor     # [K, J] bool: a finishing iteration straggles
     strag_amt: Tensor     # [K, J] its extra compute time (s)
+    fault_idx: Optional[Tensor] = None  # [K] int32 current event row
+    churn: Optional[Tensor] = None      # [K, J] bool: the job is present
+    blackhole: Optional[Tensor] = None  # [K, N] bool: null-routed flows
+    cap_dt: Optional[Tensor] = None     # [K, M] (cap * link scale) * dt
 
     def at(self, i: int) -> "TickInputs":
-        return TickInputs(*(x[i] for x in self))
+        return TickInputs(*(None if x is None else x[i] for x in self))
 
 
 def chunk_inputs(cfg: SimConfig, statics: TickStatics, sweep: SweepParams,
@@ -598,15 +639,46 @@ def chunk_inputs(cfg: SimConfig, statics: TickStatics, sweep: SweepParams,
     u = host.to(dev, non_blocking=True)
     loss_u, cnp_u, strag_u, samt_u = torch.split(u, [n, n, j, j], dim=-1)
     steps = torch.arange(n_ticks, dtype=torch.int32, device=dev)
-    t = (st.tick + steps.unsqueeze(-1)).to(torch.float32) * cfg.dt  # [T, K]
+    ticks = st.tick + steps.unsqueeze(-1)                        # [T, K]
+    t = ticks.to(torch.float32) * cfg.dt
     started = t.unsqueeze(-1) >= statics.start_offset
     if sweep.job_active is not None:
         # padded-jobs axis: masked-off jobs never start
         started = started & sweep.job_active
+    strag_p = sweep.straggle_prob
+    fault = {}
+    spec = cfg.faults
+    if spec is not None:
+        # the current event row of each tick: a rank over the tick column
+        # (rows sorted; row 0 is the identity baseline at tick 0)
+        rank = (sweep.fault_tick.unsqueeze(0) <= ticks.unsqueeze(-1)).sum(-1)
+        idx = torch.clamp(rank - 1, 0, spec.n_events - 1)        # [T, K]
+        points = torch.arange(idx.shape[1], device=dev)
+
+        def row(table):
+            return table[points, idx]                            # [T, K, X]
+
+        fault["fault_idx"] = idx.to(torch.int32)
+        if spec.churn:
+            # a departed job's compute clock freezes and its comm phase is
+            # force-exited (`_tick`); the identity row is all True
+            fault["churn"] = row(sweep.fault_job_active)
+            started = started & fault["churn"]
+        if spec.blackholes:
+            fault["blackhole"] = row(sweep.fault_blackhole)
+        if spec.link_flaps:
+            # a flap scales the service capacity only (acc_util keeps the
+            # nominal one); the identity row is all 1.0
+            fault["cap_dt"] = (statics.cap * row(sweep.fault_link_scale)
+                               ) * cfg.dt
+        if spec.straggle_bursts:
+            # an additive boost, clipped back to a probability
+            strag_p = torch.clamp(strag_p + row(sweep.fault_straggle),
+                                  0.0, 1.0)
     return TickInputs(
         key=keys, t=t, started=started, loss_u=loss_u, cnp_u=cnp_u,
-        straggles=strag_u < sweep.straggle_prob,
-        strag_amt=(0.05 + 0.05 * samt_u) * sweep.iso_iter)
+        straggles=strag_u < strag_p,
+        strag_amt=(0.05 + 0.05 * samt_u) * sweep.iso_iter, **fault)
 
 
 def _red_prob(wl: _WorkloadView, q: Tensor) -> Tensor:
@@ -654,6 +726,8 @@ def _tick(cfg: SimConfig, statics: TickStatics, sweep: SweepParams,
         hold_until = st.hold_until
 
     in_comm = st.in_comm | enter_comm
+    if inp.churn is not None:
+        in_comm = in_comm & inp.churn
 
     # flows of entering jobs pick up their sub-phase quota
     phase_bytes_job = sweep.comm_bytes.gather(
@@ -671,6 +745,13 @@ def _tick(cfg: SimConfig, statics: TickStatics, sweep: SweepParams,
     active = g.spread(in_comm) & (to_send > 0.0)
     inj = torch.where(active, torch.minimum(rate * dt, to_send), 0.0)
     to_send = to_send - inj
+    inj_lost = None
+    if inp.blackhole is not None:
+        # blackholed flows are null-routed at the first hop: their injected
+        # bytes vanish as drops (loss-signaled one RTT later, retransmitted
+        # when the hole closes); the identity row is all False
+        inj_lost = torch.where(inp.blackhole, inj, 0.0)
+        inj = inj - inj_lost
 
     # ------------------------------------------------------------------
     # 3. Links: enqueue (RED) -> serve -> route departures
@@ -697,9 +778,10 @@ def _tick(cfg: SimConfig, statics: TickStatics, sweep: SweepParams,
     backlog = st.backlog + (incoming - dropped)
 
     tot = fold_sum(backlog[:, :M], 2)
+    cap_dt = statics.cap_dt if inp.cap_dt is None else inp.cap_dt
     serve_ratio = torch.where(
         tot > 0.0,
-        torch.clamp_max(statics.cap_dt / torch.clamp_min(tot, 1e-9), 1.0),
+        torch.clamp_max(cap_dt / torch.clamp_min(tot, 1e-9), 1.0),
         0.0)
     serve_full = torch.cat([serve_ratio, wl.zero_col], dim=1).unsqueeze(-1)
     dep = backlog * serve_full
@@ -716,6 +798,8 @@ def _tick(cfg: SimConfig, statics: TickStatics, sweep: SweepParams,
 
     # per-flow drop / mark signals (row M holds no bytes)
     dropped_f = fold_sum(dropped[:, :M], 1)                      # [K, N]
+    if inj_lost is not None:
+        dropped_f = dropped_f + inj_lost       # blackholed first-hop bytes
     loss_evt = inp.loss_u < -torch.expm1(-dropped_f / statics.mss)
     if ecn:
         marked_f = fold_sum(marked[:, :M], 1)
@@ -816,6 +900,34 @@ def _tick(cfg: SimConfig, statics: TickStatics, sweep: SweepParams,
         acc_marks = acc_marks + fold_sum(marked_f, 1) / statics.mss
     acc_jobbytes = g.sum(delivered, init=st.acc_jobbytes)
 
+    # ------------------------------------------------------------------
+    # 8. Telemetry probes + streaming detectors
+    # ------------------------------------------------------------------
+    tstate = st.telemetry
+    if cfg.telemetry is not None:
+        spec = cfg.telemetry
+        f_job = None
+        if spec.wants("job_f"):
+            # F of the post-update detection state, averaged per job
+            f_flow = core.f_values(proto_cfg, proto.det, comm_elapsed,
+                                   est_finish, wl.dyn,
+                                   static_factors=wl.static_factors)
+            f_job = g.sum(f_flow * statics.spj_inv)
+        # a churned-out job leaves the interleave statistic like a
+        # padded-out one
+        telem_active = sweep.job_active
+        if inp.churn is not None:
+            telem_active = (inp.churn if telem_active is None
+                            else telem_active & inp.churn)
+        sig = telem.TickSignals(
+            tick=st.tick, t=t, cwnd=proto.cc.cwnd, rate=rate,
+            bytes_ratio=proto.det.bytes_ratio, q_len=q_len, red_prob=p_red,
+            in_comm=in_comm, phase_idx=phase_idx, iter_idx=iter_idx,
+            iter_done=iter_done, iter_time=iter_time, f_job=f_job,
+            job_active=telem_active, fault_idx=inp.fault_idx,
+            fault_ticks=sweep.fault_tick)
+        tstate = telem.tick_update(cfg, spec, st.telemetry, sig)
+
     return EngineState(
         proto=proto, backlog=backlog, transit=transit,
         ring_del=ring_del, ring_loss=ring_loss, ring_cnp=ring_cnp,
@@ -826,7 +938,7 @@ def _tick(cfg: SimConfig, statics: TickStatics, sweep: SweepParams,
         iter_times=iter_times, straggle_extra=straggle_extra,
         key=inp.key, tick=st.tick + 1,
         acc_util=acc_util, acc_drops=acc_drops, acc_marks=acc_marks,
-        acc_jobbytes=acc_jobbytes)
+        acc_jobbytes=acc_jobbytes, telemetry=tstate)
 
 
 # ---------------------------------------------------------------------------
@@ -844,6 +956,8 @@ class RawSimOutput(NamedTuple):
     trace_jobtput: Tensor  # [K, n_chunks, J] delivered bytes/s per job
     trace_ratio: Tensor   # [K, n_chunks, J] mean bytes_ratio per job
     final_state: EngineState
+    # the final TelemetryState when cfg.telemetry arms it
+    telemetry: Optional[telem.TelemetryState] = None
 
 
 CHUNK_FIELDS = ("trace_util", "trace_drops", "trace_marks", "trace_incomm",
@@ -852,24 +966,18 @@ CHUNK_FIELDS = ("trace_util", "trace_drops", "trace_marks", "trace_incomm",
 
 def _chunk_probes(cfg: SimConfig, statics: TickStatics, st: EngineState,
                   ticks_per_chunk: int) -> tuple:
-    """The per-chunk trace outputs, in CHUNK_FIELDS order: the reference's
-    ``telemetry.CHUNK_PROBES`` expressions, same order, same arithmetic."""
-    dev = st.acc_util.device
-    tpc = torch.tensor(float(ticks_per_chunk), device=dev)
-    span = torch.tensor(ticks_per_chunk * cfg.dt, dtype=torch.float32,
-                        device=dev)
-    ratio = statics.groups.sum(st.proto.det.bytes_ratio) \
-        / statics.flows_per_job
-    return (st.acc_util / tpc, st.acc_drops, st.acc_marks, st.in_comm,
-            st.tick.to(torch.float32) * cfg.dt, st.acc_jobbytes / span,
-            ratio)
+    """The per-chunk trace outputs, in CHUNK_FIELDS order: the built-in
+    chunk probes (`telemetry.CHUNK_PROBES`)."""
+    return telem.chunk_capture(cfg, statics, st, ticks_per_chunk)
 
 
 def _check_cfg(cfg: SimConfig) -> None:
-    if cfg.telemetry is not None:
-        raise _not_ported("SimConfig.telemetry", "item 10 (netsim.telemetry)")
-    if cfg.faults is not None:
-        raise _not_ported("SimConfig.faults", "item 11 (netsim.faults)")
+    for name, kind in (("telemetry", telem.TelemetrySpec),
+                       ("faults", faults_mod.FaultSpec)):
+        value = getattr(cfg, name)
+        if value is not None and not isinstance(value, kind):
+            raise TypeError(f"SimConfig.{name} must be a {kind.__name__} "
+                            f"or None, not {type(value).__name__}")
     if abs(cfg.protocol.cc.tick_dt - cfg.dt) > 1e-12:
         raise ValueError(
             f"protocol.cc.tick_dt ({cfg.protocol.cc.tick_dt}) must equal the "
@@ -898,6 +1006,17 @@ def _validate_sweep(cfg: SimConfig, sweep: SweepParams) -> None:
     if any(c is not None for c in cas) and any(c is None for c in cas):
         raise ValueError("cassini_offset / cassini_period / cassini_eps "
                          "must be set together (or all None)")
+    required = () if cfg.faults is None else cfg.faults.leaves()
+    for name in FAULT_FIELDS:
+        v = getattr(sweep, name)
+        if name in required and v is None:
+            raise ValueError(
+                f"cfg.faults arms {name!r} but the sweep leaf is None "
+                f"(use faults.schedule / faults.identity_schedule)")
+        if name not in required and v is not None:
+            raise ValueError(
+                f"sweep carries {name!r} but cfg.faults "
+                f"{'is None' if cfg.faults is None else 'does not arm it'}")
 
 
 def run_chunk_reference(cfg: SimConfig, statics: TickStatics,
@@ -960,7 +1079,8 @@ def run_ticks(cfg: SimConfig, sweep: SweepParams,
             traces.append(probes)
         stacked = [torch.stack(col_, dim=1) for col_ in zip(*traces)]
     return RawSimOutput(iter_times=st.iter_times, iter_counts=st.iter_idx,
-                        **dict(zip(CHUNK_FIELDS, stacked)), final_state=st)
+                        **dict(zip(CHUNK_FIELDS, stacked)), final_state=st,
+                        telemetry=st.telemetry)
 
 
 def simulate_sweep(cfg: SimConfig, sweep: SweepParams,
@@ -975,13 +1095,21 @@ def simulate_sweep(cfg: SimConfig, sweep: SweepParams,
     return run_ticks(cfg, sweep)
 
 
-def point_of(tree, i: int):
-    """Point i of a [K]-batched output or state, without the K axis."""
+def tree_map(fn, tree):
+    """``fn`` on every tensor or array of a tree of NamedTuples, dicts and
+    Nones (a RawSimOutput, an EngineState)."""
     if tree is None:
         return None
     if isinstance(tree, (Tensor, np.ndarray)):
-        return tree[i]
-    return type(tree)(*[point_of(v, i) for v in tree])
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {name: tree_map(fn, v) for name, v in tree.items()}
+    return type(tree)(*[tree_map(fn, v) for v in tree])
+
+
+def point_of(tree, i: int):
+    """Point i of a [K]-batched output or state, without the K axis."""
+    return tree_map(lambda x: x[i], tree)
 
 
 def simulate(cfg: SimConfig, device=None) -> RawSimOutput:

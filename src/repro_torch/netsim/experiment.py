@@ -70,19 +70,18 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.netsim import counters
 from repro_torch.netsim import metrics
 from repro_torch.netsim.engine import (
-    FAULT_FIELDS,
     JobSpec,
     SimConfig,
     SweepParams,
     SweepPoint,
     _FIELD_DTYPE,
-    _not_ported,
     _point_shape,
-    _unknown_field_error,
     point_of,
     simulate_sweep,
     sweep_of,
+    tree_map,
 )
+from repro_torch.netsim.telemetry import TelemetrySpec
 from repro_torch.netsim.topology import Topology
 
 __all__ = ["Axis", "Plan", "PlanResult", "GroupError", "GroupProfile",
@@ -91,9 +90,8 @@ __all__ = ["Axis", "Plan", "PlanResult", "GroupError", "GroupProfile",
 
 Tensor = torch.Tensor
 
-# the fields a dynamic axis may target; the reference's fault-schedule
-# leaves count as dynamic (as there) and raise when resolved
-_DYNAMIC_FIELDS = frozenset(SweepParams._fields + FAULT_FIELDS)
+# the fields a dynamic axis may target (the fault schedule's included)
+_DYNAMIC_FIELDS = frozenset(SweepParams._fields)
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +120,10 @@ class Axis:
     ``field="*"`` targets *several* sweep fields at once: the resolved
     value must be a ``{sweep field: value}`` dict — or a callable taking
     the point's built `SimConfig` and returning one, for values whose
-    shapes depend on the config.
+    shapes depend on the config (a fault schedule's blackhole table is
+    [E, n_flows], and n_flows follows the point's fabric).  A fault
+    schedule axis is the canonical use: one label resolves to the whole
+    ``faults.FaultSchedule.overrides()`` dict.
     """
 
     name: str
@@ -429,8 +430,6 @@ def _point_params(cfg: SimConfig, overrides: dict,
     """
     params = sweep_of(cfg, device="cpu")
     for field, value in overrides.items():
-        if field in FAULT_FIELDS:
-            raise _unknown_field_error(field)
         dtype = _FIELD_DTYPE.get(field, torch.float32)
         a = _host(value)
         shape = _point_shape(field, cfg)
@@ -477,6 +476,19 @@ def _point_params(cfg: SimConfig, overrides: dict,
         mask = torch.zeros((j_ref,), dtype=torch.bool)
         mask[:n] = True
         params = params._replace(job_active=mask)
+    if cfg.faults is not None:
+        # fault tables are built on the point's own fabric; pad the job /
+        # flow axis to the group's with identity values (inactive jobs
+        # stay inactive, padded flows never blackhole).  Links are never
+        # padded: the pad-merge requires an identical link fabric.
+        n_flows_g = group.cfg.topo.n_flows
+        for fname, width, fill in (("fault_job_active", j_ref, False),
+                                   ("fault_straggle", j_ref, 0.0),
+                                   ("fault_blackhole", n_flows_g, False)):
+            v = getattr(params, fname)
+            if v is not None:
+                params = params._replace(**{fname: torch.as_tensor(
+                    _pad_cols(_host(v), width, fill))})
     return params
 
 
@@ -752,8 +764,9 @@ def _stable_bytes(obj, out: list) -> None:
 # never deserialized — they simply miss — and `prune_cache` can evict them
 # by name without unpickling anything.  The port's keys and filenames
 # carry their own prefix, so a cache directory the reference wrote is
-# never served to the port.
-_SCHEMA_VERSION = 1
+# never served to the port.  Version 2: results carry their telemetry,
+# and the key covers the telemetry and fault specs and schedules.
+_SCHEMA_VERSION = 2
 _SCHEMA = f"torch-v{_SCHEMA_VERSION}"
 
 
@@ -859,10 +872,16 @@ def _cache_save(cache_dir: str, key: str, res: metrics.SimResult) -> None:
 # The runner
 # ---------------------------------------------------------------------------
 
-def _check_telemetry(telemetry) -> None:
-    if telemetry is not None:
-        raise _not_ported("run_plan(telemetry=...)",
-                          "item 10 (netsim.telemetry)")
+def _stamp_telemetry(cfgs: list[SimConfig],
+                     telemetry: Optional[TelemetrySpec]) -> list[SimConfig]:
+    """Every point's config with ``telemetry`` armed (unchanged for None),
+    before grouping and before the cache keys."""
+    if telemetry is None:
+        return cfgs
+    if not isinstance(telemetry, TelemetrySpec):
+        raise TypeError(f"telemetry must be a TelemetrySpec or None, not "
+                        f"{type(telemetry).__name__}")
+    return [dataclasses.replace(c, telemetry=telemetry) for c in cfgs]
 
 
 def _resolve_overrides(plan: Plan, points: list[dict],
@@ -872,15 +891,13 @@ def _resolve_overrides(plan: Plan, points: list[dict],
     A ``field="*"`` axis resolves to a dict of sweep-field overrides (or a
     callable from the point's built config to one — see `Axis`); its
     entries merge into the point's override dict like so many single-field
-    axes.  A fault-schedule field raises: faults are not ported yet.
+    axes.
     """
     dyn_axes = [ax for ax in plan.axes if ax.is_dynamic()]
     for ax in dyn_axes:
         if ax.target != "*" and ax.target not in _DYNAMIC_FIELDS:
             raise ValueError(f"axis {ax.name!r} is dynamic but targets "
                              f"unknown sweep field {ax.target!r}")
-        if ax.target in FAULT_FIELDS:
-            raise _unknown_field_error(ax.target)
     overrides = []
     for pt, cfg in zip(points, cfgs):
         ov = {}
@@ -903,27 +920,26 @@ def _resolve_overrides(plan: Plan, points: list[dict],
                     raise ValueError(
                         f"axis {ax.name!r} (field='*') override names "
                         f"unknown sweep field {fname!r}")
-                if fname in FAULT_FIELDS:
-                    raise _unknown_field_error(fname)
                 ov[fname] = val
         overrides.append(ov)
     return overrides
 
 
-def resolve_plan(plan: Plan, *, pad_jobs: bool = True, telemetry=None
+def resolve_plan(plan: Plan, *, pad_jobs: bool = True,
+                 telemetry: Optional[TelemetrySpec] = None
                  ) -> tuple[list[dict], list[SimConfig], list[dict],
                             list[_Group]]:
     """The static partitioning stage of `run_plan`, without executing.
 
     Returns ``(points, cfgs, overrides, groups)``: the plan's label dicts,
-    each point's built config, its resolved dynamic overrides, and the
-    predicted compile groups (each group's ``idxs`` index into
-    ``points``/``cfgs``).  This is exactly the grouping a cache-less
-    `run_plan` would execute.  ``telemetry`` is not ported yet and raises.
+    each point's built config (``telemetry`` stamped on if given), its
+    resolved dynamic overrides, and the predicted compile groups (each
+    group's ``idxs`` index into ``points``/``cfgs``).  This is exactly the
+    grouping a cache-less `run_plan` would execute.
     """
-    _check_telemetry(telemetry)
     points = plan.points()
-    cfgs = [plan.build(dict(pt)) for pt in points]
+    cfgs = _stamp_telemetry([plan.build(dict(pt)) for pt in points],
+                            telemetry)
     overrides = _resolve_overrides(plan, points, cfgs)
     groups = _compile_groups(cfgs, pad_jobs)
     return points, cfgs, overrides, groups
@@ -981,13 +997,12 @@ def _run_group(cfg: SimConfig, sweep: SweepParams, prof: GroupProfile,
     if on_card and profile:
         prof.device_bytes = int(torch.cuda.max_memory_allocated(dev) - base)
     # every leaf postprocess reads, on the host in one copy each
-    return type(raw)(**{name: None if name == "final_state"
-                        else getattr(raw, name).cpu()
-                        for name in raw._fields})
+    return tree_map(lambda x: x.cpu(), raw._replace(final_state=None))
 
 
 def run_plan(plan: Plan, *, device=None, shard="auto", pad_jobs: bool = True,
-             cache_dir: Optional[str] = None, telemetry=None,
+             cache_dir: Optional[str] = None,
+             telemetry: Optional[TelemetrySpec] = None,
              profile: bool = False, keep_going: bool = False) -> PlanResult:
     """Execute a plan: one `simulate_sweep` per compile group, on the card
     unless ``device="cpu"``.
@@ -1003,8 +1018,11 @@ def run_plan(plan: Plan, *, device=None, shard="auto", pad_jobs: bool = True,
                postprocessing.  Interrupted plans resume where they
                stopped, and grown plans only simulate the new cells;
                `prune_cache` evicts entries of other schemas.
-    telemetry: not ported yet (ROADMAP queue 1 item 10): anything but None
-               raises `NotImplementedError`.
+    telemetry: arm the probes and detectors (`netsim.telemetry`) on every
+               point: the spec is stamped on each built config before
+               grouping and before the cache keys, so it joins both, and
+               each result carries a `.telemetry`
+               (`telemetry.TelemetryResult`).
     profile:   also record each group's device-memory peak
                (`GroupProfile.device_bytes`); the time split is recorded
                always, since it costs nothing here.
@@ -1013,10 +1031,10 @@ def run_plan(plan: Plan, *, device=None, shard="auto", pad_jobs: bool = True,
                slots stay None) and the remaining groups still run and
                cache.  The default (False) re-raises at the failing group.
     """
-    _check_telemetry(telemetry)
     dev = device_mod.resolve(device)
     points = plan.points()
-    cfgs = [plan.build(dict(pt)) for pt in points]
+    cfgs = _stamp_telemetry([plan.build(dict(pt)) for pt in points],
+                            telemetry)
     overrides = _resolve_overrides(plan, points, cfgs)
 
     results: list[Optional[metrics.SimResult]] = [None] * len(points)

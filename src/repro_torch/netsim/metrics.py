@@ -5,6 +5,8 @@
 * link-utilization traces                             — Figs 7a, 8a, 9a, 14
 * interleave score: pairwise Jaccard overlap of comm phases on shared links
 * speedups vs a baseline run                          — Figs 10, 12, 13
+* telemetry: probe timelines, time to interleave, convergence iteration,
+  streaming iteration-time quantiles                 — Figs 5, 7a
 
 Everything here is numpy on the host: a raw output's leaves may be torch
 tensors (on any device) or numpy arrays.
@@ -17,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.netsim import telemetry as telemetry_mod
 from repro_torch.netsim.engine import (RawSimOutput, SimConfig, SweepPoint,
                                        point_of)
 
@@ -40,6 +43,8 @@ class SimResult:
     trace_drops: np.ndarray           # [C]
     trace_jobtput: np.ndarray         # [C, J] delivered bytes/s per job
     point: Optional[SweepPoint] = None
+    # probe series + detector outputs when cfg.telemetry armed them
+    telemetry: Optional[telemetry_mod.TelemetryResult] = None
 
     @property
     def n_jobs(self) -> int:
@@ -70,6 +75,9 @@ def postprocess(cfg: SimConfig, raw: RawSimOutput,
     per_job = [x[~np.isnan(x)] for x in per_job]
     trace_t = _np(raw.trace_t)
     sim_t = float(trace_t[-1]) if trace_t.size else cfg.sim_time
+    telemetry = None
+    if raw.telemetry is not None and cfg.telemetry is not None:
+        telemetry = telemetry_mod.collect(cfg, raw.telemetry, n_jobs=n)
     return SimResult(
         cfg=cfg,
         iter_times=per_job,
@@ -81,6 +89,7 @@ def postprocess(cfg: SimConfig, raw: RawSimOutput,
         trace_drops=_np(raw.trace_drops),
         trace_jobtput=_np(raw.trace_jobtput)[:, :n],
         point=point,
+        telemetry=telemetry,
     )
 
 
@@ -153,3 +162,44 @@ def sweep_speedup_stats(bases: list[SimResult], tests: list[SimResult],
         "p99_speedup": float(p99.mean()), "p99_speedup_std": float(p99.std()),
         "n_points": len(per),
     }
+
+
+# ---------------------------------------------------------------------------
+# Telemetry accessors (probe series + detector outputs; netsim.telemetry)
+# ---------------------------------------------------------------------------
+
+def _require_telemetry(res: SimResult) -> telemetry_mod.TelemetryResult:
+    if res.telemetry is None:
+        raise ValueError(
+            "result has no telemetry: run with SimConfig.telemetry set to a "
+            "TelemetrySpec (or run_plan(..., telemetry=spec))")
+    return res.telemetry
+
+
+def probe_timeline(res: SimResult, probe: str
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """(t, values) of one armed probe's decimated series — e.g.
+    ``probe_timeline(res, "flow_cwnd")`` gives the Fig. 5-style [S, N]
+    per-flow cwnd timeline at sample times t [S]."""
+    return _require_telemetry(res).timeline(probe)
+
+
+def time_to_interleave(res: SimResult) -> float:
+    """Seconds until the EWMA pairwise comm-overlap *permanently* drops
+    below the spec's threshold (inf if the run never converged)."""
+    return _require_telemetry(res).time_to_interleave_s
+
+
+def convergence_iteration(res: SimResult) -> float:
+    """Training iterations completed when the interleave detector last saw
+    overlap above threshold — the paper's "within a few training
+    iterations" metric (inf: never converged; 0: interleaved from the
+    start)."""
+    return _require_telemetry(res).time_to_interleave_iters
+
+
+def iter_time_quantile(res: SimResult, q: float,
+                       job: Optional[int] = None) -> float:
+    """Streaming iteration-time quantile from the log-histogram sketch
+    (no dense iteration record needed; ~one-bin resolution)."""
+    return _require_telemetry(res).iter_quantile(q, job=job)

@@ -13,23 +13,28 @@ packing, shared-memory budget, dispatch and build, and its logic.
   card is present.
 * Packing an `EngineState`, the run's statics and sweep values and a
   chunk's inputs into the kernel's flat operands, and back, is exact.
+* The armed kernel (telemetry and faults, the template's ARMED) equals the
+  per-tick path bit for bit on every leaf, the telemetry state's
+  included, for each algorithm, with telemetry, faults or both armed; a
+  spec it cannot run (a custom probe, an uninstantiated specialization)
+  takes the per-tick path, counted.
 * The enums of ``csrc/netsim_chunk.cu`` and ``csrc/mltcp_cc.cuh`` are the
   wrapper's name lists, in order.
 * The budget admits every fabric the figure suites build and sends an
   oversized one to the per-tick path, counted and warned once.
 * A CPU run never loads a kernel library; a changed header rebuilds.
 """
-import ctypes
 import dataclasses
 import re
 import shutil
-import subprocess
 import warnings
 from pathlib import Path
 
 import numpy as np
 import pytest
 
+from _torch_host_chunk import (build_host_library, compiler, host_launch,
+                               host_run_ticks)
 from _torch_reference import load_reference
 
 import torch
@@ -39,7 +44,9 @@ from repro_torch.kernels import build, ops
 from repro_torch.kernels import mltcp_step as ms
 from repro_torch.kernels import netsim_chunk as nc
 from repro_torch.netsim import engine
+from repro_torch.netsim import faults
 from repro_torch.netsim import random as rng
+from repro_torch.netsim import telemetry
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
@@ -104,11 +111,58 @@ CASES = {
 }
 
 
+def _armed(algo=0, variant=1, spj=2, n_jobs=3, tel=True, flt=True,
+           detectors=telemetry.DETECTORS, job_active=None, **kw):
+    """A config with telemetry (every built-in probe) and/or faults (all
+    four channels) armed, and its sweep overrides: point 0 under a
+    schedule that departs and re-admits the last job, flaps the
+    bottleneck, blackholes flow 0 and bursts the straggle probability,
+    point 1 under the identity schedule."""
+    cfg = _cfg(algo=algo, variant=variant, spj=spj, n_jobs=n_jobs, **kw)
+    if tel:
+        cfg = dataclasses.replace(cfg, telemetry=telemetry.TelemetrySpec(
+            probes=telemetry.BUILTIN_PROBES, stride=7, detectors=detectors))
+    overrides = dict(seed=[3, 5])
+    if job_active is not None:
+        overrides["job_active"] = job_active
+    if flt:
+        spec = faults.FaultSpec(n_events=10, churn=True, link_flaps=True,
+                                blackholes=True, straggle_bursts=True)
+        cfg = dataclasses.replace(cfg, faults=spec)
+        t = cfg.sim_time
+        sched = faults.schedule(cfg, [
+            faults.job_departs(0.2 * t, n_jobs - 1),
+            faults.job_arrives(0.45 * t, n_jobs - 1),
+            faults.link_flap(0.3 * t, 0.6 * t, 0, 0.5),
+            faults.blackhole(0.1 * t, 0.35 * t, [0]),
+            faults.straggle_burst(0.05 * t, 0.7 * t, 0.5)], spec=spec)
+        ident = faults.identity_schedule(cfg, spec)
+        overrides.update({f: np.stack([sched.values[f], ident.values[f]])
+                          for f in sched.values})
+    return cfg, overrides
+
+
+# name -> (config, sweep overrides) of the armed kernel: each algorithm,
+# OFF and WI, telemetry and faults together and apart, padded jobs
+ARMED_CASES = {
+    "reno_wi_both": _armed(),
+    "reno_off_both": _armed(variant=0),
+    "cubic_wi_both": _armed(algo=1, n_jobs=2),
+    "dcqcn_wi_ecn_both": _armed(algo=2, spj=1, **RED_ECN),
+    "reno_wi_telemetry_padded": _armed(
+        tel=True, flt=False, detectors=("interleave", "iter_sketch"),
+        job_active=[[True, True, False], [True, False, True]]),
+    "dcqcn_off_faults": _armed(algo=2, variant=0, tel=False, **RED_ECN),
+}
+
+
 def _leaves(tree):
     if isinstance(tree, (torch.Tensor, np.ndarray)):
         return [tree]
     if tree is None:
         return []
+    if isinstance(tree, dict):      # a TelemetryState's probe rings
+        tree = list(tree.values())
     return [x for v in tree for x in _leaves(v)]
 
 
@@ -146,61 +200,26 @@ def _plain(cfg, statics, sweep, wl, st, inputs, run):
 # the kernel's body, built for the CPU
 # ---------------------------------------------------------------------------
 
-HOST_FLAGS = ("-std=c++20", "-O0", "-ffp-contract=off", "-fno-fast-math",
-              "-shared", "-fPIC", "-pthread", "-x", "c++")
-
-
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
+    if compiler() is None:
         pytest.skip("needs a host C++ compiler (g++) to build the chunk "
                     "kernel's body for the CPU")
-    out = tmp_path_factory.mktemp("netsim_chunk") / "netsim_chunk_host.so"
-    subprocess.run([cxx, *HOST_FLAGS, "-o", str(out),
-                    str(CSRC / "netsim_chunk.cu")], check=True,
-                   capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
-    lib.netsim_chunk_host.restype = ctypes.c_int
-    lib.netsim_chunk_host.argtypes = [ctypes.c_int] * 4 + \
-        [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int]
-    lib.netsim_chunk_smem_bytes.restype = ctypes.c_longlong
-    lib.netsim_chunk_smem_bytes.argtypes = [ctypes.c_void_p]
-    nc.bind_draws(lib)
-    return lib
+    return build_host_library(tmp_path_factory.mktemp("netsim_chunk"))
 
-
-def _host_launch(lib, threads):
-    """`netsim_chunk.launch` on the host build of the kernel's body, with
-    the operands the card gets."""
-    def launch(run, cs, inputs, traces, chunk):
-        operands, dims, scalars, consts = nc.launch_arguments(
-            run, cs, inputs, traces, chunk)
-        d = dict(zip(nc.DIMS, dims))
-        assert lib.netsim_chunk_smem_bytes(
-            ctypes.cast(dims, ctypes.c_void_p)) == nc.smem_bytes(
-                d["D_M"], d["D_N"], d["D_J"], d["D_S"], d["D_D"], d["D_P"])
-        rc = lib.netsim_chunk_host(
-            *nc.specialization(run), ctypes.cast(operands, ctypes.c_void_p),
-            ctypes.cast(dims, ctypes.c_void_p),
-            ctypes.cast(scalars, ctypes.c_void_p),
-            ctypes.cast(consts, ctypes.c_void_p),
-            run.cc.fast_recovery_stages, threads)
-        assert rc == 0
-    return launch
 
 
 def _host_chunk(lib, threads):
     """One chunk through the host build, as `engine.run_chunk_reference`
     takes it: from an `EngineState` to the next one and the chunk's probes
     (from the kernel's epilogue)."""
-    launch = _host_launch(lib, threads)
+    launch = host_launch(lib, threads)
 
     def chunk(cfg, statics, sweep, wl, st, inputs, run):
         cs = nc.pack_state(st)
         traces = nc.traces_for(cs, 1)
         launch(run, cs, inputs, traces, 0)
-        return (nc.unpack_state(cs, inputs.key[-1]),
+        return (nc.unpack_state(cs, inputs.key[-1], run.layout),
                 tuple(t[:, 0] for t in traces))
     return chunk
 
@@ -218,6 +237,35 @@ def test_kernel_body_equals_plain_version_bitwise(host_lib, case):
     assert int(st.proto.det.n_boundaries.sum()) > 0
 
 
+@pytest.mark.parametrize("case", sorted(ARMED_CASES))
+def test_armed_kernel_body_equals_plain_version_bitwise(host_lib, case):
+    """Telemetry and faults armed: the host build's chunks equal the
+    per-tick path's on every leaf, the telemetry state's included."""
+    cfg, overrides = ARMED_CASES[case]
+    sweep = netsim.make_sweep(cfg, device=DEV, **overrides)
+    want = _run(cfg, sweep, _plain)
+    got = _run(cfg, sweep, _host_chunk(host_lib, 3))
+    _assert_bitwise(got, want)
+    st = want[0]
+    assert int(st.iter_idx.max()) >= 1
+    if cfg.telemetry is not None:
+        tel = st.telemetry
+        assert int(tel.n_samples.min()) > 0
+        # every completed iteration is in the sketch
+        assert torch.equal(tel.iter_hist.sum(-1), st.iter_idx)
+
+
+def test_armed_packed_run_equals_per_tick_run(host_lib):
+    """A whole armed run as run_ticks takes it on the card, the telemetry
+    packed once with the state, against run_ticks' per-tick path."""
+    cfg, overrides = ARMED_CASES["reno_wi_both"]
+    sweep = netsim.make_sweep(cfg, device=DEV, **overrides)
+    want = engine.run_ticks(cfg, sweep, per_tick=True)
+    got = host_run_ticks(host_lib, cfg, sweep)
+    _assert_bitwise(got, want)
+    assert got.telemetry is not None
+
+
 @pytest.mark.parametrize("case", ["reno_cassini_stragglers", "two_tier"])
 def test_packed_run_equals_per_tick_run(host_lib, case):
     """A whole run as run_ticks takes it on the card: the state packed
@@ -226,20 +274,7 @@ def test_packed_run_equals_per_tick_run(host_lib, case):
     cfg, overrides = CASES[case]
     sweep = netsim.make_sweep(cfg, device=DEV, **overrides)
     want = engine.run_ticks(cfg, sweep, per_tick=True)
-    statics = engine._build_statics(cfg, DEV)
-    wl = engine._workload_view(cfg, statics, sweep)
-    tpc = max(1, cfg.n_ticks // cfg.n_chunks)
-    n_chunks = cfg.n_ticks // tpc
-    chunks = nc.ChunkRun(nc.prepare(cfg, statics, sweep, wl),
-                         engine._init_state(cfg, statics, sweep), n_chunks,
-                         launch_fn=_host_launch(host_lib, 2))
-    for _ in range(n_chunks):
-        chunks.step(engine.chunk_inputs(cfg, statics, sweep, chunks, tpc))
-    st = chunks.state()
-    got = engine.RawSimOutput(
-        iter_times=st.iter_times, iter_counts=st.iter_idx,
-        **dict(zip(engine.CHUNK_FIELDS, chunks.traces)), final_state=st)
-    _assert_bitwise(got, want)
+    _assert_bitwise(host_run_ticks(host_lib, cfg, sweep), want)
 
 
 def test_kernel_body_with_one_thread_per_cta(host_lib):
@@ -343,7 +378,8 @@ def test_state_packing_round_trips_bitwise():
     # fresh buffers: the kernel may update them in place
     ptrs = {x.untyped_storage().data_ptr() for x in _leaves(st)
             if isinstance(x, torch.Tensor)}
-    assert not ptrs & {x.untyped_storage().data_ptr() for x in cs}
+    assert not ptrs & {x.untyped_storage().data_ptr() for x in cs
+                       if x is not None}
 
 
 def test_run_and_input_operands_round_trip():
@@ -402,10 +438,11 @@ def test_run_and_input_operands_round_trip():
     for name, t in zip(nc.TRACE_OPERANDS, traces):
         assert ptr[name] == t.data_ptr(), name
     assert ptr["O_FACTORS"] is None and ptr["O_CASSINI"] is None
+    # the unarmed run's detector constants are unread zeros
     np.testing.assert_array_equal(
         np.asarray(scalars, np.float32),
         np.asarray([cfg.dt, 1500.0, 750.0, cfg.buffer_bytes, 17.0,
-                    17 * cfg.dt], np.float32))
+                    17 * cfg.dt] + [0.0] * 6, np.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -431,6 +468,12 @@ def test_operand_lists_match_the_kernel_enums():
             ("Point", nc.POINT_FIELDS, "N_POINT"),
             ("Param", nc.PARAM_FIELDS, "N_PARAM")):
         assert enums[enum] == [n for n, _ in names] + [count], enum
+    assert enums["TelI"] == [n for n, _ in nc.TEL_INT_FIELDS] + ["N_TELI"]
+    assert enums["TelEv"] == [n for n, _ in nc.TEL_EV_FIELDS] + ["N_TELEV"]
+    for _, field in nc.TEL_INT_FIELDS + nc.TEL_EV_FIELDS:
+        assert field in telemetry.TelemetryState._fields, field
+    assert [n for n in nc.DIMS if n.startswith("D_OFF_")] == [
+        f"D_OFF_{p.upper()}" for p in telemetry.BUILTIN_PROBES]
     assert enums["Operand"] == list(nc.OPERANDS) + ["N_OPERAND"]
     assert enums["Dim"] == list(nc.DIMS) + ["N_DIM"]
     assert enums["Scalar"] == list(nc.SCALARS) + ["N_SCALAR"]
@@ -532,6 +575,59 @@ def test_cc_fallback_configs_take_the_per_tick_path(monkeypatch):
         got = engine.run_ticks(cfg, sweep)
     assert ops.CHUNK_FALLBACK_COUNT == before + 1
     _assert_bitwise(got, want)
+
+
+def test_custom_probe_takes_the_counted_per_tick_path(monkeypatch):
+    """A custom probe (a Python callable) runs the per-tick path on a sweep
+    the card would run, counted once per run and warned once; the
+    built-in probes on a built specialization do not."""
+    name = "test_chunk_q_sq"
+    telemetry.register_probe(name, "link", lambda s: s.q_len ** 2,
+                             overwrite=True)
+    base = _cfg(sim_time=4 * DT, n_chunks=2)
+    custom = dataclasses.replace(base, telemetry=telemetry.TelemetrySpec(
+        probes=(name, "link_queue"), stride=1, detectors=()))
+    built = dataclasses.replace(base, telemetry=telemetry.TelemetrySpec())
+    sweep = netsim.make_sweep(custom, device=DEV)
+    assert "Python callable" in ops.chunk_fallback_reason(custom, sweep)
+    assert ops.chunk_fallback_reason(
+        built, netsim.make_sweep(built, device=DEV)) is None
+    monkeypatch.setattr(ops, "on_card", lambda t: True)
+    ops.reset_fallback_warnings()
+    before = ops.CHUNK_FALLBACK_COUNT
+    with pytest.warns(UserWarning, match="Python callable"):
+        got = engine.run_ticks(custom, sweep)
+    assert ops.CHUNK_FALLBACK_COUNT == before + 1
+    _assert_bitwise(got, engine.run_ticks(custom, sweep, per_tick=True))
+    series = got.telemetry.series
+    assert torch.equal(series[name], series["link_queue"] ** 2)
+
+
+@pytest.mark.parametrize("case", ["md", "per_flow_stats", "static_factors"])
+def test_armed_unbuilt_specialization_raises_on_the_card(monkeypatch, case):
+    """Built-in telemetry (or faults) armed on a CC specialization the
+    armed kernel is not built for raises on a sweep the card would run,
+    naming the specialization, and never takes the per-tick path; on the
+    CPU it runs the plain version."""
+    cfg = {"md": lambda: _cfg(variant=2, sim_time=4 * DT, n_chunks=2),
+           "per_flow_stats": lambda: _cfg(
+               proto=dict(aggregate_by_job=False), sim_time=4 * DT,
+               n_chunks=2),
+           "static_factors": lambda: _cfg(
+               sim_time=4 * DT, n_chunks=2,
+               static_job_factors=np.asarray([0.6, -1.0]))}[case]()
+    cfg = dataclasses.replace(cfg, telemetry=telemetry.TelemetrySpec())
+    sweep = netsim.make_sweep(cfg, device=DEV)
+    want = engine.run_ticks(cfg, sweep)                  # the CPU: plain
+    assert int(want.telemetry.n_samples.min()) > 0
+    monkeypatch.setattr(ops, "on_card", lambda t: True)
+    before = ops.CHUNK_FALLBACK_COUNT
+    with pytest.raises(ValueError, match="not built for this CC "
+                                         "specialization"):
+        ops.chunk_fallback_reason(cfg, sweep)
+    with pytest.raises(ValueError, match="armed chunk kernel"):
+        engine.run_ticks(cfg, sweep)
+    assert ops.CHUNK_FALLBACK_COUNT == before
 
 
 def test_run_ticks_equals_the_per_tick_loop_on_cpu():

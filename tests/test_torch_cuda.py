@@ -10,7 +10,11 @@ checks of the ``cuda`` tests in ``test_torch_kernels.py``,
 ``test_torch_chunk.py``, ``test_torch_lm_kernels.py`` and
 ``test_torch_serve.py`` (files that import the reference), plus
 ``run_plan`` on the card: a padded-jobs point equals the same point run
-alone.  Without a card every test skips, with its reason.
+alone; and the armed chunk kernel (telemetry and faults, and the fig 5
+and churn plans' specializations at their widths) against the per-tick
+path, its sketch bins against torch's, and a plan with
+telemetry and a fault-schedule axis on the kernel.  Without a card every
+test skips, with its reason.
 """
 import numpy as np
 import pytest
@@ -27,7 +31,7 @@ from repro_torch.kernels import netsim_chunk as nc
 from repro_torch.kernels import ref
 from repro_torch.kernels import rg_lru as rl
 from repro_torch.models import api
-from repro_torch.netsim import engine, experiment
+from repro_torch.netsim import engine, experiment, telemetry
 
 pytestmark = pytest.mark.cuda
 
@@ -48,6 +52,8 @@ def _leaves(tree):
         return [tree]
     if tree is None:
         return []
+    if isinstance(tree, dict):          # a TelemetryState's probe rings
+        tree = list(tree.values())
     return [x for v in tree for x in _leaves(v)]
 
 
@@ -142,6 +148,142 @@ def test_cuda_chunk_kernel_equals_per_tick_path_bitwise(case):
     assert nc.LAUNCH_COUNT - before == cfg.n_chunks
     want = engine.run_ticks(cfg, sweep, per_tick=True)
     _assert_bitwise(got, want)
+
+
+def _armed_cfg(algo, **kw):
+    """Every built-in probe and detector, all four fault channels, and the
+    sweep overrides of a schedule that uses them (point 0) beside the
+    identity schedule (point 1)."""
+    cfg = _cfg(algo=algo, n_jobs=3, sim_time=0.03, telemetry=(
+        telemetry.TelemetrySpec(probes=telemetry.BUILTIN_PROBES, stride=7,
+                                detectors=telemetry.DETECTORS)),
+        faults=netsim.FaultSpec(n_events=10, churn=True, link_flaps=True,
+                                blackholes=True, straggle_bursts=True), **kw)
+    t = cfg.sim_time
+    sched = netsim.fault_schedule(cfg, [
+        netsim.job_departs(0.2 * t, 2), netsim.job_arrives(0.45 * t, 2),
+        netsim.link_flap(0.3 * t, 0.6 * t, 0, 0.5),
+        netsim.blackhole(0.1 * t, 0.35 * t, [0]),
+        netsim.straggle_burst(0.05 * t, 0.7 * t, 0.5)], spec=cfg.faults)
+    ident = netsim.identity_schedule(cfg, cfg.faults)
+    return cfg, {f: np.stack([sched.values[f], ident.values[f]])
+                 for f in sched.values}
+
+
+@pytest.mark.parametrize("algo", [0, 1, 2])
+def test_cuda_armed_chunk_kernel_equals_per_tick_path_bitwise(algo):
+    cfg, overrides = _armed_cfg(algo, **(RED_ECN if algo == 2 else {}))
+    sweep = netsim.make_sweep(cfg, device="cuda", seed=[3, 5], **overrides)
+    before = nc.LAUNCH_COUNT
+    got = engine.run_ticks(cfg, sweep)
+    assert nc.LAUNCH_COUNT - before == cfg.n_chunks
+    want = engine.run_ticks(cfg, sweep, per_tick=True)
+    _assert_bitwise(got, want)
+    assert int(want.iter_counts.sum()) > 0
+    assert int(want.telemetry.n_samples.min()) > 0
+
+
+# the fig 5 plan's and the churn gauntlet's specializations at their
+# widths: (algo, sockets a job), DCQCN one socket a job
+SUITE_WIDTHS = [(0, 2), (1, 2), (2, 1)]
+
+
+def _suite_cfg(suite, algo, spj, variant):
+    """The fig 5 plan's telemetry alone (its seven probes, stride 75, the
+    default detectors) on 2 jobs, or the churn gauntlet's telemetry and
+    faults on 3 jobs at 100 Gbps, with the sweep overrides of two
+    schedules (points 0 and 1)."""
+    red = RED_ECN if algo == 2 else {}
+    if suite == "fig5":
+        return _cfg(algo=algo, variant=variant, spj=spj, telemetry=(
+            telemetry.TelemetrySpec(
+                probes=("flow_cwnd", "flow_rate", "link_queue",
+                        "link_mark_rate", "job_incomm", "job_iter",
+                        "interleave_overlap"), stride=75)), **red), {}
+    spec = netsim.FaultSpec(n_events=8, churn=True, link_flaps=True,
+                            blackholes=True)
+    cfg = _cfg(algo=algo, variant=variant, n_jobs=3, topo=netsim.dumbbell(
+        3, sockets_per_job=spj, cap_gbps=100.0), telemetry=(
+            telemetry.TelemetrySpec(
+                probes=("interleave_overlap", "job_iter"),
+                detectors=telemetry.DETECTORS, overlap_threshold=0.8,
+                stride=225)), faults=spec, **red)
+    t = cfg.sim_time
+    scheds = [netsim.fault_schedule(cfg, [
+        netsim.job_departs(0.0, job), netsim.job_arrives(0.1 * t, job),
+        netsim.job_departs(0.3 * t, job), netsim.job_arrives(0.4 * t, job),
+        netsim.link_flap(0.5 * t, 0.65 * t, 0, 0.9),
+        netsim.blackhole(0.2 * t, 0.25 * t, [0])], spec=spec)
+        for job in (2, 1)]
+    return cfg, {f: np.stack([sc.values[f] for sc in scheds])
+                 for f in scheds[0].values}
+
+
+@pytest.mark.parametrize("variant", [0, 1])
+@pytest.mark.parametrize("algo,spj", SUITE_WIDTHS)
+@pytest.mark.parametrize("suite", ["fig5", "churn"])
+def test_cuda_suite_armed_kernel_equals_per_tick_path_bitwise(
+        suite, algo, spj, variant):
+    """The armed specializations the fig 5 plan (telemetry alone) and the
+    churn gauntlet (telemetry and faults) run, OFF and WI, at their
+    widths: the chunk kernel equals the per-tick path on every leaf."""
+    cfg, overrides = _suite_cfg(suite, algo, spj, variant)
+    sweep = netsim.make_sweep(cfg, device="cuda", seed=[3, 5], **overrides)
+    before = nc.LAUNCH_COUNT
+    got = engine.run_ticks(cfg, sweep)
+    assert nc.LAUNCH_COUNT - before == cfg.n_chunks
+    want = engine.run_ticks(cfg, sweep, per_tick=True)
+    _assert_bitwise(got, want)
+    assert int(want.iter_counts.sum()) > 0
+    assert int(want.telemetry.n_samples.min()) > 0
+
+
+def test_cuda_sketch_bins_equal_torch():
+    """The kernel's logf and sketch bins against torch.log and
+    `telemetry.sketch_bins` on the card, on 2**22 float32 values spread
+    over and past [sketch_lo, sketch_hi] (chip_smoke.py checks every
+    float32 in the range)."""
+    spec = telemetry.TelemetrySpec()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    x = torch.exp(torch.empty(2 ** 22, device="cuda").uniform_(
+        np.log(1e-6), np.log(1e3), generator=gen))
+    logs, bins = nc.sketch_check(x, spec)
+    assert torch.equal(logs.view(torch.int32),
+                       torch.log(x).view(torch.int32))
+    assert torch.equal(bins, telemetry.sketch_bins(x, spec))
+
+
+def test_cuda_plan_with_telemetry_and_faults_runs_on_the_kernel():
+    """run_plan with a telemetry spec and a fault-schedule axis
+    (``field="*"``): one group, one launch per chunk, no fallback, and the
+    re-interleave detector reports every observed window."""
+    spec = netsim.FaultSpec(n_events=5, churn=True, link_flaps=True)
+
+    def schedule(label):
+        def resolve(cfg):
+            t = cfg.sim_time
+            events = [netsim.job_departs(0.2 * t, 1),
+                      netsim.job_arrives(0.5 * t, 1)]
+            if label == "flap":
+                events.append(netsim.link_flap(0.6 * t, 0.8 * t, 0, 0.5))
+            return netsim.fault_schedule(cfg, events, spec=spec).overrides()
+        return resolve
+    plan = netsim.Plan(name="tele-faults", build=lambda pt: _cfg(
+        sim_time=0.04, faults=spec), axes=(
+        netsim.Axis("schedule", ("churn", "flap"), field="*",
+                    resolve=schedule),
+        netsim.Axis("seed", (3, 4))))
+    tel = telemetry.TelemetrySpec(
+        probes=("interleave_overlap", "job_iter"), stride=10,
+        detectors=("interleave", "iter_sketch", "reinterleave"))
+    before = nc.LAUNCH_COUNT
+    pr = netsim.run_plan(plan, telemetry=tel)
+    assert pr.n_compile_groups == 1 and pr.n_kernel_fallbacks == 0
+    assert nc.LAUNCH_COUNT - before == pr.n_kernel_launches == 10
+    for r in pr:
+        assert r.telemetry.fault_events
+        assert r.telemetry.series["job_iter"].shape[1] == 2
 
 
 # ---------------------------------------------------------------------------

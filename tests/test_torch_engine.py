@@ -112,8 +112,9 @@ def test_one_tick_from_carried_state(algo, variant, ticks):
     got = engine._tick(tcfg, statics, sweep, wl, st, inp)
 
     np.testing.assert_array_equal(got.key[0], np.asarray(want.key))
+    assert got.telemetry is None and want.telemetry is None   # unarmed
     for name in engine.EngineState._fields:
-        if name in ("proto", "key"):
+        if name in ("proto", "key", "telemetry"):
             continue
         g, w = _np(getattr(got, name))[0], np.asarray(getattr(want, name))
         if w.dtype == np.float32:
@@ -147,9 +148,14 @@ def test_state_and_sweep_round_trip_through_numpy():
         jax.tree_util.tree_map(np.asarray, rsweep), device=DEV)
     assert engine.sweep_len(sweep) == 2
     np.testing.assert_array_equal(sweep.seed.numpy(), [1, 2])
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        convert.sweep_from_numpy({**rsweep._asdict(),
-                                  "fault_tick": np.zeros((2, 1))}, device=DEV)
+    # fault leaves carry across with their dtypes; an unknown field raises
+    faulted = convert.sweep_from_numpy({**rsweep._asdict(),
+                                        "fault_tick": np.zeros((2, 1))},
+                                       device=DEV)
+    assert faulted.fault_tick.dtype == torch.int32
+    with pytest.raises(ValueError, match="unknown sweep field"):
+        convert.sweep_from_numpy({**rsweep._asdict(), "bogus": 1.0},
+                                 device=DEV)
 
 
 # ---------------------------------------------------------------------------
@@ -291,10 +297,14 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_unported_options_raise():
+    """Telemetry and faults are ported: a value that is not their spec
+    raises, and fault leaves on an unfaulted config do."""
     _, cfg = _cfgs(sim_time=SHORT)
-    for field, item in (("telemetry", "item 10"), ("faults", "item 11")):
+    for field, kind in (("telemetry", "TelemetrySpec"),
+                        ("faults", "FaultSpec")):
         bad = dataclasses.replace(cfg, **{field: object()})
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(TypeError, match=kind):
             tnet.simulate(bad, device=DEV)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tnet.make_sweep(cfg, device=DEV, fault_tick=[0])
+    with pytest.raises(ValueError, match="needs cfg.faults"):
+        tnet.simulate_sweep(cfg, tnet.make_sweep(cfg, device=DEV,
+                                                 fault_tick=[0]), device=DEV)

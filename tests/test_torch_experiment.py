@@ -16,6 +16,11 @@ JAX reference's, and against their own invariants.
   alone on its own fabric, on every output leaf (active jobs and flows).
 * The cache (resume, quarantine, `prune_cache`, the key's NaN/inf
   handling), `where`, validation errors, ``keep_going`` and the counters.
+* Telemetry and faults: ``run_plan(telemetry=)`` and a ``field="*"``
+  fault-schedule axis group as the reference's do and stack the same fault
+  tables (padded with identity values on a padded fabric); the cache key
+  follows the specs and the schedules; a padded point with both armed
+  equals its unpadded run.
 
 The reference's ``run_plan`` imports lazily, so it runs inside
 ``reference_modules()``.
@@ -69,8 +74,9 @@ def _simple(side, n_jobs=2, sim_time=0.06, seed=3, variant=1, proto=None,
         sim_time=sim_time, dt=DT, seed=seed, **kw)
 
 
-def _suite_cfg(side, topo, profiles, algo, variant, sim_time=0.06, **kw):
-    """benchmarks/common.build_cfg at WORK_SCALE 0.25."""
+def _suite_cfg(side, topo, profiles, algo, variant, sim_time=0.06,
+               scale=0.25, **kw):
+    """benchmarks/common.build_cfg at WORK_SCALE 0.25 (or ``scale``)."""
     core, net, wl, _ = SIDES[side]
     slope, intercept = {0: (1.75, 0.25), 2: (1.067, 0.267)}[algo]
     proto = core.MLTCPConfig(
@@ -80,7 +86,7 @@ def _suite_cfg(side, topo, profiles, algo, variant, sim_time=0.06, **kw):
                                          red_pmax=0.12)
     return net.SimConfig(
         topo=topo, jobs=wl.jobspec_from_profiles(
-            [p.scaled(0.25) for p in profiles]),
+            [p.scaled(scale) for p in profiles]),
         protocol=proto, sim_time=sim_time, dt=DT, seed=1, **{**red, **kw})
 
 
@@ -201,6 +207,80 @@ def plan_factors(side, f_spec="F3"):
         net.Axis("seed", (0, 1))))
 
 
+def _gauntlet(net, cfg, label):
+    """benchmarks/churn.py's two schedules on ``cfg``'s fabric (the churned
+    job and the blackholed flow exist on every fabric of the plans)."""
+    t = cfg.sim_time
+    churn_job, bh_job, arr, dep, rearr, bh, flap = {
+        "gauntlet": (2, 0, 0.08, 0.30, 0.38, (0.18, 0.22),
+                     (0.50, 0.64, 0.88)),
+        "staggered": (1, 0, 0.10, 0.32, 0.40, (0.20, 0.24),
+                      (0.52, 0.66, 0.9))}[label]
+    churn_job = min(churn_job, cfg.jobs.n_jobs - 1)
+    flows = np.nonzero(np.asarray(cfg.topo.flow_to_job) == bh_job)[0]
+    return [net.job_departs(0.0, churn_job),
+            net.job_arrives(arr * t, churn_job),
+            net.job_departs(dep * t, churn_job),
+            net.job_arrives(rearr * t, churn_job),
+            net.link_flap(flap[0] * t, flap[1] * t, 0, flap[2]),
+            net.blackhole(bh[0] * t, bh[1] * t, [int(flows[0])])]
+
+
+def _fault_spec(net):
+    return net.FaultSpec(n_events=8, churn=True, link_flaps=True,
+                         blackholes=True)
+
+
+def _churn_telemetry(net):
+    return net.TelemetrySpec(
+        probes=("interleave_overlap", "job_iter"),
+        detectors=("interleave", "iter_sketch", "reinterleave"),
+        overlap_threshold=0.8, stride=20)
+
+
+def plan_fig5(side):
+    """benchmarks/timeline.py's grid (telemetry stamped by run_plan)."""
+    _, net, wl, _ = SIDES[side]
+
+    def build(pt):
+        algo = {"reno": 0, "dcqcn": 2}[pt["algo"]]
+        return _suite_cfg(side, net.dumbbell(2, sockets_per_job=2 - algo // 2),
+                          [wl.profile_for("gpt2")] * 2, algo,
+                          {"OFF": 0, "WI": 1}[pt["variant"]])
+    return net.Plan(name="fig5", build=build, axes=(
+        net.Axis("algo", ("reno", "dcqcn")),
+        net.Axis("variant", ("OFF", "WI")), net.Axis("seed", (1, 2))))
+
+
+def plan_churn(side, job_counts=(3,), sim_time=0.06, scale=0.25):
+    """benchmarks/churn.py's grid: the schedule a ``field="*"`` axis
+    resolving, per point config, to the schedule's sweep overrides; with
+    several job counts, padded fabrics and padded fault tables."""
+    _, net, wl, _ = SIDES[side]
+
+    def build(pt):
+        algo = {"reno": 0, "dcqcn": 2}[pt["algo"]]
+        n = pt["n_jobs"]
+        return _suite_cfg(side, net.dumbbell(n, sockets_per_job=2 - algo // 2,
+                                             cap_gbps=100.0),
+                          [wl.profile_for("gpt2")] * n, algo,
+                          {"OFF": 0, "WI": 1}[pt["variant"]],
+                          sim_time=sim_time, scale=scale,
+                          faults=_fault_spec(net),
+                          telemetry=_churn_telemetry(net))
+
+    def schedule(label):
+        return lambda cfg: net.fault_schedule(
+            cfg, _gauntlet(net, cfg, label),
+            spec=_fault_spec(net)).overrides()
+    return net.Plan(name="churn", build=build, axes=(
+        net.Axis("algo", ("reno", "dcqcn")),
+        net.Axis("variant", ("OFF", "WI")), net.Axis("n_jobs", job_counts),
+        net.Axis("schedule", ("gauntlet", "staggered"), field="*",
+                 resolve=schedule),
+        net.Axis("seed", (1, 2))))
+
+
 def plan_phases(side):
     """Two-tier jobs whose phase counts differ (P = 1 and 4): the smaller
     point joins the larger fabric's group, column-padded to P_max."""
@@ -233,12 +313,18 @@ PLANS = {
     "factors-F3": (plan_factors, {}),
     "factors-linear": (lambda side: plan_factors(side, "linear"), {}),
     "phases": (plan_phases, {}),
+    "fig5-telemetry": (plan_fig5, lambda side: {"telemetry": SIDES[side][
+        1].TelemetrySpec(probes=("flow_cwnd", "job_incomm",
+                                 "interleave_overlap"), stride=75)}),
+    "churn": (plan_churn, {}),
+    "churn-padded": (lambda side: plan_churn(side, job_counts=(2, 3)), {}),
 }
 
 
 def _grouping(side, name):
     make, kw = PLANS[name]
     plan = make(side)
+    kw = kw(side) if callable(kw) else kw
     points, cfgs, overrides, groups = SIDES[side][3].resolve_plan(plan, **kw)
     summary = [(g.idxs, g.masked, g.factors, g.cassini, g.cfg.jobs.n_jobs,
                 g.cfg.topo.n_flows, g.cfg.jobs.compute.shape[1])
@@ -249,7 +335,8 @@ def _grouping(side, name):
 EXPECTED_GROUPS = {"fig10-reno": 2, "fig10-dcqcn": 2, "fig12": 2, "jobs": 1,
                    "jobs-exact": 3, "mismatch": 2, "values": 1,
                    "values-exact": 2, "f_spec": 2, "solo": 1, "where": 1,
-                   "factors-F3": 2, "factors-linear": 1, "phases": 1}
+                   "factors-F3": 2, "factors-linear": 1, "phases": 1,
+                   "fig5-telemetry": 4, "churn": 4, "churn-padded": 4}
 
 
 @pytest.mark.parametrize("name", sorted(PLANS))
@@ -262,7 +349,7 @@ def test_grouping_equals_the_reference(name):
 
 
 @pytest.mark.parametrize("name", ["fig10-reno", "fig12", "solo", "phases",
-                                  "factors-F3"])
+                                  "factors-F3", "churn-padded"])
 def test_group_sweeps_equal_the_reference(name):
     """Every stacked sweep leaf, value for value (the reference's float64
     configs round to float32 the same way in both)."""
@@ -403,7 +490,7 @@ def test_cache_resumes_and_prunes(tmp_path):
         np.testing.assert_array_equal(a.trace_incomm, b.trace_incomm)
     entries = sorted((tmp_path / "plan-cache").glob("*.pkl"))
     assert len(entries) == 4
-    assert all(p.name.startswith("torch-v1-") for p in entries)
+    assert all(p.name.startswith("torch-v2-") for p in entries)
     # a deleted entry re-simulates just that point; a corrupt one is
     # quarantined (warned once) and re-simulated
     entries[0].unlink()
@@ -414,7 +501,7 @@ def test_cache_resumes_and_prunes(tmp_path):
     assert (tmp_path / "plan-cache" / (entries[1].name + ".corrupt")).exists()
     # pruning: other schemas (the reference's ``v2-`` entries), torn and
     # quarantined files and zero-byte entries go; healthy entries stay
-    for name in ("v2-abc.pkl", "x.pkl.tmp", "torch-v1-empty.pkl"):
+    for name in ("v2-abc.pkl", "x.pkl.tmp", "torch-v2-empty.pkl"):
         (tmp_path / "plan-cache" / name).write_bytes(b"")
     (tmp_path / "plan-cache" / "v2-full.pkl").write_bytes(pickle.dumps(1))
     assert tnet.prune_cache(cache) == 5
@@ -425,7 +512,7 @@ def test_cache_resumes_and_prunes(tmp_path):
 def test_cache_key_of_another_package_never_matches():
     cfg = _simple("port")
     key = texp._point_cache_key(cfg, {"seed": 1})
-    assert texp._cache_path("d", key).endswith(f"torch-v1-{key}.pkl")
+    assert texp._cache_path("d", key).endswith(f"torch-v2-{key}.pkl")
     assert key != rexp._point_cache_key(_simple("ref"), {"seed": 1})
     # a tensor override keys as its numpy array
     assert key == texp._point_cache_key(cfg, {"seed": torch.tensor(1)})
@@ -510,16 +597,19 @@ def test_plan_validation():
 
 
 def test_not_ported_options_name_their_roadmap_items():
+    """Telemetry and fault axes are ported (ROADMAP items 10 and 11): a
+    telemetry that is not a spec raises, and fault leaves on a config
+    without ``faults`` do, naming what is missing."""
     plan = _tiny_plan()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="TelemetrySpec"):
         tnet.run_plan(plan, device=DEV, telemetry=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="TelemetrySpec"):
         texp.resolve_plan(plan, telemetry=object())
     fault_axis = tnet.Axis("when", (1,), field="fault_tick")
     assert fault_axis.is_dynamic()
     for axis in (fault_axis, tnet.Axis("sched", ("a",), field="*",
                                        resolve=lambda v: {"fault_tick": 1})):
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(ValueError, match="needs cfg.faults"):
             tnet.run_plan(tnet.Plan(name="faults", axes=(axis,),
                                     build=lambda pt: _simple("port")),
                           device=DEV)
@@ -579,3 +669,95 @@ def test_counters_and_shard_on_the_cpu():
         assert texp._shard_sweep(sweep, 2, shard) == (sweep, 2)
     summary = pr.profile.summary()
     assert summary["n_groups"] == 1 and summary["trace_s"] == 0.0
+
+
+# ---------------------------------------------------------------------------
+# telemetry and faults on plans
+# ---------------------------------------------------------------------------
+
+def test_cache_key_follows_telemetry_and_faults():
+    cfg = _simple("port")
+    spec = tnet.TelemetrySpec(stride=50)
+    keys = {texp._point_cache_key(c, ov) for c, ov in (
+        (cfg, {}),
+        (dataclasses.replace(cfg, telemetry=spec), {}),
+        (dataclasses.replace(cfg, telemetry=tnet.TelemetrySpec(stride=51)),
+         {}),
+        (dataclasses.replace(cfg, faults=_fault_spec(tnet)), {}))}
+    assert len(keys) == 4
+    faulted = dataclasses.replace(cfg, faults=_fault_spec(tnet), sim_time=1.0)
+    a, b = (tnet.fault_schedule(faulted, _gauntlet(tnet, faulted, label),
+                                spec=_fault_spec(tnet)).overrides()
+            for label in ("gauntlet", "staggered"))
+    assert (texp._point_cache_key(faulted, a)
+            != texp._point_cache_key(faulted, b))
+    assert texp._point_cache_key(faulted, a) == texp._point_cache_key(
+        faulted, {k: v.copy() for k, v in a.items()})
+
+
+def test_padded_point_equals_unpadded_run_with_telemetry_and_faults():
+    """A 2-job point of the padded churn plan (telemetry and faults armed,
+    its fault tables padded to the 3-job fabric) equals the point run
+    alone: every non-telemetry leaf on its active jobs and flows, and the
+    collected telemetry (the pair EWMAs are indexed by pairs, so they are
+    compared through what they yield)."""
+    plan = plan_churn("port", job_counts=(2, 3), sim_time=0.03, scale=0.05)
+    points, cfgs, overrides, groups = texp.resolve_plan(plan)
+    i = next(i for i, pt in enumerate(points)
+             if pt["n_jobs"] == 2 and pt["algo"] == "reno"
+             and pt["variant"] == "WI" and pt["schedule"] == "staggered")
+    group = next(g for g in groups if i in g.idxs)
+    assert group.masked and group.cfg.jobs.n_jobs == 3
+    padded = tnet.simulate_sweep(
+        group.cfg, texp.group_sweep(cfgs, overrides, group, device=DEV),
+        device=DEV)
+    slot = group.idxs.index(i)
+    alone = tnet.simulate_sweep(cfgs[i], tnet.make_sweep(
+        cfgs[i], device=DEV, **overrides[i]), device=DEV)
+    strip = dict(telemetry=None)
+    got = [x[slot] for x in _leaves(padded._replace(
+        final_state=padded.final_state._replace(**strip), **strip))]
+    want = [x[0] for x in _leaves(alone._replace(
+        final_state=alone.final_state._replace(**strip), **strip))]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g = np.asarray(g)[tuple(slice(0, n) for n in w.shape)]
+        assert np.array_equal(np.array(g).reshape(-1).view(np.uint8),
+                              np.array(w).reshape(-1).view(np.uint8))
+    rp = tnet.postprocess(cfgs[i], engine.point_of(padded, slot), n_jobs=2)
+    ra = tnet.postprocess(cfgs[i], engine.point_of(alone, 0))
+    tp, ta = rp.telemetry, ra.telemetry
+    assert np.array_equal(tp.ticks, ta.ticks)
+    for name in ta.series:
+        assert np.array_equal(tp.series[name], ta.series[name]), name
+    assert np.array_equal(tp.iter_hist, ta.iter_hist)
+    for f in ("time_to_interleave_s", "interleave_stability", "converged"):
+        assert getattr(tp, f) == getattr(ta, f), f
+    assert tp.fault_events == ta.fault_events
+    assert int(np.asarray(alone.iter_counts).sum()) > 0
+
+
+def test_telemetry_plan_matches_the_reference():
+    """run_plan(telemetry=) through both packages on a short churn plan
+    (reno, WI, one schedule): the same groups, iteration counts exact, the
+    re-interleave reports' windows equal."""
+    def plan(side):
+        _, net, _, _ = SIDES[side]
+        full = plan_churn(side, sim_time=0.06)
+        return net.Plan(name="churn-short", build=full.build,
+                        axes=tuple(ax for ax in full.axes if ax.name != "algo"
+                                   and ax.name != "variant"
+                                   and ax.name != "seed")
+                        + (net.Axis("algo", ("reno",)),
+                           net.Axis("variant", ("WI",)),
+                           net.Axis("seed", (1,))))
+    with reference_modules():
+        want = rnet.run_plan(plan("ref"), shard=False)
+    got = tnet.run_plan(plan("port"), device=DEV)
+    assert got.n_compile_groups == want.n_compile_groups == 1
+    for g, r in zip(got, want):
+        assert g.point.axes == r.point.axes
+        assert [len(x) for x in g.iter_times] == \
+            [len(x) for x in r.iter_times]
+        assert [e.start_tick for e in g.telemetry.fault_events] == \
+            [e.start_tick for e in r.telemetry.fault_events]
