@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
 (one nvcc per source, all started together; sm_90a, into
-``build/kernels/``) and drives three paths:
+``build/kernels/``) and drives these paths:
 
 * the simulator: it holds the fused CC-tick kernel bit for bit against its
   plain PyTorch version for every specialization, holds the chunk kernel
@@ -54,6 +54,22 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   prompt, 16 new tokens, random weights from seed 0) through
   ``repro_torch.launch.serve`` and holds that prefill against the
   plain-path prefill of the same prompt.
+* training: it holds both LM kernels' backward passes against autograd
+  through their plain versions, bit for bit (the RG-LRU reverse scan on
+  the training shape, bf16, ragged and unaligned operands, T = 1, h0;
+  flash's recomputed dense VJP, with the flash forward of the same cases,
+  the training shape among them, within its tolerance), holds the loss
+  and gradients of recurrentgemma-2b at full width cut to one group of
+  its pattern (T = 4096) on the kernel path against the plain path,
+  trains the full 26-block model eight steps of 1 x 4096 tokens through
+  ``repro_torch.launch.train`` (f32 parameters and AdamW moments, remat),
+  counting 16 flash and 52 RG-LRU launches a step and no plain-path call,
+  reports the first step and the spread of steps 2-7, profiles one warm
+  step, and resumes a smoke-preset run from a checkpoint;
+* the shared-cluster driver: ``repro_torch.cluster.simulate_shared_cluster``
+  at the defaults of ``examples/simulate_cluster.py`` (two qwen3-1.7b jobs
+  and an olmo-1b job, DCQCN, default against MLTCP, 4 s) through
+  ``run_plan`` and the chunk kernel.
 
 ``--probe KERNEL`` (``flash_attention`` or ``rg_lru``; ``--probe-flash``
 is ``--probe flash_attention``) is the short first call after a change to
@@ -73,6 +89,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1978,31 +1995,6 @@ def rglru_checks(call, ref, rl, gen) -> list:
     return checks
 
 
-def kernels_refuse_grad(fa, rl) -> bool:
-    """Both serving kernels have no backward pass: on the card their
-    wrappers raise, and launch nothing, for inputs that need a gradient;
-    raises unless they do."""
-    import torch
-
-    x = torch.rand((2, 9, 16), device=DEVICE, requires_grad=True)
-    q = torch.rand((1, 8, 2, 64), device=DEVICE, requires_grad=True)
-    kv = torch.rand((1, 8, 1, 64), device=DEVICE)
-    before = (rl.LAUNCH_COUNT, fa.LAUNCH_COUNT)
-    for call in (lambda: rl.rg_lru(x, x.detach()),
-                 lambda: fa.flash_attention(q, kv, kv)):
-        try:
-            call()
-        except RuntimeError as e:
-            if "no backward pass" not in str(e):
-                raise
-        else:
-            raise AssertionError("a kernel wrapper took an input that needs "
-                                 "a gradient")
-    if (rl.LAUNCH_COUNT, fa.LAUNCH_COUNT) != before:
-        raise AssertionError("a refused input was launched")
-    return True
-
-
 def rglru_attributes(rl) -> dict:
     """Registers, spills, static and dynamic shared memory of every RG-LRU
     specialization, from the runtime; raises if any of them spills."""
@@ -2163,7 +2155,6 @@ def phase_lm_kernels(fa, rl, ref) -> dict:
     del a, x
     torch.cuda.empty_cache()
     out = dict(rg_lru_checks=rg_checks, flash_checks=fl_checks,
-               grad_refused=kernels_refuse_grad(fa, rl),
                flash_f32_max_abs_err=max(c["max_abs_err"] for c in fl_checks
                                          if c["tol"] == FLASH_TOL["float32"]),
                flash_bf16_max_abs_err=max(c["max_abs_err"] for c in fl_checks
@@ -2362,6 +2353,463 @@ def phase_serve(fa, rl, kern) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# training: the kernels' backward passes, the training step, resume
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "recurrentgemma-2b"
+# 1 x 4096 tokens: beyond the 2048-token window, so the local mask works
+TRAIN_BATCH, TRAIN_SEQ = 1, 4096
+# step 0 is the first (allocator and kernel warm-up); steps TRAIN_WARM_FROM
+# .. TRAIN_STEPS - 1 are the warm window whose spread the step time's
+# bound has to stand on
+TRAIN_STEPS, TRAIN_WARM_FROM = 8, 2
+# per step with remat: 8 groups of (rec, rec, attn_local) and 2 tail rec
+# blocks; flash: 8 forward + 8 recomputed; RG-LRU: 18 forward + 16
+# recomputed + 18 reverse scans
+TRAIN_LAUNCHES_PER_STEP = {"flash_attention": 16, "rg_lru": 52}
+# the dense attention's VJP per flash layer in the backward pass
+TRAIN_FLASH_VJPS_PER_STEP = 8
+TRAIN_DEPTH_CUT_LAYERS = 3            # one group of block_pattern
+TRAIN_REL_BOUND = SERVE_REL_BOUND     # kernel path vs plain path
+RESUME_STEPS, RESUME_AT, RESUME_SEQ, RESUME_BATCH = 4, 2, 64, 2
+RESUME_BOUND = 1e-6
+# (B, T, D, dtype, h0, offset bytes of a): the training shape, bf16, a
+# ragged D (general route), an operand 4 bytes off, T = 1, h0
+RGLRU_GRAD_CASES = [
+    (TRAIN_BATCH, TRAIN_SEQ, 2560, "float32", False, 0),
+    (TRAIN_BATCH, TRAIN_SEQ, 2560, "float32", True, 0),
+    (2, 77, 136, "bfloat16", True, 0),
+    (3, 33, 130, "float32", True, 0),
+    (2, 70, 256, "float32", False, 4),
+    (2, 1, 2560, "float32", True, 0),
+    (2, 1, 2560, "bfloat16", False, 0),
+]
+TRAIN_FLASH_CASE = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 10, 1, 256, True,
+                    2048, None, "float32")
+FLASH_GRAD_CASES = [TRAIN_FLASH_CASE,
+                    (2, 100, 100, 4, 2, 64, True, 0, 50.0, "float32"),
+                    (1, 77, 77, 2, 1, 64, True, 16, None, "bfloat16")]
+
+
+def grad_checks(fa, rl, ref, gen) -> dict:
+    """(a) The kernels' backward passes on the card: the RG-LRU reverse
+    scan's (da, db, dh0) equal autograd through the sequential plain loop
+    bit for bit.  Flash's backward is the dense attention's VJP itself, so
+    its gradients' equality with autograd through ``ref_attention`` checks
+    only the plumbing (saved operands, options, dtypes); the kernel is held
+    by its forward output in the same case, within FLASH_TOL of
+    ``ref_attention``.  Raises otherwise.  Times both backward passes at
+    the training shape."""
+    import torch
+
+    rg = []
+    for b, t, d, dtype, with_h0, offset in RGLRU_GRAD_CASES:
+        tdt = _tdtype(dtype)
+        skip = offset // tdt.itemsize
+        a = torch.empty(skip + b * t * d, dtype=tdt, device=DEVICE
+                        )[skip:].view(b, t, d)
+        a.copy_(torch.rand((b, t, d), generator=gen, device=DEVICE) * 0.79
+                + 0.2)
+        x, g = (torch.randn((b, t, d), generator=gen, device=DEVICE).to(tdt)
+                for _ in range(2))
+        ins = [a, x] + ([torch.randn((b, d), generator=gen, device=DEVICE
+                                     ).to(tdt)] if with_h0 else [])
+        mine = [v.detach().requires_grad_(True) for v in ins]
+        before = rl.LAUNCH_COUNT
+        got = torch.autograd.grad(rl.rg_lru(*mine), mine, g)
+        launches = rl.LAUNCH_COUNT - before
+        theirs = [v.detach().clone().requires_grad_(True) for v in ins]
+        want = torch.autograd.grad(ref.ref_rg_lru(*theirs), theirs, g)
+        torch.cuda.synchronize()
+        # torch.equal: autograd's sum over the slices of a turns da_0 =
+        # gh_0 * 0 into +0 where the reverse scan's product keeps -0
+        for name, x_got, x_want in zip(("da", "db", "dh0"), got, want):
+            if not torch.equal(x_got, x_want):
+                raise AssertionError(f"rg_lru backward {name} != autograd "
+                                     f"through the plain loop at "
+                                     f"{(b, t, d)} {dtype} h0={with_h0}")
+        if launches != 2:
+            raise AssertionError(f"rg_lru forward + backward launched "
+                                 f"{launches}, expected 2")
+        rg.append(dict(shape=[b, t, d], dtype=dtype, h0=with_h0,
+                       offset_bytes=offset, bitwise=True, launches=launches))
+        del a, x, g, ins, mine, theirs, got, want
+
+    fl = []
+    for case in FLASH_GRAD_CASES:
+        *_, causal, window, cap, dtype = case
+        q, k, v = flash_operands(case, gen)
+        g = torch.randn(q.shape, generator=gen, device=DEVICE).to(q.dtype)
+        opts = dict(causal=causal, window=window, softcap=cap)
+        mine = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        before = fa.LAUNCH_COUNT
+        out = fa.flash_attention(*mine, **opts)
+        got = torch.autograd.grad(out, mine, g)
+        launches = fa.LAUNCH_COUNT - before
+        theirs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        ref_out = ref.ref_attention(*theirs, **opts)
+        want = torch.autograd.grad(ref_out, theirs, g)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dtype]
+        out, ref_out = out.detach().float(), ref_out.detach().float()
+        fwd_err = float((out - ref_out).abs().max())
+        if not torch.allclose(out, ref_out, atol=tol, rtol=tol):
+            raise AssertionError(f"flash forward vs ref_attention outside "
+                                 f"{tol} at {case}: max |diff| {fwd_err}")
+        for name, x_got, x_want in zip("qkv", got, want):
+            if not torch.equal(x_got, x_want):
+                err = float((x_got.float() - x_want.float()).abs().max())
+                raise AssertionError(f"flash backward d{name} != autograd "
+                                     f"through ref_attention at {case}: "
+                                     f"max |diff| {err}")
+        if launches != 1:
+            raise AssertionError(f"flash forward + backward launched "
+                                 f"{launches}, expected 1")
+        fl.append(dict(case=list(case), forward_max_abs_err=fwd_err,
+                       forward_tol=tol, backward_equals_dense_vjp=True,
+                       launches=launches))
+        del q, k, v, g, mine, theirs, out, ref_out, got, want
+
+    # the backward passes' times at the training shape, beside their bounds
+    b, t, d = TRAIN_BATCH, TRAIN_SEQ, 2560
+    a = torch.rand((b, t, d), generator=gen, device=DEVICE) * 0.79 + 0.2
+    x, g = (torch.randn((b, t, d), generator=gen, device=DEVICE)
+            for _ in range(2))
+    ar = a.requires_grad_(True)
+    h = rl.rg_lru(ar, x.requires_grad_(True))
+    backward = lambda: torch.autograd.grad(  # noqa: E731
+        h, (ar, x), g, retain_graph=True)
+    scan_only = lambda: rl.reverse_scan(a, g)  # noqa: E731
+    scan_b_ms, scan_b_by, scan_bytes = rglru_bound(b, t, d)
+    # the backward reads a, h and g and writes da and db
+    bwd_bytes = 5 * 4 * b * t * d
+    rg_timing = dict(
+        shape=[b, t, d], backward_ms=event_ms(backward, 10),
+        reverse_scan_ms=event_ms(scan_only, 10),
+        reverse_scan_device_ms=device_ms(scan_only, 10),
+        backward_bound_ms=1e3 * bwd_bytes / HBM_BYTES_PER_S,
+        backward_bytes=bwd_bytes, scan_bound_ms=scan_b_ms,
+        scan_bound_by=scan_b_by, scan_bytes=scan_bytes,
+        plain_backward_ms=None)
+    theirs = [v.detach().clone().requires_grad_(True) for v in (a, x)]
+    h_plain = ref.ref_rg_lru(*theirs)
+    rg_timing["plain_backward_ms"] = event_ms(
+        lambda: torch.autograd.grad(h_plain, theirs, g, retain_graph=True),
+        2, warm=1)
+    del a, x, g, ar, h, theirs, h_plain
+
+    bq, tq, s, hq, kv, dh, causal, window, _, _ = TRAIN_FLASH_CASE
+    q, k, v = flash_operands(TRAIN_FLASH_CASE, gen)
+    gq = torch.randn(q.shape, generator=gen, device=DEVICE)
+    mine = [z.requires_grad_(True) for z in (q, k, v)]
+    out = fa.flash_attention(*mine, causal=causal, window=window)
+    f_b_ms, f_b_by, flop, nbytes = flash_bound(bq, tq, s, hq, kv, dh, causal,
+                                               window)
+    # the backward of the same masked pairs: s = q.k recomputed, dp = do.v,
+    # dv = p^T do, dq = ds k, dk = ds^T q: 5 products against the forward's
+    # 2; q, k, v, o and do read, dq, dk and dv written
+    bwd_flop = flop * 5 // 2
+    bwd_bytes = 4 * (4 * bq * tq * hq * dh + 4 * bq * s * kv * dh)
+    fl_timing = dict(
+        shape=[bq, tq, s, hq, kv, dh], window=window,
+        dense_vjp_ms=event_ms(lambda: torch.autograd.grad(
+            out, mine, gq, retain_graph=True), 5),
+        forward_ms=event_ms(lambda: fa.flash_attention(
+            q, k, v, causal=causal, window=window), 5),
+        backward_flop=bwd_flop, backward_bytes=bwd_bytes,
+        backward_bound_ms=1e3 * max(bwd_flop / F32_OPS_PER_S,
+                                    bwd_bytes / HBM_BYTES_PER_S),
+        backward_bound_by=("operations" if bwd_flop / F32_OPS_PER_S
+                           >= bwd_bytes / HBM_BYTES_PER_S else "bytes"),
+        route="dense VJP of ref_attention (torch ops), as the reference's "
+              "custom_vjp")
+    del q, k, v, gq, mine, out
+    torch.cuda.empty_cache()
+    return dict(rg_lru_checks=rg, flash_checks=fl, rg_lru=rg_timing,
+                flash=fl_timing)
+
+
+def _grad_rel(got: dict, want: dict) -> tuple[str, float]:
+    """The leaf with the largest max |got - want| over its max |want|."""
+    worst = ("", 0.0)
+    for name, w in want.items():
+        scale = float(w.abs().max()) or 1.0
+        rel = float((got[name] - w).abs().max()) / scale
+        worst = max(worst, (name, rel), key=lambda x: x[1])
+    return worst
+
+
+def depth_cut_check(fa, rl) -> dict:
+    """(b) recurrentgemma-2b at full width cut to one group of its pattern
+    (3 blocks), T = 4096: the loss and every gradient on the kernel path
+    (the API's default on the card) against the plain path."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.train import TrainHyper, init_train_state, loss_fn
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_DEPTH_CUT_LAYERS)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    state = init_train_state(cfg, TrainHyper(), gen, DEVICE)
+    batch = synthetic_batch(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                       global_batch=TRAIN_BATCH), 0, DEVICE)
+    params = dict(state.model.named_parameters())
+    out = {}
+    for label, use_kernel in (("kernel", None), ("plain", False)):
+        before = (fa.LAUNCH_COUNT, rl.LAUNCH_COUNT)
+        loss, _ = loss_fn(cfg, state.model, batch,
+                          TrainHyper(use_kernel=use_kernel))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        out[label] = (float(loss.detach()), dict(zip(params, grads)),
+                      (fa.LAUNCH_COUNT - before[0],
+                       rl.LAUNCH_COUNT - before[1]))
+        del loss, grads
+    (lk, gk, nk), (lp, gp, np_) = out["kernel"], out["plain"]
+    # one group: flash 1 + 1 recomputed; RG-LRU 2 + 2 recomputed + 2 reverse
+    if nk != (2, 6) or np_ != (0, 0):
+        raise AssertionError(f"depth-cut launches kernel {nk}, plain {np_}: "
+                             f"expected (2, 6) and (0, 0)")
+    loss_rel = abs(lk - lp) / abs(lp)
+    worst = _grad_rel(gk, gp)
+    if not (loss_rel <= TRAIN_REL_BOUND and worst[1] <= TRAIN_REL_BOUND):
+        raise AssertionError(f"depth-cut kernel vs plain: loss {loss_rel}, "
+                             f"gradient {worst} over {TRAIN_REL_BOUND}")
+    if not all(bool(torch.isfinite(g).all()) for g in gk.values()):
+        raise AssertionError("non-finite gradient on the kernel path")
+    del out, gk, gp, state, params, batch
+    torch.cuda.empty_cache()
+    return dict(layers=TRAIN_DEPTH_CUT_LAYERS, seq=TRAIN_SEQ,
+                loss_kernel=lk, loss_plain=lp, loss_rel_diff=loss_rel,
+                worst_grad=dict(leaf=worst[0], rel_diff=worst[1]),
+                rel_bound=TRAIN_REL_BOUND, launches_kernel=list(nk))
+
+
+def plain_calls():
+    """Count the model's plain paths (`attention.attend`,
+    `rglru.scan_rg_lru`) and the kernels' plain versions as the wrappers
+    reach them (`ref_rg_lru`, `ref_attention`: the latter only as flash's
+    backward VJP on the card); returns (counts, undo)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rg_lru as rl
+    from repro_torch.models import attention, rglru
+
+    counts = {}
+    saved = []
+    for mod, name in ((attention, "attend"), (rglru, "scan_rg_lru"),
+                      (rl, "ref_rg_lru"), (fa, "ref_attention")):
+        fn = getattr(mod, name)
+        counts[name] = 0
+
+        def wrapped(*args, _fn=fn, _name=name, **kw):
+            counts[_name] += 1
+            return _fn(*args, **kw)
+        setattr(mod, name, wrapped)
+        saved.append((mod, name, fn))
+
+    def undo():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return counts, undo
+
+
+def resume_check() -> dict:
+    """(d) Checkpoint and resume on the card at the smoke preset: training
+    to step 4 straight against training to 2, saving, and resuming to 4,
+    compared at step 4's loss.  Deterministic algorithms are on for this
+    check: the embedding's backward (an indexed accumulate) otherwise
+    sums with atomics, in an order that changes from run to run."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch.train import train
+
+    ckpt = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(steps=RESUME_STEPS, seq_len=RESUME_SEQ, batch=RESUME_BATCH,
+              preset="smoke", log_every=1000)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            straight = train(TRAIN_ARCH, **kw)
+            first = train(TRAIN_ARCH, **dict(kw, steps=RESUME_AT),
+                          ckpt_dir=ckpt, ckpt_every=RESUME_AT)
+            resumed = train(TRAIN_ARCH, **kw, ckpt_dir=ckpt, resume=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    diff = abs(resumed["losses"][-1] - straight["losses"][-1])
+    if resumed["steps"] != RESUME_STEPS - RESUME_AT or diff >= RESUME_BOUND:
+        raise AssertionError(f"resumed loss at step {RESUME_STEPS} differs by "
+                             f"{diff} (bound {RESUME_BOUND}), "
+                             f"{resumed['steps']} steps run")
+    if first["losses"] != straight["losses"][:RESUME_AT]:
+        raise AssertionError("the first two steps differ between two runs")
+    return dict(steps=RESUME_STEPS, saved_at=RESUME_AT, seq=RESUME_SEQ,
+                batch=RESUME_BATCH, straight_losses=straight["losses"],
+                resumed_losses=resumed["losses"], loss_abs_diff=diff,
+                bound=RESUME_BOUND, deterministic_algorithms=True)
+
+
+def phase_train(fa, rl, ref, kern) -> dict:
+    """Training on the card: (a) the backward checks, (b) the depth-cut
+    kernel path against the plain path, (c) recurrentgemma-2b at full
+    width and depth, TRAIN_STEPS steps through ``launch.train``, counted
+    and profiled, (d) checkpoint and resume."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch.train import train
+    from repro_torch.train import (TrainHyper, init_train_state,
+                                   make_train_step)
+
+    ms, nc, ops = kern["ms"], kern["nc"], kern["ops"]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(21)
+    grads = grad_checks(fa, rl, ref, gen)
+    depth_cut = depth_cut_check(fa, rl)
+
+    # (c) the main path of this slice: counts to 0 just before, read after
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plain, undo = plain_calls()
+    fa.LAUNCH_COUNT = rl.LAUNCH_COUNT = ms.LAUNCH_COUNT = nc.LAUNCH_COUNT = 0
+    ops.FALLBACK_COUNT = ops.CHUNK_FALLBACK_COUNT = 0
+    t0 = time.time()
+    try:
+        out = train(TRAIN_ARCH, steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
+                    batch=TRAIN_BATCH, preset="full", seed=0, log_every=1)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    seconds = time.time() - t0
+    launches = dict(flash_attention=fa.LAUNCH_COUNT, rg_lru=rl.LAUNCH_COUNT,
+                    mltcp_step=ms.LAUNCH_COUNT, netsim_chunk=nc.LAUNCH_COUNT,
+                    fallbacks=ops.FALLBACK_COUNT + ops.CHUNK_FALLBACK_COUNT)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: TRAIN_STEPS * n for k, n in TRAIN_LAUNCHES_PER_STEP.items()}
+    want.update(mltcp_step=0, netsim_chunk=0, fallbacks=0)
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, expected {want}")
+    want_plain = dict(attend=0, scan_rg_lru=0, ref_rg_lru=0,
+                      ref_attention=TRAIN_STEPS * TRAIN_FLASH_VJPS_PER_STEP)
+    if plain != want_plain:
+        raise AssertionError(f"plain-path calls {plain}, expected "
+                             f"{want_plain}")
+    finite = all(map(math.isfinite, out["losses"] + out["grad_norms"]))
+    if not finite or out["steps"] != TRAIN_STEPS:
+        raise AssertionError(f"training gave losses {out['losses']}, "
+                             f"gradient norms {out['grad_norms']}")
+    cfg = get_config(TRAIN_ARCH)
+    step_ms = [s * 1e3 for s in out["step_s"]]
+    warm = step_ms[TRAIN_WARM_FROM:]
+    warm_ms = statistics.median(warm)
+
+    # where a warm step's time goes: a fresh state, one step, one profiled
+    hyper = TrainHyper(warmup=max(TRAIN_STEPS // 20, 5),
+                       total_steps=TRAIN_STEPS)
+    gen.manual_seed(0)
+    state = init_train_state(cfg, hyper, gen, DEVICE)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    step_fn = make_train_step(cfg, hyper)
+    batch = synthetic_batch(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                       global_batch=TRAIN_BATCH), 0, DEVICE)
+    box = {"state": step_fn(state, batch)[0]}
+    del state
+
+    def one_step():
+        box["state"] = step_fn(box["state"], batch)[0]
+    prof = profile_top(one_step, ("flash_kernel", "rg_lru_kernel"), n=10)
+    del box
+    torch.cuda.empty_cache()
+
+    resume = resume_check()
+    res = dict(
+        arch=TRAIN_ARCH, preset="full", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=TRAIN_STEPS, seed=0, params=n_params,
+        param_gb=n_params * 4 / 1e9, dtype="float32", remat=True,
+        launches=launches,
+        launches_per_step={k: launches[k] / TRAIN_STEPS
+                           for k in TRAIN_LAUNCHES_PER_STEP},
+        plain_calls=plain, seconds_total=seconds, step_ms=step_ms,
+        first_step_ms=step_ms[0], warm_from_step=TRAIN_WARM_FROM,
+        warm_step_ms=warm_ms, warm_step_min_ms=min(warm),
+        warm_step_max_ms=max(warm),
+        warm_step_spread=(max(warm) - min(warm)) / warm_ms,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (warm_ms * 1e-3),
+        peak_memory_gb=peak_gb, losses=out["losses"],
+        grad_norms=out["grad_norms"], warm_step_profile=prof,
+        depth_cut=depth_cut, grad_checks=grads, resume=resume)
+    emit("train_main_path", **res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the shared-cluster driver
+# ---------------------------------------------------------------------------
+
+CLUSTER_JOBS = ["qwen3-1.7b", "qwen3-1.7b", "olmo-1b"]   # the example's
+CLUSTER_WORK_SCALE = 0.05
+CLUSTER_SIM_TIME = 4.0
+
+
+def phase_cluster(kern) -> dict:
+    """``cluster.simulate_shared_cluster`` at the defaults of
+    ``examples/simulate_cluster.py`` (DCQCN, default against MLTCP-WI,
+    4 s, seed 0), through ``run_plan`` and the chunk kernel, counted."""
+    import torch
+
+    from repro_torch import cluster
+    from repro_torch.configs import get_config
+
+    ms, nc, ops = kern["ms"], kern["nc"], kern["ops"]
+    profiles = {a: cluster.profile_from_arch(get_config(a))
+                for a in dict.fromkeys(CLUSTER_JOBS)}
+    torch.cuda.synchronize()
+    ms.LAUNCH_COUNT = nc.LAUNCH_COUNT = 0
+    ops.FALLBACK_COUNT = ops.CHUNK_FALLBACK_COUNT = 0
+    t0 = time.time()
+    rep = cluster.simulate_shared_cluster(CLUSTER_JOBS)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(netsim_chunk=nc.LAUNCH_COUNT, mltcp_step=ms.LAUNCH_COUNT,
+                    fallbacks=ops.FALLBACK_COUNT + ops.CHUNK_FALLBACK_COUNT)
+    values = (rep.baseline_avg + rep.mltcp_avg
+              + [rep.avg_speedup, rep.p99_speedup, rep.interleave_before,
+                 rep.interleave_after])
+    if (launches["netsim_chunk"] == 0 or launches["fallbacks"]
+            or launches["mltcp_step"] or not all(map(math.isfinite, values))):
+        raise AssertionError(f"cluster run: launches {launches}, values "
+                             f"{values}")
+    res = dict(
+        jobs=CLUSTER_JOBS, algo="dcqcn", sim_time=CLUSTER_SIM_TIME, seed=0,
+        work_scale=CLUSTER_WORK_SCALE, hw="h100-sxm5-80gb (data sheet)",
+        ticks_per_point=round(CLUSTER_SIM_TIME / DT),
+        profiles={a: dict(comm_bytes=p.comm_bytes, compute_s=p.compute_s,
+                          scaled_comm_bytes=[b * CLUSTER_WORK_SCALE
+                                             for b in p.comm_bytes],
+                          scaled_compute_s=[c * CLUSTER_WORK_SCALE
+                                            for c in p.compute_s])
+                  for a, p in profiles.items()},
+        baseline_avg_iter_s=rep.baseline_avg, mltcp_avg_iter_s=rep.mltcp_avg,
+        avg_speedup=rep.avg_speedup, p99_speedup=rep.p99_speedup,
+        interleave_before=rep.interleave_before,
+        interleave_after=rep.interleave_after, launches=launches,
+        seconds=seconds)
+    emit("cluster", **res)
+    return res
+
+
 def armed_attributes(nc, netsim, core, workload) -> dict:
     """Registers, spills and static shared memory of each armed
     specialization, and the dynamic shared memory of the armed plans'
@@ -2389,7 +2837,8 @@ def armed_attributes(nc, netsim, core, workload) -> dict:
 
 def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
                  timing: dict, prof: dict, plans: dict, lm: dict,
-                 served: dict, armed: dict, tel: dict, flt: dict) -> list:
+                 served: dict, armed: dict, tel: dict, flt: dict,
+                 trained: dict, clustered: dict) -> list:
     main_row = next(r for r in kern["main_shape"] if r["algo"] == 0)
     serve_attrs = lm["flash"]["attributes"]["float32_d256"]
     rg_attrs = lm["rg_lru"]["attributes"][
@@ -2439,6 +2888,8 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
         # specializations, and fig7-reno armed against unarmed
         "armed_plan_launches": {"fig5": tel["launches"]["netsim_chunk"],
                                 "churn": flt["launches"]["netsim_chunk"]},
+        # the shared-cluster driver's run (default and MLTCP, 4 s each)
+        "cluster_launches": clustered["launches"]["netsim_chunk"],
         "armed": armed,
         "armed_us_per_tick": tel["fig7_reno"]["armed_us_per_tick"],
         "unarmed_us_per_tick": tel["fig7_reno"]["unarmed_us_per_tick"],
@@ -2484,6 +2935,12 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
         "spill_bytes": serve_attrs["local_bytes"],
         "path_device_ms": served["path_device_ms_per_launch"]["flash_kernel"],
         "bf16_max_abs_err": lm["flash_bf16_max_abs_err"],
+        # the training path: 8 steps of recurrentgemma-2b (forward and
+        # remat recompute; the backward is the dense VJP, no launch)
+        "train_launches": trained["launches"]["flash_attention"],
+        "train_launches_per_step":
+            trained["launches_per_step"]["flash_attention"],
+        "backward": trained["grad_checks"]["flash"],
         "shape": lm["flash"]["shape"],
     }, {
         "name": "rg_lru",
@@ -2502,6 +2959,10 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
         "copy_yardstick_ms": lm["rg_lru"]["copy_yardstick_ms"],
         "path_device_ms": served["path_device_ms_per_launch"]["rg_lru_kernel"],
         "specialization": lm["rg_lru"]["route"],
+        # the training path: forward, remat recompute and the reverse scan
+        "train_launches": trained["launches"]["rg_lru"],
+        "train_launches_per_step": trained["launches_per_step"]["rg_lru"],
+        "backward": trained["grad_checks"]["rg_lru"],
         "registers": rg_attrs["registers"],
         "static_smem_bytes": rg_attrs["static_smem_bytes"],
         "dynamic_smem_bytes": rg_attrs["dynamic_smem_bytes"],
@@ -2594,8 +3055,11 @@ def main(argv=None) -> int:
     armed = armed_attributes(nc, netsim, core, workload)
     lm = phase_lm_kernels(fa, rl, ref)
     served = phase_serve(fa, rl, sim_kernels)
+    trained = phase_train(fa, rl, ref, sim_kernels)
+    clustered = phase_cluster(sim_kernels)
     table = kernel_table(kern, main_path, states, chunks, timing, prof,
-                         plans, lm, served, armed, tel, flt)
+                         plans, lm, served, armed, tel, flt, trained,
+                         clustered)
     check_kernel_table(table)
     RESULTS["kernels"] = table
     write_results(args.out, t_start)

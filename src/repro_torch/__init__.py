@@ -11,6 +11,12 @@ Slice 2 covers serving a decoder-only language model: the configs
 launcher (`launch.serve`), with the flash-attention and RG-LRU scan
 kernels (`kernels`).
 
+Slice 8 trains: the optimizer (`optim`), the training step (`train`),
+the data pipeline (`data`), checkpoints (`checkpoint`) and the launcher
+(`launch.train`), with backward passes for both language-model kernels;
+and the shared-cluster driver (`cluster`) on the card's constants
+(`roofline`).
+
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 """

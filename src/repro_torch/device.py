@@ -31,10 +31,9 @@ def needs_grad(*tensors) -> bool:
 def use_kernels(use_kernel, *operands) -> bool:
     """Whether a model call runs the kernels on ``operands`` (the tensors it
     would hand them): ``use_kernel`` itself when it is given, else (None)
-    the kernels when every operand is on a CUDA device and none needs a
-    gradient (the kernels have no backward pass), the plain path
-    otherwise."""
+    the kernels when every operand is on a CUDA device, whether or not
+    autograd records (each kernel's wrapper is a ``torch.autograd.Function``
+    with its backward pass), the plain path otherwise."""
     if use_kernel is not None:
         return bool(use_kernel)
-    return (all(t.device.type == "cuda" for t in operands)
-            and not needs_grad(*operands))
+    return all(t.device.type == "cuda" for t in operands)

@@ -1,5 +1,5 @@
-"""Flash attention (forward): a CUDA kernel for Hopper, its wrapper and its
-launch counter.
+"""Flash attention: a CUDA kernel for Hopper (the forward), its wrapper
+(a ``torch.autograd.Function``) and its launch counter.
 
 `flash_attention` computes softmax(q k^T * D^-1/2) v with grouped KV heads,
 causal and sliding-window masks and an optional tanh logit softcap, with
@@ -15,6 +15,12 @@ The kernel is built with its own nvcc flags (`NVCC_FLAGS`: no
 ``--fmad=false``, since it is held by tolerance, not bit for bit).  On CPU
 tensors it runs the dense plain version `ref.ref_attention`, which the
 kernel matches within 2e-5 in float32 and 2e-2 for bf16 inputs.
+
+The backward pass is the reference's ``custom_vjp``
+(``repro/kernels/ops.py::_flash_vjp_bwd``): the vector-Jacobian product of
+the dense attention, recomputed with ``torch.autograd.grad`` through
+`ref.ref_attention` from the saved q, k and v.  The JAX package has no
+backward kernel, so neither has the port; the forward stays on the kernel.
 """
 from __future__ import annotations
 
@@ -23,7 +29,6 @@ from typing import Optional
 
 import torch
 
-from repro_torch.device import needs_grad
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_attention
 
@@ -102,28 +107,15 @@ def kernel_attributes(dtype: torch.dtype, head_dim: int) -> dict:
                 smem_bytes=smem.value)
 
 
-def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
-                    window: int = 0, softcap: Optional[float] = None
-                    ) -> Tensor:
-    """q: [B, T, H, D]; k/v: [B, S, K, D] -> [B, T, H, D] in q's dtype.
-
-    The CUDA kernel for CUDA tensors (D one of `HEAD_DIMS`), the plain
-    version for CPU tensors; raises on anything the kernel does not take,
-    and on the card for inputs that need a gradient (the kernel has no
-    backward pass).  On the card it allocates the output, launches on the
-    current stream without synchronizing, raises if the launch was refused,
-    and counts the launch in `LAUNCH_COUNT`."""
+def _launch(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
+            softcap: Optional[float]) -> Tensor:
+    """The kernel on CUDA tensors (counted), the plain version on CPU ones."""
     global LAUNCH_COUNT
-    _check(q, k, v)
     if q.device.type == "cpu":
         return ref_attention(q, k, v, causal=causal, window=window,
                              softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    if needs_grad(q, k, v):
-        raise RuntimeError("flash_attention: the CUDA kernel has no backward "
-                           "pass; call it under torch.no_grad() or take the "
-                           "plain path (use_kernel=False)")
     b, t, h, dh = q.shape
     s, kh = k.shape[1], k.shape[2]
     if dh not in HEAD_DIMS:
@@ -147,3 +139,43 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     build.check_launch("flash_attention", rc)
     LAUNCH_COUNT += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward: `_launch`.  Backward: the VJP of `ref.ref_attention` at the
+    saved inputs, as the reference's ``custom_vjp`` computes it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.options = (causal, window, softcap)
+        return _launch(q, k, v, causal, window, softcap)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, softcap = ctx.options
+        wanted = [x.detach().requires_grad_(True) if need else x.detach()
+                  for x, need in zip(ctx.saved_tensors,
+                                     ctx.needs_input_grad[:3])]
+        with torch.enable_grad():
+            out = ref_attention(*wanted, causal=causal, window=window,
+                                softcap=softcap)
+            leaves = [x for x in wanted if x.requires_grad]
+            grads = iter(torch.autograd.grad(out, leaves, g))
+        return tuple(next(grads) if x.requires_grad else None
+                     for x in wanted) + (None, None, None)
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: int = 0, softcap: Optional[float] = None
+                    ) -> Tensor:
+    """q: [B, T, H, D]; k/v: [B, S, K, D] -> [B, T, H, D] in q's dtype.
+
+    The CUDA kernel for CUDA tensors (D one of `HEAD_DIMS`), the plain
+    version for CPU tensors; raises on anything the kernel does not take.
+    On the card it allocates the output, launches on the current stream
+    without synchronizing, raises if the launch was refused, and counts the
+    launch in `LAUNCH_COUNT`.  Differentiable (`FlashAttention`): the
+    backward recomputes the dense attention's VJP and launches nothing."""
+    _check(q, k, v)
+    return FlashAttention.apply(q, k, v, causal, window, softcap)

@@ -12,9 +12,21 @@ shared-memory stages.  The kernel has two specializations: 16-byte
 loads into the same ring otherwise.  The C entry picks one by its
 ``rg_lru_route``; `route` is the same rule in Python, which the wrapper
 holds to the C one at every launch.  On CPU tensors it runs the plain
-version `ref.ref_rg_lru`, which the kernel equals bit for bit.  The kernel
-has no backward pass: on the card the wrapper raises for inputs that need
-a gradient.
+version `ref.ref_rg_lru`, which the kernel equals bit for bit.
+
+The wrapper is a ``torch.autograd.Function`` (`RGLRU`).  The gradient of
+h_t = a_t h_{t-1} + b_t is itself a linear scan, backwards in time:
+
+    gh_t = a_{t+1} gh_{t+1} + g_t,   db_t = gh_t,
+    da_t = gh_t h_{t-1} (h_{-1} = h0, or 0),   dh0 = a_0 gh_0,
+
+so the backward runs the same scan (the kernel on the card, the plain
+version on the CPU) on time-reversed operands: a shifted by one step and
+flipped, g flipped.  Each sum has two terms and every product one
+rounding, so the result equals autograd through the sequential plain loop
+bit for bit.  The reference's ``custom_vjp`` recomputes through its
+associative scan instead (``repro/kernels/ops.py::_rg_lru_vjp_bwd``); on
+the card that recompute would be the host-bound loop.
 """
 from __future__ import annotations
 
@@ -23,7 +35,6 @@ from typing import Optional
 
 import torch
 
-from repro_torch.device import needs_grad
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_rg_lru
 
@@ -109,34 +120,15 @@ def _check(name: str, t: Tensor, shape, dtype, device) -> None:
         raise ValueError(f"rg_lru: {name!r} is not contiguous")
 
 
-def rg_lru(a: Tensor, b: Tensor, h0: Optional[Tensor] = None) -> Tensor:
-    """The scan: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors.  a, b: [B, T, D]; h0: [B, D] or None; one dtype, float32
-    or bfloat16, all contiguous on one device.  Raises on anything else.
-    On the card it raises if an input needs a gradient (the kernel has no
-    backward pass), allocates the output, launches on the current stream
-    without synchronizing, raises if the launch was refused, and counts the
-    launch in `LAUNCH_COUNT` and, under the specialization the C entry
-    took, in `ROUTE_LAUNCHES`."""
+def _scan(a: Tensor, b: Tensor, h0: Optional[Tensor]) -> Tensor:
+    """The kernel on CUDA tensors (counted), the plain version on CPU ones;
+    the operands are checked."""
     global LAUNCH_COUNT
-    if not isinstance(a, Tensor) or a.ndim != 3:
-        raise ValueError("rg_lru: 'a' must be a [B, T, D] tensor")
-    if a.dtype not in DTYPES:
-        raise TypeError(f"rg_lru: dtype {a.dtype} is not float32 or "
-                        f"bfloat16")
     bsz, t_len, d = a.shape
-    _check("a", a, a.shape, a.dtype, a.device)
-    _check("b", b, a.shape, a.dtype, a.device)
-    if h0 is not None:
-        _check("h0", h0, (bsz, d), a.dtype, a.device)
     if a.device.type == "cpu":
         return ref_rg_lru(a, b, h0)
     if a.device.type != "cuda":
         raise ValueError(f"rg_lru: no kernel for device {a.device}")
-    if needs_grad(a, b, h0):
-        raise RuntimeError("rg_lru: the CUDA kernel has no backward pass; "
-                           "call it under torch.no_grad() or take the plain "
-                           "path (use_kernel=False)")
 
     lib = LIBRARY.load()
     which = route(a.shape, a.dtype, (a.data_ptr(), b.data_ptr()))
@@ -154,3 +146,56 @@ def rg_lru(a: Tensor, b: Tensor, h0: Optional[Tensor] = None) -> Tensor:
     LAUNCH_COUNT += 1
     ROUTE_LAUNCHES[which] += 1
     return out
+
+
+def reverse_scan(a: Tensor, g: Tensor) -> Tensor:
+    """gh_t = a_{t+1} gh_{t+1} + g_t (gh_{T-1} = g_{T-1}): one `_scan` of
+    the operands reversed in time, a shifted by one step (its first row 0,
+    which multiplies the zero initial state)."""
+    a_rev = torch.cat([torch.zeros_like(a[:, :1]), a[:, 1:].flip(1)], dim=1)
+    return _scan(a_rev, g.flip(1), None).flip(1)
+
+
+class RGLRU(torch.autograd.Function):
+    """Forward: `_scan`.  Backward: `reverse_scan`, then one multiply for
+    da and one for dh0 (see the module's docstring)."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _scan(a, b, h0)
+        ctx.save_for_backward(a, h0, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h0, h = ctx.saved_tensors
+        gh = reverse_scan(a, g.contiguous())
+        da = dh0 = None
+        if ctx.needs_input_grad[0]:
+            first = torch.zeros_like(h[:, :1]) if h0 is None else h0[:, None]
+            da = gh * torch.cat([first, h[:, :-1]], dim=1)
+        if h0 is not None and ctx.needs_input_grad[2]:
+            dh0 = gh[:, 0] * a[:, 0]
+        return da, gh, dh0
+
+
+def rg_lru(a: Tensor, b: Tensor, h0: Optional[Tensor] = None) -> Tensor:
+    """The scan: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors.  a, b: [B, T, D]; h0: [B, D] or None; one dtype, float32
+    or bfloat16, all contiguous on one device.  Raises on anything else.
+    On the card it allocates the output, launches on the current stream
+    without synchronizing, raises if the launch was refused, and counts the
+    launch in `LAUNCH_COUNT` and, under the specialization the C entry
+    took, in `ROUTE_LAUNCHES`.  Differentiable (`RGLRU`): the backward is
+    one more scan, launched and counted the same way."""
+    if not isinstance(a, Tensor) or a.ndim != 3:
+        raise ValueError("rg_lru: 'a' must be a [B, T, D] tensor")
+    if a.dtype not in DTYPES:
+        raise TypeError(f"rg_lru: dtype {a.dtype} is not float32 or "
+                        f"bfloat16")
+    bsz, _, d = a.shape
+    _check("a", a, a.shape, a.dtype, a.device)
+    _check("b", b, a.shape, a.dtype, a.device)
+    if h0 is not None:
+        _check("h0", h0, (bsz, d), a.dtype, a.device)
+    return RGLRU.apply(a, b, h0)

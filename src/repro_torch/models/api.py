@@ -7,11 +7,13 @@ The port of ``repro/models/api.py``.  A batch is a dict:
 Encoder-decoder configs (``is_encdec``) are not ported yet and raise.
 
 ``use_kernel=None`` (the default) runs the kernels (flash attention, the
-RG-LRU scan) when the activations are on a CUDA device and need no
-gradient (under ``torch.no_grad``, or with weights that do not require
-grad), and the plain path on the CPU or where autograd records; True or
-False forces one (`repro_torch.device.use_kernels`).  The kernels have no
-backward pass and raise for inputs that need a gradient.
+RG-LRU scan) when the activations are on a CUDA device, and the plain path
+on the CPU; True or False forces one (`repro_torch.device.use_kernels`).
+Both kernels' wrappers are ``torch.autograd.Function``s, so a training
+forward on the card runs them too.
+
+``remat=True`` (the default of `forward`) rematerializes each group of
+``block_pattern`` in the backward pass (`transformer.forward`).
 """
 from __future__ import annotations
 
@@ -36,11 +38,12 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 def forward(cfg: ModelConfig, model, batch: dict,
-            use_kernel: Optional[bool] = None) -> tuple[Tensor, Tensor]:
+            use_kernel: Optional[bool] = None,
+            remat: bool = True) -> tuple[Tensor, Tensor]:
     transformer.check_decoder_only(cfg)
     return transformer.forward(cfg, model, batch["tokens"],
                                extra_embeds=batch.get("patches"),
-                               use_kernel=use_kernel)
+                               use_kernel=use_kernel, remat=remat)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -8,7 +8,8 @@ ported yet, nor the reference's sequence-sharding knob, which has no
 counterpart on one card.
 
 The full-sequence path can route through the flash-attention kernel
-(`repro_torch.kernels.ops.flash_attention`); `attend` here is its oracle.
+(`repro_torch.kernels.ops.flash_attention`, differentiable); `attend` here
+is its oracle.
 
 Caches are plain dicts of tensors.  The decode steps write the new K/V
 into the cache tensors in place (a cache is the size of the whole
@@ -146,8 +147,7 @@ def attn_forward(params: Attention, cfg, x: Tensor, *, positions: Tensor,
                  causal: bool = True, window: int = 0,
                  use_kernel: Optional[bool] = None, return_kv: bool = False):
     """Full-sequence self-attention (prefill / training).  ``use_kernel``:
-    `device.use_kernels` (None: the flash kernel on a CUDA device when no
-    gradient is wanted)."""
+    `device.use_kernels` (None: the flash kernel on a CUDA device)."""
     q, k, v = _project_qkv(params, cfg, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)

@@ -1,4 +1,5 @@
-"""Carry weights and caches between the reference's layout and the port's.
+"""Carry weights, gradients, optimizer moments and caches between the
+reference's layout and the port's.
 
 The reference keeps parameters as a nested dict whose ``groups`` leaves
 carry a leading ``[n_groups]`` axis (stepped by ``lax.scan``), beside
@@ -98,4 +99,39 @@ def cache_to_reference_layout(cfg: ModelConfig, cache: dict) -> dict:
         out["groups"] = {key: {name: np.stack([c[name] for c in per_group])
                                for name in per_group[0]}
                          for key, per_group in stacked.items()}
+    return out
+
+
+def _put(tree: dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def params_to_reference(cfg: ModelConfig, named) -> dict:
+    """The port's parameters (a model, or any dict from parameter name to
+    tensor with the model's names: its gradients, its AdamW moments) in the
+    reference's nested layout, as numpy arrays (bfloat16 as float32):
+    ``lead``/``tail`` blocks by str(i), ``groups`` by f"b{j}" with a
+    leading [n_groups] axis.  The inverse of `params_from_reference`."""
+    if isinstance(named, nn.Module):
+        named = dict(named.named_parameters())
+    slots = _layer_slots(cfg)
+    out: dict = {}
+    stacked: dict = {}
+    for name, t in named.items():
+        t = t.detach()
+        arr = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+        parts = name.split(".")
+        if parts[0] != "layers":
+            _put(out, parts, arr)
+            continue
+        section, key, g = slots[int(parts[1])]
+        if g is None:
+            _put(out, [section, key] + parts[2:], arr)
+        else:
+            stacked.setdefault((key, tuple(parts[2:])), {})[g] = arr
+    for (key, rest), per_group in stacked.items():
+        _put(out, ["groups", key, *rest],
+             np.stack([per_group[g] for g in sorted(per_group)]))
     return out

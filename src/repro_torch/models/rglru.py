@@ -11,8 +11,9 @@ and (temporal conv(width 4) -> RG-LRU) — multiplied and projected out.
 
 Full-sequence path: `scan_rg_lru`, a log-depth associative scan in torch
 (the reference's formulation), or the CUDA scan kernel
-(`repro_torch.kernels.ops.rg_lru`) where `device.use_kernels` says so: by
-default on a CUDA device when no gradient is wanted.  Decode path: a single fused step.
+(`repro_torch.kernels.ops.rg_lru`, differentiable) where
+`device.use_kernels` says so: by default on a CUDA device.  Decode path: a
+single fused step.
 ``jax.nn.gelu`` defaults to the tanh approximation and ``jax.nn.softplus``
 has no linear threshold; the port computes both the same way.
 """
@@ -113,8 +114,7 @@ def rglru_forward(params: RGLRU, cfg, x: Tensor,
                   use_kernel: Optional[bool] = None,
                   return_state: bool = False):
     """Full-sequence recurrent block. x: [B, T, D].  ``use_kernel``:
-    `device.use_kernels` (None: the scan kernel on a CUDA device when no
-    gradient is wanted)."""
+    `device.use_kernels` (None: the scan kernel on a CUDA device)."""
     lin = F.gelu(x @ params.w_lin, approximate="tanh")
     u_raw = x @ params.w_x
     u, conv_state = conv1d_causal(params, u_raw)

@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.kernels.ref import f32_sqrt
@@ -228,14 +229,44 @@ def _positions(h: Tensor) -> Tensor:
     return torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
 
 
+def _apply_blocks(cfg: ModelConfig, blocks, h: Tensor, positions: Tensor,
+                  use_kernel: Optional[bool]) -> Tensor:
+    for blk in blocks:
+        h = _apply_block(cfg, blk, h, positions, use_kernel)
+    return h
+
+
 def forward(cfg: ModelConfig, model: Model, tokens: Tensor,
             extra_embeds: Optional[Tensor] = None,
-            use_kernel: Optional[bool] = None) -> tuple[Tensor, Tensor]:
-    """Returns (logits [B, T, V], aux_loss scalar)."""
+            use_kernel: Optional[bool] = None,
+            remat: bool = True) -> tuple[Tensor, Tensor]:
+    """Returns (logits [B, T, V], aux_loss scalar).
+
+    ``remat``: where the reference wraps its layer-group scan body in
+    ``jax.checkpoint``, each group of ``block_pattern`` runs under
+    ``torch.utils.checkpoint.checkpoint`` (non-reentrant): the backward
+    pass recomputes the group from its input, kernels included, so only
+    the groups' inputs are kept.  The lead and tail blocks are not
+    rematerialized, as in the reference.  It matters only where autograd
+    records.  The reference's ``unroll`` has no counterpart: there is no
+    ``lax.scan`` to unroll, the groups are a Python loop either way."""
+    lead, pattern, n_groups, _ = _block_plan(cfg)
     h = embed_inputs(cfg, model, tokens, extra_embeds)
     positions = _positions(h)
-    for blk in model.layers:
-        h = _apply_block(cfg, blk, h, positions, use_kernel)
+    blocks = list(model.layers)
+    n_lead, width = len(lead), len(pattern)
+    h = _apply_blocks(cfg, blocks[:n_lead], h, positions, use_kernel)
+    for g in range(n_groups):
+        group = blocks[n_lead + g * width: n_lead + (g + 1) * width]
+        if remat and torch.is_grad_enabled():
+            # the blocks draw no random numbers: no RNG state to replay
+            h = checkpoint(_apply_blocks, cfg, group, h, positions,
+                           use_kernel, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = _apply_blocks(cfg, group, h, positions, use_kernel)
+    h = _apply_blocks(cfg, blocks[n_lead + n_groups * width:], h, positions,
+                      use_kernel)
     h = norm(cfg, h, model.final_norm)
     logits = layers.softcap(h @ model.head_matrix(), cfg.logit_softcap)
     # no MoE layer is ported, so there is no auxiliary loss

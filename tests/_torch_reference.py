@@ -31,7 +31,12 @@ import types
 
 _MODULES = ("repro.core", "repro.netsim", "repro.netsim.experiment",
             "repro.netsim.counters", "repro.kernels.ops",
-            "repro.kernels.mltcp_step", "repro.workload")
+            "repro.kernels.mltcp_step", "repro.workload",
+            # the training side and the shared-cluster driver
+            "repro.optim", "repro.optim.adamw", "repro.optim.grad_compress",
+            "repro.train.train_step", "repro.data",
+            "repro.checkpoint", "repro.launch.train", "repro.roofline.hw",
+            "repro.cluster", "repro.models.api", "repro.configs")
 _loaded: dict[str, types.ModuleType] = {}
 # every reference module the imports brought in, by dotted name: what
 # `reference_modules` puts back

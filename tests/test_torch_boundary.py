@@ -2,8 +2,8 @@
 
 A fresh interpreter whose import hook refuses ``jax``, ``jaxlib`` and
 ``repro`` imports every ``repro_torch`` module and ``chip_smoke``, then
-runs a 200-tick simulation and the smoke-preset serve of recurrentgemma-2b
-on the CPU.
+runs a 200-tick simulation, the smoke-preset serve of recurrentgemma-2b, a
+2-step smoke-preset training run and one cluster profile on the CPU.
 """
 import os
 import subprocess
@@ -42,6 +42,14 @@ from repro_torch.launch.serve import serve
 out = serve("recurrentgemma-2b", batch=2, prompt_len=8, new_tokens=3,
             preset="smoke", device="cpu")
 assert tuple(out["generated"].shape) == (2, 3)
+from repro_torch.launch.train import train
+trained = train("recurrentgemma-2b", steps=2, seq_len=12, batch=2,
+                device="cpu")
+assert trained["steps"] == 2 and all(l == l for l in trained["losses"])
+from repro_torch.cluster import profile_from_arch
+from repro_torch.configs import get_config
+prof = profile_from_arch(get_config("qwen3-1.7b"))
+assert prof.comm_bytes[0] > 0 and prof.compute_s[0] > 0
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
 print("MODULES", len(names))
@@ -56,4 +64,4 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split("MODULES")[-1])
-    assert n_modules >= 45
+    assert n_modules >= 60

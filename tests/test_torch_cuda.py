@@ -387,23 +387,46 @@ def test_cuda_flash_kernel_matches_plain_version(case):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
-def test_cuda_kernels_refuse_inputs_that_need_a_gradient():
+def test_cuda_kernels_backward_equals_autograd_through_plain_versions():
+    """Both LM kernels take inputs that need a gradient: the RG-LRU
+    backward (one more launch, the reverse scan) equals autograd through
+    the sequential loop bit for bit, flash's recomputed VJP equals autograd
+    through the dense attention; the forward launches are counted."""
     dev = torch.device("cuda")
-    a = torch.rand((2, 9, 16), device=dev, requires_grad=True)
-    x = torch.rand((2, 9, 16), device=dev)
-    q = torch.rand((1, 8, 2, 64), device=dev, requires_grad=True)
-    kv = torch.rand((1, 8, 1, 64), device=dev)
-    before = (rl.LAUNCH_COUNT, fa.LAUNCH_COUNT)
-    with pytest.raises(RuntimeError, match="no backward pass"):
-        rl.rg_lru(a, x)
-    with pytest.raises(RuntimeError, match="no backward pass"):
-        fa.flash_attention(q, kv, kv)
-    assert (rl.LAUNCH_COUNT, fa.LAUNCH_COUNT) == before
-    with torch.no_grad():
-        rl.rg_lru(a, x)
-        fa.flash_attention(q, kv, kv)
-    assert (rl.LAUNCH_COUNT, fa.LAUNCH_COUNT) == (before[0] + 1,
-                                                  before[1] + 1)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for (b, t, d), dtype, with_h0 in ((2, 33, 130), torch.float32, True), \
+            ((2, 1, 256), torch.float32, True), \
+            ((2, 40, 2560), torch.float32, False), \
+            ((3, 17, 136), torch.bfloat16, True):
+        a = (torch.rand((b, t, d), generator=gen, device=dev) * 0.79
+             + 0.2).to(dtype)
+        x, g = (torch.randn((b, t, d), generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        h0 = torch.randn((b, d), generator=gen, device=dev).to(dtype)
+        ins = [a, x] + ([h0] if with_h0 else [])
+        mine = [v.clone().requires_grad_(True) for v in ins]
+        before = rl.LAUNCH_COUNT
+        got = torch.autograd.grad(rl.rg_lru(*mine), mine, g)
+        assert rl.LAUNCH_COUNT == before + 2
+        theirs = [v.clone().requires_grad_(True) for v in ins]
+        want = torch.autograd.grad(ref.ref_rg_lru(*theirs), theirs, g)
+        for name, x_got, x_want in zip(("da", "db", "dh0"), got, want):
+            assert torch.equal(x_got, x_want), ((b, t, d), dtype, name)
+
+    q = torch.randn((1, 70, 4, 64), generator=gen, device=dev)
+    kv = [torch.randn((1, 70, 2, 64), generator=gen, device=dev)
+          for _ in range(2)]
+    g = torch.randn((1, 70, 4, 64), generator=gen, device=dev)
+    mine = [v.clone().requires_grad_(True) for v in (q, *kv)]
+    before = fa.LAUNCH_COUNT
+    got = torch.autograd.grad(
+        fa.flash_attention(*mine, causal=True, window=16), mine, g)
+    assert fa.LAUNCH_COUNT == before + 1
+    theirs = [v.clone().requires_grad_(True) for v in (q, *kv)]
+    want = torch.autograd.grad(
+        ref.ref_attention(*theirs, causal=True, window=16), theirs, g)
+    for name, x_got, x_want in zip("qkv", got, want):
+        assert torch.equal(x_got, x_want), name
 
 
 def test_cuda_prefill_default_launches_the_kernels():

@@ -325,25 +325,16 @@ def test_kernel_table_rows_need_every_key_and_a_route():
 
 
 @pytest.mark.cuda
-def test_cuda_kernels_refuse_inputs_that_need_a_gradient():
+def test_cuda_kernels_backward_equals_autograd_through_plain_versions():
+    """Both LM kernels take inputs that need a gradient; the check itself is
+    kept once, in the JAX-free ``test_torch_cuda.py`` that runs on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernels launch only there")
-    dev = torch.device("cuda")
-    a = torch.rand((2, 9, 16), device=dev, requires_grad=True)
-    x = torch.rand((2, 9, 16), device=dev)
-    q = torch.rand((1, 8, 2, 64), device=dev, requires_grad=True)
-    kv = torch.rand((1, 8, 1, 64), device=dev)
-    before = (trl.LAUNCH_COUNT, tfa.LAUNCH_COUNT)
-    with pytest.raises(RuntimeError, match="no backward pass"):
-        trl.rg_lru(a, x)
-    with pytest.raises(RuntimeError, match="no backward pass"):
-        tfa.flash_attention(q, kv, kv)
-    assert (trl.LAUNCH_COUNT, tfa.LAUNCH_COUNT) == before
-    with torch.no_grad():
-        trl.rg_lru(a, x)
-        tfa.flash_attention(q, kv, kv)
-    assert (trl.LAUNCH_COUNT, tfa.LAUNCH_COUNT) == (before[0] + 1,
-                                                    before[1] + 1)
+    from test_torch_cuda import (
+        test_cuda_kernels_backward_equals_autograd_through_plain_versions
+        as on_the_card)
+
+    on_the_card()
 
 
 @pytest.mark.parametrize("argv", [["--probe", "rg_lru"],

@@ -137,9 +137,9 @@ def _operand(device, requires_grad=False):
     (None, ("cuda:0", "cuda:0"), False, True, True),
     (None, ("cpu",), False, True, False),
     (None, ("cuda", "cpu"), False, True, False),
-    # the kernels have no backward pass: not where autograd records ...
-    (None, ("cuda", "cuda"), True, True, False),
-    # ... but under no_grad
+    # the kernels have a backward pass: also where autograd records ...
+    (None, ("cuda", "cuda"), True, True, True),
+    # ... and under no_grad
     (None, ("cuda", "cuda"), True, False, True),
     (True, ("cpu",), False, True, True),
     (True, ("cuda",), True, True, True),
