@@ -66,10 +66,20 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   counting 16 flash and 52 RG-LRU launches a step and no plain-path call,
   reports the first step and the spread of steps 2-7, profiles one warm
   step, and resumes a smoke-preset run from a checkpoint;
+* the other model families: deepseek-moe-16b (MoE; batch 1), xlstm-125m
+  (mLSTM/sLSTM; batch 4) and seamless-m4t-medium (encoder-decoder; batch
+  4 over 1024 frames), each at its full published widths and depth with
+  random weights from seed 0, served through ``repro_torch.launch.serve``
+  (a 4096-token prompt, 16 new tokens), counting 28, 0 and 24 flash
+  launches a prefill, with the warm prefill held against the plain-path
+  prefill (and, for the MoE, every routing choice of the two compared,
+  flips reported with their margins); a profiled prefill, warm decode,
+  and the MoE dispatch's and the xLSTM blocks' own times;
 * the shared-cluster driver: ``repro_torch.cluster.simulate_shared_cluster``
   at the defaults of ``examples/simulate_cluster.py`` (two qwen3-1.7b jobs
-  and an olmo-1b job, DCQCN, default against MLTCP, 4 s) through
-  ``run_plan`` and the chunk kernel.
+  and an olmo-1b job, DCQCN, default against MLTCP, 4 s), then a mix with
+  a MoE job (deepseek-moe-16b's two-burst dp+ep profile beside two
+  qwen3-1.7b jobs), each through ``run_plan`` and the chunk kernel.
 
 ``--probe KERNEL`` (``flash_attention`` or ``rg_lru``; ``--probe-flash``
 is ``--probe flash_attention``) is the short first call after a change to
@@ -1747,6 +1757,18 @@ RGLRU_SHAPES = ((SERVE_BATCH, SERVE_PROMPT, 2560),
 # (shape, bytes): `a` starts that many bytes past a 16-byte boundary of its
 # storage, contiguous all the same
 RGLRU_OFFSET_CASE = ((2, 70, 256), 4)
+# the attention of the families' prefills at their full widths:
+# deepseek-moe-16b's causal layers (16 heads of 128, batch 1 x 4096),
+# seamless-m4t-medium's bidirectional encoder (16 heads of 64, batch 4 x
+# 1024 frames) and its decoder's causal self-attention (batch 4 x 4096)
+FAMILY_FLASH_CASES = {
+    "deepseek-moe-16b": (1, 4096, 4096, 16, 16, 128, True, 0, None,
+                         "float32"),
+    "seamless-m4t-medium/encoder": (4, 1024, 1024, 16, 16, 64, False, 0,
+                                    None, "float32"),
+    "seamless-m4t-medium/decoder": (4, 4096, 4096, 16, 16, 64, True, 0,
+                                    None, "float32"),
+}
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:34"
 RGLRU_REPLACES = "src/repro/kernels/rg_lru.py:24"
@@ -1756,6 +1778,13 @@ RGLRU_REPLACES = "src/repro/kernels/rg_lru.py:24"
 # its largest magnitude; a wrong mask, head mapping or state would be off
 # by O(1) of it.
 SERVE_REL_BOUND = 1e-3
+# A MoE token whose expert set differs between the kernel and plain
+# prefills is excused (the plain path replays the kernel run's routing)
+# only where its top-k router margin in the kernel run lies below this:
+# the two paths' hidden states differ by rounding (~1e-6 relative), so a
+# flip at a wider margin means an error the bound must catch.  The CPU
+# tests assert the same margin at their seed (tests/test_torch_moe.py).
+FLIP_MARGIN = 1e-5
 DECODE_TURNS = 5
 
 
@@ -1871,7 +1900,8 @@ def flash_checks(fa, ref, gen) -> list:
     import torch
 
     checks = []
-    for case in FLASH_CASES + [SERVE_FLASH_CASE]:
+    for case in (FLASH_CASES + [SERVE_FLASH_CASE]
+                 + list(FAMILY_FLASH_CASES.values())):
         *_, causal, window, cap, dtype = case
         q, k, v = flash_operands(case, gen)
         got = fa.flash_attention(q, k, v, causal=causal, window=window,
@@ -2125,10 +2155,12 @@ def phase_lm_kernels(fa, rl, ref) -> dict:
                  bound_ms=b_ms, bound_by=b_by,
                  split_tf32_floor_ms=split_tf32_floor_ms(flop),
                  flop=flop, bytes=nbytes,
-                 max_abs_err=fl_checks[-1]["max_abs_err"],
+                 max_abs_err=next(c["max_abs_err"] for c in fl_checks
+                                  if c["case"] == list(SERVE_FLASH_CASE)),
                  attributes=flash_attributes(fa))
     flash["tflop_per_s"] = flop / (flash["back_to_back_ms"] * 1e-3) / 1e12
     del q, k, v, mask
+    flash["family_shapes"] = family_flash_times(fa, ref, gen, fl_checks)
 
     b, t, d = RGLRU_SHAPES[0]
     a = torch.rand((b, t, d), generator=gen, device=dev) * 0.79 + 0.2
@@ -2164,6 +2196,43 @@ def phase_lm_kernels(fa, rl, ref) -> dict:
     return out
 
 
+def family_flash_times(fa, ref, gen, checks: list) -> dict:
+    """The families' flash shapes (FAMILY_FLASH_CASES, held within
+    FLASH_TOL by `flash_checks`): kernel, plain-version and SDPA (its
+    fastest backend that takes the case) call times beside the bound."""
+    import torch
+
+    out = {}
+    for name, case in FAMILY_FLASH_CASES.items():
+        b, t, s, h, kv, dh, causal, window, _, _ = case
+        q, k, v = flash_operands(case, gen)
+        b_ms, b_by, flop, nbytes = flash_bound(b, t, s, h, kv, dh, causal,
+                                               window)
+        mask = (torch.ones((t, s), dtype=torch.bool, device=q.device).tril()
+                if causal else None)
+        want = ref.ref_attention(q, k, v, causal=causal)
+        backends = sdpa_backends(q, k, v, mask, want)
+        del want, mask
+        fastest = min((r for r in backends if r["accepted"]),
+                      key=lambda r: r["ms"])
+        out[name] = dict(
+            library_ms=fastest["ms"],
+            library=f"scaled_dot_product_attention ({fastest['backend']} "
+                    f"backend, {fastest['kv']})",
+            library_max_abs_err=fastest["max_abs_err"],
+            shape=[b, t, s, h, kv, dh], causal=causal,
+            ms=event_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                        10),
+            plain_ms=event_ms(lambda: ref.ref_attention(q, k, v,
+                                                        causal=causal), 3),
+            bound_ms=b_ms, bound_by=b_by, flop=flop, bytes=nbytes,
+            split_tf32_floor_ms=split_tf32_floor_ms(flop),
+            max_abs_err=next(c["max_abs_err"] for c in checks
+                             if c["case"] == list(case)))
+        del q, k, v
+    return out
+
+
 def _rel_diff(got, want) -> tuple[float, float]:
     """(max |got - want|, that over max |want|)."""
     diff = float((got.float() - want.float()).abs().max())
@@ -2171,16 +2240,21 @@ def _rel_diff(got, want) -> tuple[float, float]:
     return diff, diff / scale if scale > 0 else diff
 
 
-def profile_top(fn, keys: tuple = (), n: int = 8) -> dict:
+def profile_top(fn, keys: tuple = (), n: int = 8, host: bool = True) -> dict:
     """One profiled call of ``fn``: wall time, device busy time, its share,
     the kernels that took the most device time, and for each of ``keys``
-    the launches and device time of the kernels whose names hold it."""
+    the launches and device time of the kernels whose names hold it.
+    ``host=False`` traces the device alone (none of these figures needs
+    the host's ops, and a call of ~10^5 launches costs minutes to sum
+    with them)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
@@ -2755,18 +2829,347 @@ def phase_train(fa, rl, ref, kern) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the MoE, xLSTM and encoder-decoder families served at full width
+# ---------------------------------------------------------------------------
+
+# (arch, batch, prompt tokens, new tokens, flash launches a prefill): one
+# model of each family at its full published widths and depth, random
+# weights from seed 0; deepseek's 28 causal layers, seamless's 12
+# bidirectional encoder and 12 causal decoder self-attention layers
+# (cross-attention takes no kernel), xlstm none
+SERVE_FAMILIES = (("deepseek-moe-16b", 1, 4096, 16, 28),
+                  ("xlstm-125m", 4, 4096, 16, 0),
+                  ("seamless-m4t-medium", 4, 4096, 16, 24))
+FAMILY_DECODE_TURNS = 3
+
+
+class RoutingLog:
+    """Wraps ``moe.route`` while active: records each call's top-k choices
+    and the smallest top-k margin per token; in replay mode, routes every
+    call as the recorded run did (the same experts, weights from this
+    run's probabilities)."""
+
+    def __init__(self, moe):
+        self.moe, self.real = moe, moe.route
+        self.calls, self.replay = [], None
+
+    def __enter__(self):
+        self.calls = []
+        moe = self.moe
+
+        def route(params, cfg, xf):
+            probs, top_w, top_i = self.real(params, cfg, xf)
+            if self.replay is not None:
+                import torch
+                top_i = self.replay[len(self.calls)][0]
+                top_w = torch.gather(probs, 1, top_i)
+                top_w = (top_w / torch.clamp_min(top_w.sum(-1, keepdim=True),
+                                                 1e-9)).to(xf.dtype)
+            self.calls.append((top_i, moe.topk_margin(probs,
+                                                      cfg.moe.top_k)))
+            return probs, top_w, top_i
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+
+def routing_diff(kern_calls, plain_calls) -> list:
+    """Per MoE layer: the tokens whose expert set differs between the two
+    runs, and the kernel run's top-k margins of those tokens."""
+    out = []
+    for layer, ((ki, km), (pi, _)) in enumerate(zip(kern_calls,
+                                                    plain_calls)):
+        differ = (ki.sort(-1).values != pi.sort(-1).values).any(-1)
+        out.append(dict(layer=layer, tokens=int(ki.shape[0]),
+                        differing=int(differ.sum()),
+                        margins=[float(x) for x in km[differ][:16]],
+                        max_flip_margin=(float(km[differ].max())
+                                         if bool(differ.any()) else None),
+                        min_margin=float(km.min())))
+    return out
+
+
+def family_prefills(api, cfg, model, req, max_len, log) -> dict:
+    """The warm kernel-path prefill (the API's default on the card) and the
+    plain-path prefill of the same prompt, each with its routing recorded
+    (MoE), compared: logits and every cache tensor within SERVE_REL_BOUND
+    of its largest magnitude.  Where a routing choice flipped between the
+    two and they disagree, every flipped token's kernel-run top-k margin
+    must lie below FLIP_MARGIN; then the plain path runs again with the
+    kernel run's choices, and that run is held to the bound instead."""
+    import torch
+
+    with torch.no_grad():
+        with log:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            logits_k, cache_k = api.prefill(cfg, model, req, max_len)
+            torch.cuda.synchronize()
+            warm_s = time.time() - t0
+        kern_calls = log.calls
+        with log:
+            t0 = time.time()
+            logits_p, cache_p = api.prefill(cfg, model, req, max_len,
+                                            use_kernel=False)
+            torch.cuda.synchronize()
+            plain_s = time.time() - t0
+        plain_calls = log.calls
+    if not bool(torch.isfinite(logits_k).all()):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    flips = routing_diff(kern_calls, plain_calls)
+    n_flips = sum(f["differing"] for f in flips)
+
+    kern_leaves = dict(named_leaves(cache_k))
+
+    def compare(logits_p, cache_p):
+        logit = _rel_diff(logits_k, logits_p)
+        caches = {name: _rel_diff(kern_leaves[name], t)
+                  for name, t in named_leaves(cache_p)}
+        worst = max(caches.items(), key=lambda kv: kv[1][1])
+        return logit, worst
+
+    logit, worst = compare(logits_p, cache_p)
+    res = dict(warm_prefill_ms=warm_s * 1e3, plain_prefill_ms=plain_s * 1e3,
+               logits_max_abs_diff=logit[0], logits_max_rel_diff=logit[1],
+               cache_worst=dict(tensor=worst[0], max_abs_diff=worst[1][0],
+                                max_rel_diff=worst[1][1]),
+               rel_bound=SERVE_REL_BOUND, routing_flips=n_flips,
+               routing=flips if kern_calls else None)
+    held = logit[1] <= SERVE_REL_BOUND and worst[1][1] <= SERVE_REL_BOUND
+    if not held and n_flips:
+        wide = [f for f in flips if f["differing"]
+                and f["max_flip_margin"] >= FLIP_MARGIN]
+        if wide:
+            raise AssertionError(
+                f"{cfg.name}: kernel vs plain prefill: logits {logit}, "
+                f"cache {worst} over {SERVE_REL_BOUND}, and routing choices "
+                f"flipped at top-k margins of {FLIP_MARGIN} or more, which "
+                f"rounding does not explain: {wide}")
+        del logits_p, cache_p
+        log.replay = kern_calls
+        with torch.no_grad(), log:
+            logits_p, cache_p = api.prefill(cfg, model, req, max_len,
+                                            use_kernel=False)
+        log.replay = None
+        logit, worst = compare(logits_p, cache_p)
+        res["replayed_routing"] = dict(
+            logits_max_rel_diff=logit[1],
+            cache_worst=dict(tensor=worst[0], max_rel_diff=worst[1][1]))
+        held = logit[1] <= SERVE_REL_BOUND and worst[1][1] <= SERVE_REL_BOUND
+    if not held:
+        raise AssertionError(f"{cfg.name}: kernel vs plain prefill: logits "
+                             f"{logit}, cache {worst} over {SERVE_REL_BOUND}"
+                             f"; routing flips {flips}")
+    del logits_p, cache_p, kern_leaves
+    res["logits_k"], res["cache_k"] = logits_k, cache_k
+    return res
+
+
+def moe_layer_split(moe, cfg, model, batch: int, prompt: int) -> dict:
+    """One MoE layer of the model on a [batch, prompt, d] input (the serve
+    shape): moe_forward's time against its expert products and shared
+    experts alone, the rest being the dispatch and combine (routing,
+    positions, scatter, gather)."""
+    import torch
+    import torch.nn.functional as F
+
+    blk = next(b for b in model.layers if b.ffn_kind == "moe")
+    p = blk.moe
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(31)
+    x = torch.randn((batch, prompt, cfg.d_model), generator=gen,
+                    device=DEVICE)
+    n = batch * prompt
+    cap = moe.expert_capacity(n, cfg)
+    eb = torch.randn((cfg.moe.n_experts, cap, cfg.d_model), generator=gen,
+                     device=DEVICE)
+    xf = x.reshape(n, cfg.d_model)
+
+    def experts():
+        h = F.silu(torch.bmm(eb, p.w_gate)) * torch.bmm(eb, p.w_up)
+        return torch.bmm(h, p.w_down)
+    with torch.no_grad():
+        total = event_ms(lambda: moe.moe_forward(p, cfg, x), 5)
+        expert = event_ms(experts, 5)
+        shared = event_ms(lambda: moe.layers.mlp(p.shared, xf), 5)
+    return dict(tokens=n, capacity=cap, moe_forward_ms=total,
+                expert_bmm_ms=expert, shared_ms=shared,
+                dispatch_and_combine_ms=total - expert - shared)
+
+
+def xlstm_block_split(xlstm, cfg, model, batch: int, prompt: int) -> dict:
+    """One mLSTM and one sLSTM block on a [batch, prompt, d] input (the
+    serve shape; host clock around synchronized work: the sLSTM loop is
+    host-bound)."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(32)
+    x = torch.randn((batch, prompt, cfg.d_model), generator=gen,
+                    device=DEVICE)
+    out = {}
+    for kind, fn in (("mlstm", xlstm.mlstm_forward),
+                     ("slstm", xlstm.slstm_forward)):
+        blk = next(b for b in model.layers if b.kind == kind)
+        params = getattr(blk, kind)
+        with torch.no_grad():
+            fn(params, cfg, x)
+            times = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                fn(params, cfg, x)
+                torch.cuda.synchronize()
+                times.append((time.time() - t0) * 1e3)
+        out[f"{kind}_block_ms"] = min(times)
+        out[f"{kind}_blocks"] = sum(b.kind == kind for b in model.layers)
+    return out
+
+
+def serve_family(arch, batch, prompt, new, want_flash, fa, rl, kern) -> dict:
+    """One family's model served at full width through
+    ``launch.serve.serve`` (its main path, counted), then its warm and
+    plain prefills compared (`family_prefills`), a profiled prefill, warm
+    decode turns, and the layer split of its own recurrence or dispatch."""
+    import torch
+
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api, moe, xlstm
+    from repro_torch.train import make_decode_step
+    from repro_torch.train.serve_step import prompt_length
+
+    ms, nc, ops = kern["ms"], kern["nc"], kern["ops"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCH_COUNT = rl.LAUNCH_COUNT = ms.LAUNCH_COUNT = nc.LAUNCH_COUNT = 0
+    ops.FALLBACK_COUNT = ops.CHUNK_FALLBACK_COUNT = 0
+    t0 = time.time()
+    out = serve(arch, batch=batch, prompt_len=prompt, new_tokens=new,
+                preset="full", seed=0)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(flash_attention=fa.LAUNCH_COUNT, rg_lru=rl.LAUNCH_COUNT,
+                    mltcp_step=ms.LAUNCH_COUNT, netsim_chunk=nc.LAUNCH_COUNT,
+                    fallbacks=ops.FALLBACK_COUNT + ops.CHUNK_FALLBACK_COUNT)
+    want = dict(flash_attention=want_flash, rg_lru=0, mltcp_step=0,
+                netsim_chunk=0, fallbacks=0)
+    if launches != want:
+        raise AssertionError(f"{arch} serve launches {launches}, expected "
+                             f"{want}")
+    serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, model, req = out["cfg"], out["model"], out["request"]
+    gen_ids = out["generated"]
+    if (tuple(gen_ids.shape) != (batch, new) or int(gen_ids.min()) < 0
+            or int(gen_ids.max()) >= cfg.vocab_padded):
+        raise AssertionError(f"{arch}: generated ids {tuple(gen_ids.shape)} "
+                             f"out of range")
+    n_params = sum(p.numel() for p in model.parameters())
+
+    stamps = [time.time()]
+    fa.LAUNCH_COUNT = 0
+    res = family_prefills(api, cfg, model, req, out["max_len"],
+                          RoutingLog(moe))
+    stamps.append(time.time())
+    if fa.LAUNCH_COUNT != want_flash:
+        raise AssertionError(f"{arch}: the warm prefill launched "
+                             f"{fa.LAUNCH_COUNT} flash kernels, expected "
+                             f"{want_flash}")
+    logits_k, cache_k = res.pop("logits_k"), res.pop("cache_k")
+    if not torch.equal(gen_ids[:, 0].long(), torch.argmax(logits_k, -1)):
+        raise AssertionError(f"{arch}: serve's first token is not the "
+                             f"prefill argmax")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+
+    def one_prefill():
+        with torch.no_grad():
+            api.prefill(cfg, model, req, out["max_len"])
+    # where a kernel is on the path, a profiled prefill; xlstm's is ~3e5
+    # launches of its host-bound sLSTM loop, a minute to trace (12.8% busy
+    # in PERF.md's run), and its block split below times its blocks
+    prof = None
+    if want_flash:
+        prof = profile_top(one_prefill, ("flash_kernel", "gemm"), n=8,
+                           host=False)
+        if prof["kernels"]["flash_kernel"]["count"] != want_flash:
+            raise AssertionError(f"{arch}: the profiled prefill traced "
+                                 f"{prof['kernels']['flash_kernel']} flash")
+    stamps.append(time.time())
+
+    decode = make_decode_step(cfg)
+    pos0 = prompt_length(cfg, req)
+    turn_s = []
+    with torch.no_grad():
+        # timing only: the turns decode the same positions again, from the
+        # prefill's cache as the previous turn left it
+        for _ in range(FAMILY_DECODE_TURNS):
+            torch.cuda.synchronize()
+            t1 = time.time()
+            tok, cache = gen_ids[:, 0], cache_k
+            for i in range(new - 1):
+                tok, cache = decode(model, cache, tok, pos0 + i)
+            torch.cuda.synchronize()
+            turn_s.append(time.time() - t1)
+    warm_rates = [batch * (new - 1) / t for t in turn_s]
+    stamps.append(time.time())
+    split = (moe_layer_split(moe, cfg, model, batch, prompt)
+             if cfg.moe is not None
+             else xlstm_block_split(xlstm, cfg, model, batch, prompt)
+             if "slstm" in cfg.block_pattern else None)
+    stamps.append(time.time())
+    res.update(
+        arch=arch, preset="full", batch=batch, prompt_len=prompt,
+        new_tokens=new, seed=0, params=n_params,
+        param_gb=n_params * 4 / 1e9, launches=launches,
+        kernels_on_path=["flash_attention"] if want_flash else [],
+        seconds_total=seconds, prefill_ms=out["prefill_s"] * 1e3,
+        decode_tok_per_s=out["decode_tok_per_s"],
+        warm_decode_tok_per_s=statistics.median(warm_rates),
+        warm_decode_tok_per_s_turns=warm_rates,
+        prefill_tok_per_s=batch * prompt / out["prefill_s"],
+        serve_peak_memory_gb=serve_peak_gb, peak_memory_gb=peak_gb,
+        prefill_profile=prof, layer_split=split,
+        # host seconds of this function's steps after serve
+        step_seconds=dict(zip(("prefills", "profile", "decode", "split"),
+                              (b - a for a, b in zip(stamps, stamps[1:])))),
+        generated_first_row=[int(x) for x in gen_ids[0]])
+    if cfg.enc_layers:
+        res["frames"] = int(req["frames"].shape[1])
+    del out, model, cache_k, logits_k, req
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve_families(fa, rl, kern) -> dict:
+    """deepseek-moe-16b, xlstm-125m and seamless-m4t-medium served at full
+    width, one after the other (deepseek's 65.5 GB of f32 weights first,
+    on a card the training phase has left empty)."""
+    res = {arch: serve_family(arch, b, t, n, f, fa, rl, kern)
+           for arch, b, t, n, f in SERVE_FAMILIES}
+    emit("serve_families", **res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the shared-cluster driver
 # ---------------------------------------------------------------------------
 
 CLUSTER_JOBS = ["qwen3-1.7b", "qwen3-1.7b", "olmo-1b"]   # the example's
+# a mix with a MoE job: deepseek-moe-16b's dp+ep profile, two
+# bursts an iteration (the expert all-to-all, the data-parallel all-reduce)
+MOE_CLUSTER_JOBS = ["deepseek-moe-16b", "qwen3-1.7b", "qwen3-1.7b"]
 CLUSTER_WORK_SCALE = 0.05
 CLUSTER_SIM_TIME = 4.0
 
 
-def phase_cluster(kern) -> dict:
-    """``cluster.simulate_shared_cluster`` at the defaults of
-    ``examples/simulate_cluster.py`` (DCQCN, default against MLTCP-WI,
-    4 s, seed 0), through ``run_plan`` and the chunk kernel, counted."""
+def cluster_run(kern, jobs) -> dict:
+    """``cluster.simulate_shared_cluster(jobs)`` at the example's defaults
+    (DCQCN, default against MLTCP-WI, 4 s, seed 0) through ``run_plan``
+    and the chunk kernel, its launches counted alone; raises on a
+    fallback, a per-tick launch or a non-finite value."""
     import torch
 
     from repro_torch import cluster
@@ -2774,12 +3177,12 @@ def phase_cluster(kern) -> dict:
 
     ms, nc, ops = kern["ms"], kern["nc"], kern["ops"]
     profiles = {a: cluster.profile_from_arch(get_config(a))
-                for a in dict.fromkeys(CLUSTER_JOBS)}
+                for a in dict.fromkeys(jobs)}
     torch.cuda.synchronize()
     ms.LAUNCH_COUNT = nc.LAUNCH_COUNT = 0
     ops.FALLBACK_COUNT = ops.CHUNK_FALLBACK_COUNT = 0
     t0 = time.time()
-    rep = cluster.simulate_shared_cluster(CLUSTER_JOBS)
+    rep = cluster.simulate_shared_cluster(jobs)
     torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = dict(netsim_chunk=nc.LAUNCH_COUNT, mltcp_step=ms.LAUNCH_COUNT,
@@ -2789,13 +3192,14 @@ def phase_cluster(kern) -> dict:
                  rep.interleave_after])
     if (launches["netsim_chunk"] == 0 or launches["fallbacks"]
             or launches["mltcp_step"] or not all(map(math.isfinite, values))):
-        raise AssertionError(f"cluster run: launches {launches}, values "
-                             f"{values}")
-    res = dict(
-        jobs=CLUSTER_JOBS, algo="dcqcn", sim_time=CLUSTER_SIM_TIME, seed=0,
+        raise AssertionError(f"cluster run {jobs}: launches {launches}, "
+                             f"values {values}")
+    return dict(
+        jobs=jobs, algo="dcqcn", sim_time=CLUSTER_SIM_TIME, seed=0,
         work_scale=CLUSTER_WORK_SCALE, hw="h100-sxm5-80gb (data sheet)",
         ticks_per_point=round(CLUSTER_SIM_TIME / DT),
-        profiles={a: dict(comm_bytes=p.comm_bytes, compute_s=p.compute_s,
+        profiles={a: dict(parallelism=p.parallelism,
+                          comm_bytes=p.comm_bytes, compute_s=p.compute_s,
                           scaled_comm_bytes=[b * CLUSTER_WORK_SCALE
                                              for b in p.comm_bytes],
                           scaled_compute_s=[c * CLUSTER_WORK_SCALE
@@ -2806,6 +3210,16 @@ def phase_cluster(kern) -> dict:
         interleave_before=rep.interleave_before,
         interleave_after=rep.interleave_after, launches=launches,
         seconds=seconds)
+
+
+def phase_cluster(kern) -> dict:
+    """The shared-cluster driver on the example's mix, then on the mix
+    with a MoE job (its dp+ep profile), each counted alone."""
+    res = cluster_run(kern, CLUSTER_JOBS)
+    moe_mix = cluster_run(kern, MOE_CLUSTER_JOBS)
+    if moe_mix["profiles"]["deepseek-moe-16b"]["parallelism"] != "dp+ep":
+        raise AssertionError("the MoE job's profile is not dp+ep")
+    res["moe_mix"] = moe_mix
     emit("cluster", **res)
     return res
 
@@ -2838,7 +3252,7 @@ def armed_attributes(nc, netsim, core, workload) -> dict:
 def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
                  timing: dict, prof: dict, plans: dict, lm: dict,
                  served: dict, armed: dict, tel: dict, flt: dict,
-                 trained: dict, clustered: dict) -> list:
+                 trained: dict, families: dict, clustered: dict) -> list:
     main_row = next(r for r in kern["main_shape"] if r["algo"] == 0)
     serve_attrs = lm["flash"]["attributes"]["float32_d256"]
     rg_attrs = lm["rg_lru"]["attributes"][
@@ -2890,6 +3304,8 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
                                 "churn": flt["launches"]["netsim_chunk"]},
         # the shared-cluster driver's run (default and MLTCP, 4 s each)
         "cluster_launches": clustered["launches"]["netsim_chunk"],
+        "moe_cluster_launches":
+            clustered["moe_mix"]["launches"]["netsim_chunk"],
         "armed": armed,
         "armed_us_per_tick": tel["fig7_reno"]["armed_us_per_tick"],
         "unarmed_us_per_tick": tel["fig7_reno"]["unarmed_us_per_tick"],
@@ -2940,6 +3356,10 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
         "train_launches": trained["launches"]["flash_attention"],
         "train_launches_per_step":
             trained["launches_per_step"]["flash_attention"],
+        # the families' serve paths, a prefill each, counted alone
+        "family_launches": {arch: r["launches"]["flash_attention"]
+                            for arch, r in families.items()},
+        "family_shapes": lm["flash"]["family_shapes"],
         "backward": trained["grad_checks"]["flash"],
         "shape": lm["flash"]["shape"],
     }, {
@@ -3056,10 +3476,11 @@ def main(argv=None) -> int:
     lm = phase_lm_kernels(fa, rl, ref)
     served = phase_serve(fa, rl, sim_kernels)
     trained = phase_train(fa, rl, ref, sim_kernels)
+    families = phase_serve_families(fa, rl, sim_kernels)
     clustered = phase_cluster(sim_kernels)
     table = kernel_table(kern, main_path, states, chunks, timing, prof,
                          plans, lm, served, armed, tel, flt, trained,
-                         clustered)
+                         families, clustered)
     check_kernel_table(table)
     RESULTS["kernels"] = table
     write_results(args.out, t_start)

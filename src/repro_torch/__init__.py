@@ -17,6 +17,10 @@ the data pipeline (`data`), checkpoints (`checkpoint`) and the launcher
 and the shared-cluster driver (`cluster`) on the card's constants
 (`roofline`).
 
+Slice 9 adds the remaining model families to `models`: MoE (`moe`),
+xLSTM (`xlstm`) and the encoder-decoder (`encdec`, with cross-attention),
+so all ten configs build, serve and train.
+
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 """

@@ -10,10 +10,12 @@ schedules, and several jobs' pods share its links.
   comm_bytes/iter = 2 * (pods-1)/pods * grad_bytes        (ring all-reduce)
   compute_s/iter  = MODEL_FLOPS / (chips * peak * MFU)
 
-``hw`` is the accelerator (`roofline.hw.H100` by default; the reference's
-default is its TPU).  Parameter counts come from the port's
-`transformer.param_count` on the ``meta`` device.  MoE configs raise until
-the MoE layer is ported.
+MoE archs add a second, smaller burst before it (parallelism "dp+ep"): the
+expert-parallel all-to-all spilling across pods when the experts outgrow
+one pod, with the compute gap split 60/40 around it.  ``hw`` is the
+accelerator (`roofline.hw.H100` by default; the reference's default is its
+TPU).  Parameter counts come from the port's `transformer.param_count` on
+the ``meta`` device.
 """
 from __future__ import annotations
 
@@ -36,10 +38,6 @@ def profile_from_arch(cfg: ModelConfig, *, pods: int = 2,
     fine-tuning slices (64 accelerators a pod, 64k-token batches) whose
     cross-pod gradient all-reduce rides ``dcn_nics`` shared 50 Gbps
     uplinks."""
-    if cfg.moe is not None:
-        raise transformer.not_ported(
-            f"{cfg.name}: the expert-parallel profile (models/moe.py)",
-            "item 14")
     n_params = transformer.param_count(cfg)
     n_active = transformer.active_param_count(cfg)
 
@@ -52,5 +50,16 @@ def profile_from_arch(cfg: ModelConfig, *, pods: int = 2,
 
     flops = 6.0 * n_active * tokens_per_iter
     compute_s = flops / (pods * chips_per_pod * hw.peak_flops_bf16 * mfu)
+
+    if cfg.moe is not None and pods > 1:
+        # expert-parallel all-to-all spillover across pods: each token's
+        # hidden vector crosses the shared network once in each direction
+        # for the fraction of experts living on the other pod
+        frac_remote = (pods - 1) / pods
+        a2a = (2.0 * tokens_per_iter * cfg.moe.top_k * cfg.d_model
+               * grad_dtype_bytes * frac_remote) / (pods * dcn_nics)
+        return CommProfile(name=cfg.name,
+                           compute_s=(compute_s * 0.6, compute_s * 0.4),
+                           comm_bytes=(a2a, dcn_bytes), parallelism="dp+ep")
     return CommProfile(name=cfg.name, compute_s=(compute_s,),
                        comm_bytes=(dcn_bytes,), parallelism="dp")

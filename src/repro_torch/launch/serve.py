@@ -1,11 +1,13 @@
-"""Serving launcher: batched prefill + greedy decode on a decoder-only arch.
+"""Serving launcher: batched prefill + greedy decode on any assigned arch.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
       --preset full --batch 4 --prompt-len 4096 --new 16
 
 The port of ``repro/launch/serve.py``.  Unlike the reference launcher, the
 prefill runs through the kernels (``use_kernel=True``): flash attention and
-the RG-LRU scan.  Weights are random, drawn from ``seed``.  Runs on the
+the RG-LRU scan, where the model has them.  Weights are random, drawn from
+``seed``, and so are an audio model's frames (``max(prompt_len // 4, 4)``
+of them, the reference's request) and a vision model's patches.  Runs on the
 CUDA card unless ``device`` says otherwise (``--device cpu``).
 """
 from __future__ import annotations
@@ -48,6 +50,10 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32,
 
     req = {"tokens": torch.randint(0, cfg.vocab, (batch, prompt_len),
                                    generator=gen, device=dev)}
+    if cfg.family == "audio":
+        req["frames"] = torch.randn(
+            (batch, max(prompt_len // cfg.enc_seq_divisor, 4), cfg.d_model),
+            generator=gen, device=dev)
     if cfg.family == "vlm":
         req["patches"] = torch.randn((batch, cfg.vision_tokens, cfg.vit_dim),
                                      generator=gen, device=dev)

@@ -1,11 +1,12 @@
-"""models — the decoder-only architectures as ``nn.Module``s.
+"""models — the ten assigned architectures as ``nn.Module``s.
 
-The port of ``repro/models``: one config-driven stack (`transformer.py`)
-covers the dense and hybrid-recurrent decoder families through a
-repeating ``block_pattern``; vision patches arrive as precomputed
-embeddings.  `convert` carries parameters over from the reference's
-parameter tree.  MoE, xLSTM and the encoder-decoder stack are not ported
-yet (ROADMAP.md queue 1).
+The port of ``repro/models``: one config-driven decoder stack
+(`transformer.py`) covers the dense, MoE (`moe.py`), hybrid-recurrent
+(`rglru.py`) and xLSTM (`xlstm.py`) families through a repeating
+``block_pattern``; `encdec.py` is the encoder-decoder (audio) stack, and
+`api` dispatches between the two.  Vision patches and audio frames arrive
+as precomputed embeddings.  `convert` carries parameters over from the
+reference's parameter tree.
 """
 
 from repro_torch.models.config import ModelConfig, MoEConfig

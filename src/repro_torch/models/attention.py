@@ -1,15 +1,16 @@
-"""GQA attention covering the assigned decoder-only archs' feature matrix.
+"""GQA attention covering the assigned archs' feature matrix.
 
 The port of ``repro/models/attention.py``: grouped KV heads, RoPE, qk-norm
 (Qwen3), QKV bias (Qwen1.5), attention-logit softcap (Gemma-2), local
-sliding window (Gemma-2 / RecurrentGemma), and KV-cache decode against a
-full or a ring cache.  Cross-attention (the encoder-decoder stack) is not
-ported yet, nor the reference's sequence-sharding knob, which has no
-counterpart on one card.
+sliding window (Gemma-2 / RecurrentGemma), KV-cache decode against a
+full or a ring cache, and cross-attention (the seamless-m4t decoder:
+K/V projected from the encoder's memory, no rope, no mask).  The
+reference's sequence-sharding knob has no counterpart on one card.
 
-The full-sequence path can route through the flash-attention kernel
-(`repro_torch.kernels.ops.flash_attention`, differentiable); `attend` here
-is its oracle.
+The full-sequence self-attention path can route through the
+flash-attention kernel (`repro_torch.kernels.ops.flash_attention`,
+differentiable); `attend` here is its oracle.  Cross-attention never
+takes the kernel, as in the reference.
 
 Caches are plain dicts of tensors.  The decode steps write the new K/V
 into the cache tensors in place (a cache is the size of the whole
@@ -63,10 +64,10 @@ def init_attn(cfg, generator=None, device=None) -> Attention:
     return Attention(cfg, generator, device)
 
 
-def _project_qkv(params: Attention, cfg, x: Tensor):
+def _project_qkv(params: Attention, cfg, x: Tensor, kv_x: Tensor):
     q = torch.einsum("btd,dhk->bthk", x, params.wq)
-    k = torch.einsum("bsd,dhk->bshk", x, params.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, params.wv)
+    k = torch.einsum("bsd,dhk->bshk", kv_x, params.wk)
+    v = torch.einsum("bsd,dhk->bshk", kv_x, params.wv)
     if cfg.qkv_bias:
         q, k, v = q + params.bq, k + params.bk, v + params.bv
     if cfg.qk_norm:
@@ -144,20 +145,26 @@ def attend(cfg, q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
 
 
 def attn_forward(params: Attention, cfg, x: Tensor, *, positions: Tensor,
-                 causal: bool = True, window: int = 0,
-                 use_kernel: Optional[bool] = None, return_kv: bool = False):
-    """Full-sequence self-attention (prefill / training).  ``use_kernel``:
-    `device.use_kernels` (None: the flash kernel on a CUDA device)."""
-    q, k, v = _project_qkv(params, cfg, x)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    if use_kernels(use_kernel, q, k, v):
+                 kv_x: Optional[Tensor] = None, causal: bool = True,
+                 window: int = 0, use_kernel: Optional[bool] = None,
+                 return_kv: bool = False):
+    """Full-sequence attention (training / prefill / encoder / cross).
+    ``use_kernel``: `device.use_kernels` (None: the flash kernel on a CUDA
+    device).  With ``kv_x`` it is cross-attention: K/V come from
+    ``kv_x``, without rope or mask, and always through `attend`."""
+    cross = kv_x is not None
+    q, k, v = _project_qkv(params, cfg, x, x if kv_x is None else kv_x)
+    if not cross:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    if not cross and use_kernels(use_kernel, q, k, v):
         from repro_torch.kernels import ops as kernel_ops
         out = kernel_ops.flash_attention(q, k, v, causal=causal,
                                          window=window,
                                          softcap=cfg.attn_softcap)
     else:
-        out = attend(cfg, q, k, v, causal=causal, window=window)
+        out = attend(cfg, q, k, v, causal=causal and not cross,
+                     window=window)
     y = torch.einsum("bthk,hkd->btd", out, params.wo)
     if return_kv:
         return y, (k, v)
@@ -212,7 +219,7 @@ def fill_ring_cache(cache: dict, k: Tensor, v: Tensor, t: int) -> dict:
 def _decode_qkv(params: Attention, cfg, x: Tensor, index: int):
     positions = torch.full((x.shape[0], 1), index, dtype=torch.int32,
                            device=x.device)
-    q, k_new, v_new = _project_qkv(params, cfg, x)
+    q, k_new, v_new = _project_qkv(params, cfg, x, x)
     q = rope(q, positions, cfg.rope_theta)
     k_new = rope(k_new, positions, cfg.rope_theta)   # rotate at write time
     return q, k_new, v_new

@@ -4,8 +4,11 @@ reference's layout and the port's.
 The reference keeps parameters as a nested dict whose ``groups`` leaves
 carry a leading ``[n_groups]`` axis (stepped by ``lax.scan``), beside
 unstacked ``lead`` and ``tail`` blocks; the port keeps one `Block` per
-layer.  Both name the tensors inside a block alike (``norm1``, ``attn/wq``,
-``rec/w_x``, ``ffn/gate``, ...), so a block's subtree maps onto its module
+layer.  The encoder-decoder's ``enc`` and ``dec`` leaves carry a leading
+layer axis each, where the port keeps the ``ModuleList``s ``enc`` and
+``dec``.  Both name the tensors inside a block alike (``norm1``,
+``attn/wq``, ``rec/w_x``, ``moe/shared/gate``, ``mlstm/w_if``,
+``cross_attn/wk``, ...), so a block's subtree maps onto its module
 attribute by attribute.  Everything here works on numpy arrays; the tests
 hand the reference's trees over with ``jax.device_get``.
 """
@@ -16,8 +19,10 @@ import torch
 import torch.nn as nn
 
 from repro_torch.device import resolve
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
+
+_ENCDEC_STACKS = ("enc", "dec")
 
 
 def _layer_slots(cfg: ModelConfig):
@@ -52,13 +57,26 @@ def _assign(module: nn.Module, tree: dict, prefix: str, done: set) -> None:
 
 
 def params_from_reference(cfg: ModelConfig, tree: dict,
-                          device=None) -> transformer.Model:
-    """The port's model holding the reference parameter tree ``tree``
-    (nested dicts of numpy arrays).  Raises if a tensor's shape differs or
-    a parameter of the port is left unset."""
-    model = transformer.Model(cfg, device=torch.device("meta"))
+                          device=None) -> nn.Module:
+    """The port's model (a `transformer.Model`, or an `encdec.EncDec` for
+    an encoder-decoder config) holding the reference parameter tree
+    ``tree`` (nested dicts of numpy arrays).  Raises if a tensor's shape
+    differs or a parameter of the port is left unset."""
+    meta = torch.device("meta")
+    if cfg.enc_layers > 0:
+        model = encdec.EncDec(cfg, device=meta).to_empty(
+            device=resolve(device))
+        done: set = set()
+        _assign(model, {k: v for k, v in tree.items()
+                        if k not in _ENCDEC_STACKS}, "", done)
+        for name in _ENCDEC_STACKS:
+            for i, blk in enumerate(getattr(model, name)):
+                _assign(blk, _index_tree(tree[name], i), f"{name}/{i}/",
+                        done)
+        return _check_all_set(model, done)
+    model = transformer.Model(cfg, device=meta)
     model = model.to_empty(device=resolve(device))
-    done: set = set()
+    done = set()
     top = {k: v for k, v in tree.items()
            if k not in ("lead", "groups", "tail")}
     _assign(model, top, "", done)
@@ -67,6 +85,10 @@ def params_from_reference(cfg: ModelConfig, tree: dict,
         if g is not None:
             sub = _index_tree(sub, g)
         _assign(blk, sub, f"{section}/{key}/", done)
+    return _check_all_set(model, done)
+
+
+def _check_all_set(model: nn.Module, done: set) -> nn.Module:
     unset = [name for name, p in model.named_parameters()
              if id(p) not in done]
     if unset:
@@ -85,7 +107,12 @@ def _index_tree(tree, g: int):
 def cache_to_reference_layout(cfg: ModelConfig, cache: dict) -> dict:
     """The port's cache ({layer index: {name: tensor}}) in the reference's
     nested layout, as numpy arrays: ``lead``/``tail`` by str(i), ``groups``
-    by f"b{j}" with a leading [n_groups] axis."""
+    by f"b{j}" with a leading [n_groups] axis.  An encoder-decoder's cache
+    has the reference's layout already (``self``/``cross``, [L, ...])."""
+    if cfg.enc_layers > 0:
+        return {part: {name: t.detach().cpu().numpy()
+                       for name, t in kv.items()}
+                for part, kv in cache.items()}
     out: dict = {}
     stacked: dict = {}
     for i, (section, key, g) in enumerate(_layer_slots(cfg)):
@@ -113,25 +140,28 @@ def params_to_reference(cfg: ModelConfig, named) -> dict:
     tensor with the model's names: its gradients, its AdamW moments) in the
     reference's nested layout, as numpy arrays (bfloat16 as float32):
     ``lead``/``tail`` blocks by str(i), ``groups`` by f"b{j}" with a
-    leading [n_groups] axis.  The inverse of `params_from_reference`."""
+    leading [n_groups] axis; an encoder-decoder's ``enc``/``dec`` blocks
+    with a leading layer axis.  The inverse of `params_from_reference`."""
     if isinstance(named, nn.Module):
         named = dict(named.named_parameters())
-    slots = _layer_slots(cfg)
+    slots = None if cfg.enc_layers > 0 else _layer_slots(cfg)
     out: dict = {}
-    stacked: dict = {}
+    stacked: dict = {}      # (path to the stacked leaf) -> {index: array}
     for name, t in named.items():
         t = t.detach()
         arr = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
         parts = name.split(".")
-        if parts[0] != "layers":
+        if slots is None and parts[0] in _ENCDEC_STACKS:
+            stacked.setdefault((parts[0], *parts[2:]), {})[int(parts[1])] = arr
+        elif parts[0] != "layers":
             _put(out, parts, arr)
-            continue
-        section, key, g = slots[int(parts[1])]
-        if g is None:
-            _put(out, [section, key] + parts[2:], arr)
         else:
-            stacked.setdefault((key, tuple(parts[2:])), {})[g] = arr
-    for (key, rest), per_group in stacked.items():
-        _put(out, ["groups", key, *rest],
-             np.stack([per_group[g] for g in sorted(per_group)]))
+            section, key, g = slots[int(parts[1])]
+            if g is None:
+                _put(out, [section, key] + parts[2:], arr)
+            else:
+                stacked.setdefault(("groups", key, *parts[2:]), {})[g] = arr
+    for path, per_index in stacked.items():
+        _put(out, list(path), np.stack([per_index[i]
+                                        for i in sorted(per_index)]))
     return out

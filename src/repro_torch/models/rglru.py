@@ -97,8 +97,10 @@ def scan_rg_lru(a: Tensor, b: Tensor, h0: Optional[Tensor] = None) -> Tensor:
     return b
 
 
-def conv1d_causal(params: RGLRU, x: Tensor, state: Optional[Tensor] = None):
-    """Depthwise causal temporal conv. x: [B, T, D]; state: [B, W-1, D]."""
+def conv1d_causal(params, x: Tensor, state: Optional[Tensor] = None):
+    """Depthwise causal temporal conv. x: [B, T, D]; state: [B, W-1, D].
+    ``params``: anything with ``conv_w`` [W, D] and ``conv_b`` [D] (the
+    RG-LRU block, the xLSTM blocks)."""
     w = params.conv_w                         # [W, D]
     width = w.shape[0]
     pad = (torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype,

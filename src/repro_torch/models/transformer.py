@@ -1,4 +1,4 @@
-"""The decoder stack driving the decoder-only architectures.
+"""The decoder stack driving every decoder-only architecture.
 
 The port of ``repro/models/transformer.py``.  The layer plan is the
 reference's:
@@ -13,8 +13,8 @@ stacked on a leading group axis for ``lax.scan``.  A cache is a plain dict
 from layer index to that layer's dict of tensors.
 
 Block kinds: "attn" (global), "attn_local" (sliding window), "rec"
-(RG-LRU).  FFN kinds per position: "dense" | "none".  The "mlstm"/"slstm"
-blocks and the "moe" FFN are not ported yet and raise.
+(RG-LRU), "mlstm", "slstm".  FFN kinds per position: "dense" | "moe" |
+"none".  The encoder-decoder stack is `encdec.py`.
 """
 from __future__ import annotations
 
@@ -26,79 +26,79 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.kernels.ref import f32_sqrt
-from repro_torch.models import attention, layers, rglru
+from repro_torch.models import attention, layers, rglru, xlstm
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, embed_init, norm, norm_param
 
 Tensor = torch.Tensor
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"repro_torch: {what} is not ported yet (ROADMAP.md queue 1, {item})")
-
-
-def check_decoder_only(cfg: ModelConfig) -> None:
-    if cfg.enc_layers > 0:
-        raise not_ported(
-            f"{cfg.name}: the encoder-decoder stack (models/encdec.py)",
-            "item 16")
-
-
-def _check_ported(kind: str, ffn_kind: str) -> None:
-    if kind in ("mlstm", "slstm"):
-        raise not_ported(f"the {kind} block (models/xlstm.py)", "item 15")
-    if ffn_kind == "moe":
-        raise not_ported("the MoE FFN (models/moe.py)", "item 14")
-    if kind not in ("attn", "attn_local", "rec"):
-        raise ValueError(f"unknown block kind {kind!r}")
-
-
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
+MIXERS = ("attn", "attn_local", "rec", "mlstm", "slstm")
+
+
 class Block(nn.Module):
-    """One residual block: ``norm1``, the mixer (``attn`` or ``rec``),
-    ``postnorm1`` with post-norm, then with a dense FFN ``norm2``, ``ffn``
-    and ``postnorm2`` — the reference's parameter names.  A norm of a
-    non-parametric config is None."""
+    """One residual block: ``norm1``, the mixer (``attn``, ``rec``,
+    ``mlstm`` or ``slstm``), ``postnorm1`` with post-norm, then with a
+    dense or MoE FFN ``norm2``, ``ffn`` or ``moe``, and ``postnorm2`` — the
+    reference's parameter names.  A norm of a non-parametric config is
+    None."""
 
     def __init__(self, cfg: ModelConfig, kind: str, ffn_kind: str, d_ff: int,
                  generator=None, device=None):
         super().__init__()
-        _check_ported(kind, ffn_kind)
+        if kind not in MIXERS:
+            raise ValueError(f"unknown block kind {kind!r}")
         dev = device if device is not None else generator.device
         self.kind, self.ffn_kind = kind, ffn_kind
         d = cfg.d_model
         self.norm1 = norm_param(cfg, d, dev)
         if kind in ("attn", "attn_local"):
             self.attn = attention.init_attn(cfg, generator, dev)
-        else:
+        elif kind == "rec":
             self.rec = rglru.init_rglru_block(cfg, generator, dev)
+        elif kind == "mlstm":
+            self.mlstm = xlstm.init_mlstm_block(cfg, generator, dev)
+        else:
+            self.slstm = xlstm.init_slstm_block(cfg, generator, dev)
         if cfg.post_norm:
             self.postnorm1 = norm_param(cfg, d, dev)
-        if ffn_kind == "dense":
+        if ffn_kind in ("dense", "moe"):
             self.norm2 = norm_param(cfg, d, dev)
-            self.ffn = layers.MLP(d, d_ff, generator, dev)
+            if ffn_kind == "dense":
+                self.ffn = layers.MLP(d, d_ff, generator, dev)
+            else:
+                self.moe = moe_mod.init_moe(cfg, generator, dev)
             if cfg.post_norm:
                 self.postnorm2 = norm_param(cfg, d, dev)
 
-    def finish(self, cfg, h: Tensor, y: Tensor) -> Tensor:
-        """Post-norm the mixer output y, add it to h, then the FFN."""
+    def finish(self, cfg, h: Tensor, y: Tensor
+               ) -> tuple[Tensor, Optional[Tensor]]:
+        """Post-norm the mixer output y, add it to h, then the FFN.
+        Returns (h, the MoE auxiliary loss, None without a MoE FFN)."""
+        aux = None
         if cfg.post_norm:
             y = norm(cfg, y, self.postnorm1)
         h = h + y
-        if self.ffn_kind == "dense":
-            y = layers.mlp(self.ffn, norm(cfg, h, self.norm2))
+        if self.ffn_kind in ("dense", "moe"):
+            x = norm(cfg, h, self.norm2)
+            if self.ffn_kind == "dense":
+                y = layers.mlp(self.ffn, x)
+            else:
+                y, aux = moe_mod.moe_forward(self.moe, cfg, x)
             if cfg.post_norm:
                 y = norm(cfg, y, self.postnorm2)
             h = h + y
-        return h
+        return h, aux
 
 
 def _apply_block(cfg: ModelConfig, blk: Block, h: Tensor, positions: Tensor,
-                 use_kernel: Optional[bool]) -> Tensor:
+                 use_kernel: Optional[bool]
+                 ) -> tuple[Tensor, Optional[Tensor]]:
     x = norm(cfg, h, blk.norm1)
     if blk.kind == "attn":
         y = attention.attn_forward(blk.attn, cfg, x, positions=positions,
@@ -106,8 +106,12 @@ def _apply_block(cfg: ModelConfig, blk: Block, h: Tensor, positions: Tensor,
     elif blk.kind == "attn_local":
         y = attention.attn_forward(blk.attn, cfg, x, positions=positions,
                                    window=cfg.window, use_kernel=use_kernel)
-    else:
+    elif blk.kind == "rec":
         y = rglru.rglru_forward(blk.rec, cfg, x, use_kernel=use_kernel)
+    elif blk.kind == "mlstm":
+        y = xlstm.mlstm_forward(blk.mlstm, cfg, x)
+    else:
+        y = xlstm.slstm_forward(blk.slstm, cfg, x)
     return blk.finish(cfg, h, y)
 
 
@@ -127,11 +131,16 @@ def _apply_block_prefill(cfg: ModelConfig, blk: Block, h: Tensor,
             attention.fill_kv_cache(cache, k, v)
         else:
             attention.fill_ring_cache(cache, k, v, t)
-    else:
+    elif blk.kind == "rec":
         y, cache = rglru.rglru_forward(blk.rec, cfg, x,
                                        use_kernel=use_kernel,
                                        return_state=True)
-    return blk.finish(cfg, h, y), cache
+    elif blk.kind == "mlstm":
+        y, cache = xlstm.mlstm_forward(blk.mlstm, cfg, x, return_state=True)
+    else:
+        y, cache = xlstm.slstm_forward(blk.slstm, cfg, x, return_state=True)
+    h, _ = blk.finish(cfg, h, y)
+    return h, cache
 
 
 def _decode_block(cfg: ModelConfig, blk: Block, h: Tensor, cache: dict,
@@ -142,9 +151,14 @@ def _decode_block(cfg: ModelConfig, blk: Block, h: Tensor, cache: dict,
     elif blk.kind == "attn_local":
         y, cache = attention.attn_decode_ring(blk.attn, cfg, x, cache, index,
                                               window=cfg.window)
-    else:
+    elif blk.kind == "rec":
         y, cache = rglru.rglru_decode(blk.rec, cfg, x, cache)
-    return blk.finish(cfg, h, y), cache
+    elif blk.kind == "mlstm":
+        y, cache = xlstm.mlstm_decode(blk.mlstm, cfg, x, cache)
+    else:
+        y, cache = xlstm.slstm_decode(blk.slstm, cfg, x, cache)
+    h, _ = blk.finish(cfg, h, y)
+    return h, cache
 
 
 def _block_plan(cfg: ModelConfig):
@@ -177,8 +191,6 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
-        for kind, ffn, _ in layer_plan(cfg):
-            _check_ported(kind, ffn)
         dev = device if device is not None else generator.device
         self.cfg = cfg
         d = cfg.d_model
@@ -229,18 +241,22 @@ def _positions(h: Tensor) -> Tensor:
     return torch.arange(h.shape[1], device=h.device).expand(h.shape[:2])
 
 
-def _apply_blocks(cfg: ModelConfig, blocks, h: Tensor, positions: Tensor,
-                  use_kernel: Optional[bool]) -> Tensor:
+def _apply_blocks(cfg: ModelConfig, blocks, h: Tensor, aux: Tensor,
+                  positions: Tensor, use_kernel: Optional[bool]
+                  ) -> tuple[Tensor, Tensor]:
     for blk in blocks:
-        h = _apply_block(cfg, blk, h, positions, use_kernel)
-    return h
+        h, a = _apply_block(cfg, blk, h, positions, use_kernel)
+        if a is not None:   # a block without MoE adds the reference's 0
+            aux = aux + a
+    return h, aux
 
 
 def forward(cfg: ModelConfig, model: Model, tokens: Tensor,
             extra_embeds: Optional[Tensor] = None,
             use_kernel: Optional[bool] = None,
             remat: bool = True) -> tuple[Tensor, Tensor]:
-    """Returns (logits [B, T, V], aux_loss scalar).
+    """Returns (logits [B, T, V], aux_loss scalar: the MoE layers'
+    load-balance losses summed in layer order, 0 without MoE).
 
     ``remat``: where the reference wraps its layer-group scan body in
     ``jax.checkpoint``, each group of ``block_pattern`` runs under
@@ -253,24 +269,25 @@ def forward(cfg: ModelConfig, model: Model, tokens: Tensor,
     lead, pattern, n_groups, _ = _block_plan(cfg)
     h = embed_inputs(cfg, model, tokens, extra_embeds)
     positions = _positions(h)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     blocks = list(model.layers)
     n_lead, width = len(lead), len(pattern)
-    h = _apply_blocks(cfg, blocks[:n_lead], h, positions, use_kernel)
+    h, aux = _apply_blocks(cfg, blocks[:n_lead], h, aux, positions,
+                           use_kernel)
     for g in range(n_groups):
         group = blocks[n_lead + g * width: n_lead + (g + 1) * width]
         if remat and torch.is_grad_enabled():
             # the blocks draw no random numbers: no RNG state to replay
-            h = checkpoint(_apply_blocks, cfg, group, h, positions,
-                           use_kernel, use_reentrant=False,
-                           preserve_rng_state=False)
+            h, aux = checkpoint(_apply_blocks, cfg, group, h, aux, positions,
+                                use_kernel, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            h = _apply_blocks(cfg, group, h, positions, use_kernel)
-    h = _apply_blocks(cfg, blocks[n_lead + n_groups * width:], h, positions,
-                      use_kernel)
+            h, aux = _apply_blocks(cfg, group, h, aux, positions, use_kernel)
+    h, aux = _apply_blocks(cfg, blocks[n_lead + n_groups * width:], h, aux,
+                           positions, use_kernel)
     h = norm(cfg, h, model.final_norm)
     logits = layers.softcap(h @ model.head_matrix(), cfg.logit_softcap)
-    # no MoE layer is ported, so there is no auxiliary loss
-    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+    return logits, aux
 
 
 def prefill(cfg: ModelConfig, model: Model, tokens: Tensor, max_len: int,
@@ -300,17 +317,18 @@ def _init_block_cache(cfg, kind: str, batch: int, max_len: int, dtype,
     if kind == "attn_local":
         w = min(cfg.window or max_len, max_len)
         return attention.init_ring_cache(cfg, batch, w, dtype, device)
-    return rglru.init_rglru_cache(cfg, batch, dtype, device)
+    if kind == "rec":
+        return rglru.init_rglru_cache(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        return xlstm.init_mlstm_cache(cfg, batch, dtype, device)
+    return xlstm.init_slstm_cache(cfg, batch, dtype, device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device=None) -> dict:
     dev = resolve(device)
-    plan = layer_plan(cfg)
-    for kind, ffn, _ in plan:
-        _check_ported(kind, ffn)
     return {i: _init_block_cache(cfg, kind, batch, max_len, dtype, dev)
-            for i, (kind, _, _) in enumerate(plan)}
+            for i, (kind, _, _) in enumerate(layer_plan(cfg))}
 
 
 def decode_step(cfg: ModelConfig, model: Model, cache: dict, token: Tensor,
@@ -333,16 +351,25 @@ def decode_step(cfg: ModelConfig, model: Model, cache: dict, token: Tensor,
 # ---------------------------------------------------------------------------
 
 def param_count(cfg: ModelConfig) -> int:
-    """Parameters of the model, counted on the ``meta`` device (nothing is
-    allocated, so a full-size config costs nothing)."""
-    check_decoder_only(cfg)
-    model = Model(cfg, device=torch.device("meta"))
+    """Parameters of the model (the encoder-decoder's for an encdec
+    config), counted on the ``meta`` device: nothing is allocated, so a
+    full-size config costs nothing."""
+    if cfg.enc_layers > 0:
+        from repro_torch.models import encdec
+        model = encdec.EncDec(cfg, device=torch.device("meta"))
+    else:
+        model = Model(cfg, device=torch.device("meta"))
     return sum(p.numel() for p in model.parameters())
 
 
 def active_param_count(cfg: ModelConfig) -> int:
-    """Params touched per token: the total minus the embedding lookup table
-    (gather, not matmul).  No MoE layer is ported, so no routed expert is
-    inactive."""
-    embed = cfg.vocab * cfg.d_model
-    return param_count(cfg) - (embed if not cfg.tie_embeddings else 0)
+    """Params touched per token: total minus the routed experts not selected
+    and minus the embedding lookup table (gather, not matmul)."""
+    total = param_count(cfg)
+    embed = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model
+    if cfg.moe is None:
+        return total - embed
+    m = cfg.moe
+    per_expert = 3 * cfg.d_model * (m.d_expert or cfg.d_ff)
+    n_moe = sum(1 for _, ffn, _ in layer_plan(cfg) if ffn == "moe")
+    return total - n_moe * (m.n_experts - m.top_k) * per_expert - embed

@@ -37,7 +37,8 @@ def make_decode_step(cfg: ModelConfig):
 
 
 def prompt_length(cfg: ModelConfig, batch: dict) -> int:
-    """Positions the prefill fills: the tokens, after any vision patches."""
+    """Positions the prefill fills: the tokens, after any vision patches
+    (an encoder-decoder's frames are the encoder's, not the decoder's)."""
     n = batch["tokens"].shape[1]
     if "patches" in batch:
         n += batch["patches"].shape[1]

@@ -191,3 +191,68 @@ def random_feedback_arrays(rng, shape) -> dict:
                 .astype(np.float32),
                 loss=rng.uniform(size=shape) < 0.2,
                 cnp=rng.uniform(size=shape) < 0.3)
+
+
+def reference_layer(tree: dict, slot) -> dict:
+    """The reference parameter (or cache) subtree of one layer of the
+    decoder stack, as numpy arrays; ``slot`` is the layer's (section, key,
+    group) from ``repro_torch.models.convert._layer_slots``."""
+    import numpy as np
+
+    section, key, g = slot
+
+    def take(x):
+        if isinstance(x, dict):
+            return {k: take(v) for k, v in x.items()}
+        return np.asarray(x) if g is None else np.asarray(x)[g]
+    return take(tree[section][key])
+
+
+def loss_and_grads(arch: str, batch: dict, **overrides) -> dict:
+    """`train_step.loss_fn` and its gradients in both packages, for
+    ``arch`` scaled down with ``overrides``, on ``batch`` (numpy arrays),
+    with the reference's initial parameters carried into the port: the
+    two losses and auxiliary losses, and per gradient leaf (by the
+    reference's path) the max |port - reference| and the leaf's max
+    |reference|.  The reference runs with its defaults (``use_kernel``
+    False, remat), the port on the CPU likewise."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import convert
+    from repro_torch.train import TrainHyper, loss_fn
+
+    ref = load_reference()
+    rts = ref["repro.train.train_step"]
+    rcfg = ref["repro.configs"].get_config(arch).scaled_down(**overrides)
+    pcfg = get_config(arch).scaled_down(**overrides)
+    rparams = ref["repro.models.api"].init_params(rcfg,
+                                                  jax.random.PRNGKey(0))
+    rh = rts.TrainHyper()
+    (rloss, rmetrics), rgrads = jax.value_and_grad(
+        lambda p: rts.loss_fn(rcfg, p, {k: jnp.asarray(v)
+                                        for k, v in batch.items()}, rh),
+        has_aux=True)(rparams)
+    model = convert.params_from_reference(pcfg, jax.device_get(rparams),
+                                          device="cpu")
+    params = dict(model.named_parameters())
+    ploss, pmetrics = loss_fn(pcfg, model, {k: torch.from_numpy(v)
+                                            for k, v in batch.items()},
+                              TrainHyper())
+    pgrads = dict(zip(params, torch.autograd.grad(ploss,
+                                                  list(params.values()))))
+
+    def flat(tree):
+        return {jax.tree_util.keystr(k): np.asarray(v, np.float32)
+                for k, v in jax.tree_util.tree_flatten_with_path(
+                    jax.device_get(tree))[0]}
+    got, want = flat(convert.params_to_reference(pcfg, pgrads)), flat(rgrads)
+    assert got.keys() == want.keys(), set(got) ^ set(want)
+    return dict(loss=(float(ploss.detach()), float(rloss)),
+                aux=(float(pmetrics["aux"].detach()),
+                     float(rmetrics["aux"])),
+                grads={k: (float(np.abs(got[k] - want[k]).max()),
+                           float(np.abs(want[k]).max())) for k in want})

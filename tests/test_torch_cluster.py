@@ -5,9 +5,10 @@ CPU.
 `profile_from_arch` takes the reference's own TPU constants (its ``V5E``
 fields, built into the port's `HwSpec` here) so the two compute the same
 profile: bytes and compute gaps equal within 1e-12 relative (the same
-float arithmetic in Python; measured equal), for every architecture the
-port's model stack builds, with and without compression.  The others
-raise, naming their ROADMAP item.
+float arithmetic in Python; measured equal), for all ten architectures,
+with and without compression: the MoE configs' "dp+ep" profile has two
+bursts an iteration (the expert all-to-all, then the data-parallel
+all-reduce).
 
 `simulate_shared_cluster` runs the example's three jobs at 0.1 s of
 simulated time through both packages (the reference's ``run_plan`` on
@@ -15,7 +16,9 @@ JAX, the port's on its CPU path), on the reference's constants: the jobs'
 iteration counts must be equal, and each per-job average iteration time
 and the speedups within 2% (Tier B: loss and CNP draws threshold on
 ``expm1``, which the two libraries round differently, so runs may
-diverge; measured equal).
+diverge; measured equal).  The same holds for a mix with a MoE job
+(deepseek-moe-16b beside two qwen3-1.7b jobs, the dp+ep profile), whose
+points the chunk kernel takes on the card (no fallback reason).
 """
 import dataclasses
 
@@ -24,16 +27,15 @@ import pytest
 
 from _torch_reference import load_reference, reference_modules
 
-from repro_torch import cluster
+from repro_torch import cluster, netsim
 from repro_torch.cluster import runner as prunner
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.kernels import ops
 from repro_torch.optim import CompressionConfig
 from repro_torch.roofline import H100, HwSpec
 
-UNPORTED = {"deepseek-moe-16b": "item 14", "llama4-maverick-400b-a17b":
-            "item 14", "xlstm-125m": "item 15",
-            "seamless-m4t-medium": "item 16"}
 CLUSTER_JOBS = ["qwen3-1.7b", "qwen3-1.7b", "olmo-1b"]
+MOE_JOBS = ["deepseek-moe-16b", "qwen3-1.7b", "qwen3-1.7b"]
 
 
 def _v5e() -> HwSpec:
@@ -46,7 +48,7 @@ def _rcluster():
     return load_reference()["repro.cluster"]
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in UNPORTED])
+@pytest.mark.parametrize("arch", ARCH_IDS)
 @pytest.mark.parametrize("compression", [None, ("topk", 0.01),
                                          ("int8", 0.01)], ids=str)
 def test_profile_from_arch_matches_reference(arch, compression):
@@ -64,10 +66,17 @@ def test_profile_from_arch_matches_reference(arch, compression):
     np.testing.assert_allclose(got.compute_s, want.compute_s, rtol=1e-12)
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_profile_from_arch_raises_for_unported_models(arch):
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-        cluster.profile_from_arch(get_config(arch))
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_profiles_have_two_bursts(arch):
+    prof = cluster.profile_from_arch(get_config(arch))
+    assert prof.parallelism == "dp+ep"
+    assert len(prof.comm_bytes) == len(prof.compute_s) == 2
+    # the all-to-all is the smaller burst; the gap splits 60/40 around it
+    assert 0 < prof.comm_bytes[0] < prof.comm_bytes[1]
+    np.testing.assert_allclose(prof.compute_s[0] / prof.compute_s[1], 1.5)
+    one_pod = cluster.profile_from_arch(get_config(arch), pods=1)
+    assert one_pod.parallelism == "dp" and len(one_pod.comm_bytes) == 1
 
 
 def test_h100_constants_and_default():
@@ -94,16 +103,19 @@ def _captured(module, monkeypatch):
     return seen
 
 
-def test_simulate_shared_cluster_matches_reference(monkeypatch):
+def _cluster_against_reference(jobs, monkeypatch, **kw):
+    """Both packages' `simulate_shared_cluster` on ``jobs`` at 0.1 s (and
+    ``kw``), the port on the CPU: the reports, held to the module's Tier B
+    bounds, and the port's PlanResult."""
     rrunner = load_reference()["repro.cluster"].runner
     with reference_modules():
         rseen = _captured(rrunner, monkeypatch)
-        want = rrunner.simulate_shared_cluster(CLUSTER_JOBS, sim_time=0.1)
+        want = rrunner.simulate_shared_cluster(jobs, sim_time=0.1, **kw)
     pseen = _captured(prunner, monkeypatch)
-    got = cluster.simulate_shared_cluster(CLUSTER_JOBS, sim_time=0.1,
-                                          hw=_v5e(), device="cpu")
+    got = cluster.simulate_shared_cluster(jobs, sim_time=0.1, hw=_v5e(),
+                                          device="cpu", **kw)
     assert isinstance(got, cluster.ClusterReport)
-    assert got.jobs == want.jobs == CLUSTER_JOBS
+    assert got.jobs == want.jobs == jobs
     for scheme in ("default", "mltcp"):
         (r,), (p,) = (rseen[0].select(scheme=scheme),
                       pseen[0].select(scheme=scheme))
@@ -117,3 +129,21 @@ def test_simulate_shared_cluster_matches_reference(monkeypatch):
                  "interleave_after"):
         np.testing.assert_allclose(getattr(got, name), getattr(want, name),
                                    rtol=0.02, atol=0.02)
+    return pseen[0]
+
+
+def test_simulate_shared_cluster_matches_reference(monkeypatch):
+    _cluster_against_reference(CLUSTER_JOBS, monkeypatch)
+
+
+def test_moe_cluster_mix_matches_reference_and_takes_the_chunk_kernel(
+        monkeypatch):
+    # a fifth of the example's work scale: the MoE job's iteration (~25 ms
+    # at 0.05 on the reference's constants) would leave it one in 0.1 s
+    pr = _cluster_against_reference(MOE_JOBS, monkeypatch, work_scale=0.01)
+    for scheme in ("default", "mltcp"):
+        cfg = pr.plan.build({"scheme": scheme})
+        # the MoE job's two comm phases an iteration
+        assert list(cfg.jobs.n_phases) == [2, 1, 1]
+        sweep = netsim.make_sweep(cfg, device="cpu")
+        assert ops.chunk_fallback_reason(cfg, sweep) is None

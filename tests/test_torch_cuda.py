@@ -16,6 +16,8 @@ path, its sketch bins against torch's, and a plan with
 telemetry and a fault-schedule axis on the kernel.  Without a card every
 test skips, with its reason.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -441,3 +443,88 @@ def test_cuda_prefill_default_launches_the_kernels():
     kinds = [blk.kind for blk in model.layers]
     assert (fa.LAUNCH_COUNT - before[0], rl.LAUNCH_COUNT - before[1]) == \
         (kinds.count("attn_local"), kinds.count("rec"))
+
+
+# the new families, scaled down: (arch, overrides, flash launches a prefill)
+FAMILIES = [("deepseek-moe-16b", {}, 2),        # 2 causal attention layers
+            ("seamless-m4t-medium", {}, 4),     # 2 encoder + 2 decoder self
+            ("xlstm-125m", {}, 0)]              # no kernel on its path
+FAMILY_REL_BOUND = 1e-3     # chip_smoke.py's kernel path vs plain path
+
+
+def _rel(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("arch,over,flash", FAMILIES, ids=str)
+def test_cuda_family_prefill_kernel_path_equals_plain_path(arch, over, flash):
+    """The MoE, encoder-decoder and xLSTM stacks on the card: the default
+    prefill launches flash for each self-attention layer (bidirectional in
+    the encoder) and never for cross-attention, and agrees with the plain
+    path within FAMILY_REL_BOUND of its largest logit and cache entry."""
+    cfg = get_config(arch).scaled_down(**over)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    model = api.init_params(cfg, gen, device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 40), generator=gen,
+                                     device=dev)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((2, 10, cfg.d_model), generator=gen,
+                                      device=dev)
+    before = fa.LAUNCH_COUNT
+    with torch.no_grad():
+        lk, ck = api.prefill(cfg, model, batch, 48)
+        assert fa.LAUNCH_COUNT - before == flash
+        lp, cp = api.prefill(cfg, model, batch, 48, use_kernel=False)
+    assert fa.LAUNCH_COUNT - before == flash
+    assert bool(torch.isfinite(lk).all())
+    assert _rel(lk, lp) <= FAMILY_REL_BOUND
+    for i in cp:
+        for name in cp[i]:
+            assert _rel(ck[i][name], cp[i][name]) <= FAMILY_REL_BOUND, \
+                (i, name)
+
+
+# flash launches of one kernel-path loss and gradient, forward and remat
+# recompute: deepseek's dense lead layer is not rematerialized, its MoE
+# layer is (a group of its pattern); the encoder-decoder rematerializes
+# every block
+TWO_LAYER_FLASH = {"deepseek-moe-16b": 2 + 1, "seamless-m4t-medium": 4 + 4}
+
+
+@pytest.mark.parametrize("arch", list(TWO_LAYER_FLASH))
+def test_cuda_full_width_two_layers_loss_and_gradients_kernel_vs_plain(arch):
+    """Full published widths cut to two layers (seamless: two encoder and
+    two decoder layers), 1 x 256 tokens: the loss and every gradient leaf
+    through the kernels (flash forward and its dense VJP, the encoder's
+    bidirectional) within FAMILY_REL_BOUND of the plain path's."""
+    from repro_torch.train import TrainHyper, loss_fn
+
+    over = dict(n_layers=2)
+    if arch == "seamless-m4t-medium":
+        over["enc_layers"] = 2
+    cfg = dataclasses.replace(get_config(arch), **over)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    model = api.init_params(cfg, gen, device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, 256), generator=gen,
+                                     device=dev)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((1, 64, cfg.d_model), generator=gen,
+                                      device=dev)
+    params = dict(model.named_parameters())
+    out = []
+    for use_kernel in (True, False):
+        before = fa.LAUNCH_COUNT
+        loss, metrics = loss_fn(cfg, model, batch,
+                                TrainHyper(use_kernel=use_kernel))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        launched = fa.LAUNCH_COUNT - before
+        out.append((loss.detach(), dict(zip(params, grads)), launched))
+        del grads
+    (lk, gk, nk), (lp, gp, np_) = out
+    assert (nk, np_) == (TWO_LAYER_FLASH[arch], 0)
+    assert bool(torch.isfinite(lk))
+    assert float(abs(lk - lp) / abs(lp)) <= FAMILY_REL_BOUND
+    for name in gp:
+        assert _rel(gk[name], gp[name]) <= FAMILY_REL_BOUND, name

@@ -11,7 +11,12 @@ and a 40-token prompt, so the ring cache wraps and the 2-block tail after
 the two groups runs; gemma2-27b with an 8-token window (softcaps,
 post-norm, local attention); qwen3-1.7b (qk-norm), olmo-1b
 (non-parametric norm), qwen1.5-4b (QKV bias), internvl2-1b (vision
-patches), all scaled down.
+patches), deepseek-moe-16b (a dense lead layer, then MoE with a shared
+expert), llama4-maverick (dense and MoE layers interleaved), xlstm-125m
+(mLSTM and sLSTM blocks, their recurrent caches) and seamless-m4t-medium
+(the encoder-decoder over numpy frames: self and cross caches), all scaled
+down.  The MoE configs' routing at these seeds lies at least 4.3e-4 from a
+flip (tests/test_torch_moe.py), and their auxiliary loss is compared too.
 
 Tolerances.  The two packages round differently (XLA fuses `a*b+c` into
 FMAs and sums in another order; torch's `tanh`/`sin`/`pow` differ by ulps,
@@ -19,7 +24,13 @@ and the reference's associative scan associates otherwise than the port's
 log-depth scan).  Measured on the CPU (jax 0.9.0, torch 2.13): logits
 within 2.2e-6 absolute (largest logit ~3.2), caches within 5.3e-6.  The
 bounds below are about 5x and 10x those: atol 1e-5 / rtol 1e-5 on logits,
-atol 5e-5 / rtol 1e-5 on caches; ring positions exactly.
+atol 5e-5 / rtol 1e-5 on caches; ring positions exactly.  The auxiliary
+loss within rtol 1e-6 (measured 1-2 ulp).  xlstm-125m comes closest to
+them: its mLSTM's cumulative log-gates are summed in another order, and
+the parallel form divides by their exponentials (forward logits 9.3e-6,
+prefill 4.5e-6, decode 5.6e-6; caches 2.9e-5, in the last block's conv
+state, the residual stream after seven blocks, up to 3.7); the other new
+configs stay under 2.7e-6.
 """
 import dataclasses
 import functools
@@ -49,7 +60,12 @@ CASES = {
     "olmo-1b": ({}, 24),
     "qwen1.5-4b": ({}, 24),
     "internvl2-1b": ({}, 16),
+    "deepseek-moe-16b": ({}, 24),
+    "llama4-maverick-400b-a17b": ({}, 24),
+    "xlstm-125m": ({}, 24),
+    "seamless-m4t-medium": ({}, 24),
 }
+AUX_RTOL = 1e-6
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,6 +87,12 @@ def _setup(arch):
         rbatch["patches"] = jnp.asarray(pat)
         pbatch["patches"] = torch.from_numpy(pat)
         n_pos += pcfg.vision_tokens
+    if pcfg.family == "audio":
+        frames = rng.standard_normal(
+            (BATCH, prompt // pcfg.enc_seq_divisor, pcfg.d_model)
+        ).astype(np.float32)
+        rbatch["frames"] = jnp.asarray(frames)
+        pbatch["frames"] = torch.from_numpy(frames)
     decode_toks = rng.integers(0, pcfg.vocab, (4, BATCH)).astype(np.int32)
     return dict(rcfg=rcfg, pcfg=pcfg, params=params, model=model,
                 rbatch=rbatch, pbatch=pbatch, n_pos=n_pos,
@@ -146,12 +168,13 @@ def test_recurrentgemma_case_wraps_the_ring_and_runs_the_tail():
 @pytest.mark.parametrize("arch", list(CASES))
 def test_forward_matches_reference(arch):
     s = _setup(arch)
-    rlogits, _ = rapi.forward(s["rcfg"], s["params"], s["rbatch"])
+    rlogits, raux = rapi.forward(s["rcfg"], s["params"], s["rbatch"])
     with torch.no_grad():
         plogits, aux = api.forward(s["pcfg"], s["model"], s["pbatch"])
     np.testing.assert_allclose(plogits.numpy(), np.asarray(rlogits),
                                **LOGIT_TOL)
-    assert float(aux) == 0.0
+    np.testing.assert_allclose(float(aux), float(raux), rtol=AUX_RTOL)
+    assert (float(aux) > 0) is (s["pcfg"].moe is not None)
 
 
 @pytest.mark.parametrize("arch", list(CASES))

@@ -1,6 +1,6 @@
-"""The port's serving path on the CPU: the launcher end to end, the
-invariants inside the port, parameter counts against the reference, and
-the archs that are not ported yet.
+"""The port's serving path on the CPU: the launcher end to end for every
+arch, the invariants inside the port, and parameter counts against the
+reference.
 
 Tolerances inside the port, measured on the CPU (torch 2.13): teacher-
 forced decode against `forward` within 1.8e-6 (logits up to ~3.4;
@@ -10,7 +10,10 @@ of `forward`; the others: grouped decode attention against dense
 versions: dense `ref_attention`, the sequential `ref_rg_lru`) against its
 plain path within 7.6e-7 on logits and 3.1e-6 on caches (recurrentgemma;
 bitwise for the attention-only archs).  The bounds are atol = rtol =
-1e-5.
+1e-5.  Teacher-forced decode of the MoE archs runs at a capacity factor
+that drops no token (a step routes B tokens, the forward B x T), and of
+the encoder-decoder from a cache whose cross-attention K/V
+`encdec.prefill_cross` computed from the encoded frames.
 """
 from types import SimpleNamespace
 
@@ -26,15 +29,13 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import rg_lru as trl
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.serve import serve
-from repro_torch.models import api, transformer
+from repro_torch.models import api, encdec, transformer
 from repro_torch.train import generate
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 PORTED = ["recurrentgemma-2b", "gemma2-27b", "qwen3-1.7b", "olmo-1b",
-          "qwen1.5-4b", "internvl2-1b"]
-NOT_PORTED = {"deepseek-moe-16b": "item 14",
-              "llama4-maverick-400b-a17b": "item 14",
-              "xlstm-125m": "item 15", "seamless-m4t-medium": "item 16"}
+          "qwen1.5-4b", "internvl2-1b", "deepseek-moe-16b",
+          "llama4-maverick-400b-a17b", "xlstm-125m", "seamless-m4t-medium"]
 
 
 def _model(arch, **over):
@@ -44,7 +45,7 @@ def _model(arch, **over):
 
 
 def test_every_arch_is_ported_or_names_its_item():
-    assert sorted(PORTED + list(NOT_PORTED)) == sorted(ARCH_IDS)
+    assert sorted(PORTED) == sorted(ARCH_IDS)
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -82,24 +83,30 @@ def test_serve_needs_cuda_unless_told_otherwise():
         serve("qwen3-1.7b", batch=1, prompt_len=4, new_tokens=2)
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_unported_archs_raise_naming_their_roadmap_item(arch):
-    cfg = get_config(arch).scaled_down()
-    with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]):
-        api.init_params(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        transformer.param_count(get_config(arch))
+def _frames(cfg, b, t, gen):
+    return torch.randn((b, max(t // cfg.enc_seq_divisor, 4), cfg.d_model),
+                       generator=gen)
 
 
 @pytest.mark.parametrize("arch", [a for a in PORTED if a != "internvl2-1b"])
 def test_teacher_forced_decode_equals_forward(arch):
-    cfg, model = _model(arch, window=4)
+    base = get_config(arch)
+    over = dict(capacity_factor=4.0) if base.moe else {}
+    cfg, model = _model(arch, window=4, **over)
     b, t = 2, 10
-    toks = torch.randint(0, cfg.vocab, (b, t),
-                         generator=torch.Generator().manual_seed(4))
+    gen = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (b, t), generator=gen)
+    batch = {"tokens": toks}
     with torch.no_grad():
-        full, _ = api.forward(cfg, model, {"tokens": toks})
-        cache = api.init_cache(cfg, b, t, device="cpu")
+        if api.is_encdec(cfg):
+            batch["frames"] = _frames(cfg, b, t, gen)
+            memory = encdec.encode(cfg, model, batch["frames"])
+            cache = encdec.prefill_cross(
+                cfg, model, memory, api.init_cache(
+                    cfg, b, t, device="cpu", enc_len=memory.shape[1]))
+        else:
+            cache = api.init_cache(cfg, b, t, device="cpu")
+        full, _ = api.forward(cfg, model, batch)
         steps = []
         for i in range(t):
             logits, cache = api.decode_step(cfg, model, cache, toks[:, i], i)
@@ -115,12 +122,15 @@ def test_prefill_kernel_path_equals_plain_path(arch):
     if cfg.family == "vlm":
         batch["patches"] = torch.randn((2, cfg.vision_tokens, cfg.vit_dim),
                                        generator=gen)
+    if cfg.family == "audio":
+        batch["frames"] = _frames(cfg, 2, 11, gen)
     with torch.no_grad():
         lk, ck = api.prefill(cfg, model, batch, 24, use_kernel=True)
         lp, cp = api.prefill(cfg, model, batch, 24, use_kernel=False)
     torch.testing.assert_close(lk, lp, **TOL)
     assert ck.keys() == cp.keys()
     for i in cp:
+        assert ck[i].keys() == cp[i].keys()
         for name in cp[i]:
             torch.testing.assert_close(ck[i][name], cp[i][name], **TOL)
 

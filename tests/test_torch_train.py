@@ -6,8 +6,10 @@ Weights come from the reference's initialiser (carried over with
 back with `convert.params_to_reference` and are compared leaf by leaf.
 Tokens are drawn with numpy.  Configs: recurrentgemma-2b scaled down to 5
 layers (one remat group of (rec, rec, attn_local) and a 2-block tail) with
-a 16-token window under a 40-token sequence, and olmo-1b scaled down
-(non-parametric norm, plain attention).  The reference runs with
+a 16-token window under a 40-token sequence, olmo-1b scaled down
+(non-parametric norm, plain attention), deepseek-moe-16b scaled down (its
+auxiliary loss weighs in, and the metrics carry it) and xlstm-125m scaled
+down.  The reference runs with
 ``use_kernel=False`` unless a test says otherwise; its step is jitted.
 
 Bounds, with what was measured (CPU, jax 0.9.0, torch 2.13):
@@ -67,6 +69,10 @@ BATCH, SEQ = 2, 40
 CASES = {
     "recurrentgemma-2b": dict(n_layers=5, window=16),
     "olmo-1b": {},
+    # the MoE load-balance loss in the loss and the metrics; the xLSTM
+    # blocks' recurrences under remat
+    "deepseek-moe-16b": {},
+    "xlstm-125m": {},
 }
 
 
@@ -190,6 +196,8 @@ def _two_steps(arch, toks_seeds=(2, 3), microbatches=1, skip=None,
                                    float(rm["grad_norm"]), rtol=1e-4)
         np.testing.assert_allclose(float(pm["lr_scale"]),
                                    float(rm["lr_scale"]), rtol=1e-6)
+        np.testing.assert_allclose(float(pm["aux"]), float(rm["aux"]),
+                                   rtol=LOSS_RTOL)
     for got, want in losses:
         np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
     assert int(pstate.step) == int(rstate.step) == len(toks_seeds)
