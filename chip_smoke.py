@@ -42,6 +42,13 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   its suite's assertions and beside the reference's numbers; the
   sketch's ``logf`` against ``torch.log`` on every float32 in its range;
   fig7-reno armed and unarmed in turns;
+* the static verifier: ``repro_torch.analysis``'s gate over its five CI
+  plans (fig 12, fig 13, fig 5 armed and unarmed, kernel_sweep, churn:
+  ``analysis/plans.py``, whence the fig 12, fig 5 and churn phases take
+  their plans too), each group run once for its first chunk through the
+  chunk kernel, the launch contract read from the library, the envelopes
+  against ``analysis/budgets.json``; every plan phase (and the cluster
+  phase) holds the plan lint's predicted groups to the groups it ran;
 * serving: it holds the RG-LRU scan kernel bit for bit (both of its
   routes: the serve shape, ragged and unaligned operands, T = 1) and the
   flash attention kernel within 2e-5 (f32) / 2e-2 (bf16 inputs) against
@@ -595,6 +602,7 @@ def armed_cases(core, netsim, workload, sim_time: float) -> list:
     staggered one)."""
     import numpy as np
 
+    from repro_torch.analysis import plans as suites
     from repro_torch.netsim import telemetry
 
     spec = netsim.TelemetrySpec(probes=telemetry.BUILTIN_PROBES, stride=7,
@@ -620,27 +628,27 @@ def armed_cases(core, netsim, workload, sim_time: float) -> list:
                 seed=list(SEEDS),
                 **{f: np.stack([sched.values[f], ident.values[f]])
                    for f in sched.values})))
-    churn_faults = netsim.FaultSpec(n_events=8, churn=True, link_flaps=True,
-                                    blackholes=True)
+    churn_faults = suites.churn_faults()
     for algo, sockets in SUITE_SOCKETS.items():
         for variant in VARIANT:
             cfg = fig7_cfg(core, netsim, workload, algo, VARIANT[variant],
                            sim_time, topo=netsim.dumbbell(
                                2, sockets_per_job=sockets),
                            scale=CHUNK_CASE_SCALE,
-                           telemetry=fig5_spec(netsim))
+                           telemetry=suites.fig5_spec(FIG5_SIM_TIME))
             out.append((f"{algo}_{variant.lower()}_fig5", cfg,
                         dict(seed=list(SEEDS))))
             cfg = fig7_cfg(core, netsim, workload, algo, VARIANT[variant],
                            sim_time, topo=netsim.dumbbell(
-                               CHURN_JOBS, sockets_per_job=sockets,
-                               cap_gbps=CHURN_CAP_GBPS),
-                           models=("gpt2",) * CHURN_JOBS,
-                           scale=CHUNK_CASE_SCALE, telemetry=churn_spec(netsim),
+                               suites.CHURN_JOBS, sockets_per_job=sockets,
+                               cap_gbps=suites.CHURN_CAP_GBPS),
+                           models=("gpt2",) * suites.CHURN_JOBS,
+                           scale=CHUNK_CASE_SCALE,
+                           telemetry=suites.churn_spec(CHURN_SIM_TIME),
                            faults=churn_faults)
             scheds = [netsim.fault_schedule(
-                cfg, churn_events(netsim, cfg, label), spec=churn_faults)
-                for label in CHURN_SCHEDULES]
+                cfg, suites.churn_events(cfg, label), spec=churn_faults)
+                for label in suites.CHURN_SCHEDULES]
             out.append((f"{algo}_{variant.lower()}_churn", cfg, dict(
                 seed=list(SEEDS),
                 **{f: np.stack([sc.values[f] for sc in scheds])
@@ -1075,23 +1083,26 @@ def fig10_plan(core, netsim, workload, algo: str, seeds=PLAN_SEEDS):
         netsim.Axis("n_jobs", FIG10_JOBS), netsim.Axis("seed", seeds)))
 
 
-def fig12_plan(core, netsim, workload):
-    """stragglers.make_plan: straggle probability (a sweep field) x scheme
-    x seed, DCQCN with ECN, the Cassini leaves from the port's
-    `workload.cassini_schedule`."""
-    topo = netsim.dumbbell(2, sockets_per_job=2)
-    sched, _ = workload.cassini_schedule(
-        topo, [workload.profile_for("gpt2").scaled(WORK_SCALE)] * 2)
+def predicted_groups(plan, telemetry=None) -> int:
+    """The plan lint's prediction of a plan's groups
+    (`analysis.plan_lint.lint_plan`), taken before its run as
+    benchmarks/common.py's ``run_plan`` takes it; raises on a finding above
+    info (an avoidable split)."""
+    from repro_torch.analysis import plan_lint
 
-    def build(pt):
-        return fig7_cfg(core, netsim, workload, "dcqcn",
-                        VARIANT["WI" if pt["scheme"] == "mlqcn" else "OFF"],
-                        PLAN_SIM_TIME, topo=topo,
-                        cassini=sched if pt["scheme"] == "cassini" else None)
-    return netsim.Plan(name="fig12", build=build, axes=(
-        netsim.Axis("p", FIG12_PROBS, field="straggle_prob"),
-        netsim.Axis("scheme", ("base", "mlqcn", "cassini")),
-        netsim.Axis("seed", PLAN_SEEDS)))
+    findings, facts = plan_lint.lint_plan(plan, label=plan.name,
+                                          telemetry=telemetry)
+    bad = [f for f in findings if f.effective_severity != "info"]
+    if bad:
+        raise AssertionError(f"plan {plan.name}: the plan lint finds {bad}")
+    return facts["groups"]
+
+
+def check_prediction(name: str, predicted: int, ran: int) -> None:
+    """The run made as many groups as the plan lint predicted."""
+    if predicted != ran:
+        raise AssertionError(f"plan {name}: the plan lint predicted "
+                             f"{predicted} groups, the run made {ran}")
 
 
 def check_plan(pr, counts: dict, max_groups: int) -> dict:
@@ -1310,6 +1321,8 @@ def phase_plans(kern, core, netsim, workload) -> dict:
     chunk kernel's time per tick as one group's K grows."""
     import shutil
 
+    from repro_torch.analysis import plans as suites
+
     with open(REFERENCE_PLANS) as f:
         ref = json.load(f)
     out, plans = {}, {}
@@ -1317,13 +1330,15 @@ def phase_plans(kern, core, netsim, workload) -> dict:
         plans[f"fig10-{algo}"] = (fig10_plan(core, netsim, workload, algo,
                                              seeds), 2, {}, seeds)
     shutil.rmtree(PLAN_CACHE, ignore_errors=True)
-    plans["fig12"] = (fig12_plan(core, netsim, workload), 2,
+    plans["fig12"] = (suites.fig12_plan(PLAN_SIM_TIME, PLAN_SEEDS), 2,
                       dict(cache_dir=PLAN_CACHE), PLAN_SEEDS)
     results = {}
     for name, (plan, max_groups, kw, seeds) in plans.items():
+        predicted = predicted_groups(plan)
         pr, seconds, counts = counted(
             kern, lambda: netsim.run_plan(plan, device=DEVICE, **kw))
         info = check_plan(pr, counts, max_groups)
+        check_prediction(name, predicted, pr.n_compile_groups)
         if name.startswith("fig10") and (
                 info["n_compile_groups"] != 2
                 or any((g["k"], g["n_jobs"], g["n_flows"])
@@ -1335,7 +1350,7 @@ def phase_plans(kern, core, netsim, workload) -> dict:
         results[name] = pr
         out[name] = dict(seconds=seconds,
                          us_per_tick=1e6 * seconds / info["ticks"],
-                         **info, cells=cells,
+                         groups_predicted=predicted, **info, cells=cells,
                          tier_b=tier_b(name, cells, ref, seeds))
     # ROADMAP queue 3 item 1: fig 10 Reno 6 jobs, p99, against the
     # reference's seeds 1-3
@@ -1369,8 +1384,6 @@ def phase_plans(kern, core, netsim, workload) -> dict:
 # benchmarks/timeline.py at REPRO_SMOKE depth (common.SIM_TIME), seeds 1-3
 FIG5_SIM_TIME = 1.5
 FIG5_SEEDS = (1, 2, 3)
-FIG5_PROBES = ("flow_cwnd", "flow_rate", "link_queue", "link_mark_rate",
-               "job_incomm", "job_iter", "interleave_overlap")
 # paper §4.1: TCP jobs open parallel sockets, RoCE one QP (both suites)
 SUITE_SOCKETS = {"reno": 2, "cubic": 2, "dcqcn": 1}
 MAX_TTI_ITERS = 10.0
@@ -1379,16 +1392,7 @@ FIG5_METRICS = ("tti_iters", "tti_seconds", "interleave_stability",
 # benchmarks/churn.py: three GPT-2 jobs on a 100 Gbps dumbbell for
 # 18 s x WORK_SCALE, an 8-row schedule of churn, flaps and blackholes
 CHURN_SIM_TIME = 18.0 * WORK_SCALE
-CHURN_CAP_GBPS = 100.0
-CHURN_JOBS = 3
 CHURN_SEEDS = (1, 2, 3)
-CHURN_SCHEDULES = ("gauntlet", "staggered")
-# label -> (churned job, blackholed job, arrival, departure, re-arrival,
-# blackhole window, flap window and scale), as fractions of the run
-CHURN_EVENTS = {
-    "gauntlet": (2, 0, 0.08, 0.30, 0.38, (0.18, 0.22), (0.50, 0.64, 0.88)),
-    "staggered": (1, 2, 0.10, 0.32, 0.40, (0.20, 0.24), (0.52, 0.66, 0.9)),
-}
 CHURN_MAX_ITERS = 10.0
 CHURN_EXEMPT = ("blackhole-active", "cold-start")
 CHURN_REQUIRED = ("departure", "arrival", "re-arrival", "flap", "flap-clear",
@@ -1405,27 +1409,6 @@ def reference_plan_script():
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
     import reference_plans
     return reference_plans
-
-
-def fig5_spec(netsim):
-    """timeline.telemetry_spec: the suite's probes, ~1000 samples a run."""
-    n_ticks = int(round(FIG5_SIM_TIME / DT))
-    return netsim.TelemetrySpec(probes=FIG5_PROBES,
-                                stride=max(1, n_ticks // 1000))
-
-
-def fig5_plan(core, netsim, workload):
-    """timeline.make_plan: algo x variant x seed, two GPT-2 jobs on
-    dumbbell(2, sockets per algo)."""
-    def build(pt):
-        algo = pt["algo"]
-        return fig7_cfg(core, netsim, workload, algo, VARIANT[pt["variant"]],
-                        FIG5_SIM_TIME, topo=netsim.dumbbell(
-                            2, sockets_per_job=SUITE_SOCKETS[algo]))
-    return netsim.Plan(name="fig5-timeline", build=build, axes=(
-        netsim.Axis("algo", tuple(SUITE_SOCKETS)),
-        netsim.Axis("variant", tuple(VARIANT)),
-        netsim.Axis("seed", FIG5_SEEDS)))
 
 
 def fig5_claims(cells: dict) -> dict:
@@ -1451,9 +1434,12 @@ def armed_turns(kern, core, netsim, workload) -> dict:
     spec armed, in turns (unarmed, armed, armed, unarmed): µs per tick."""
     import dataclasses
 
+    from repro_torch.analysis import plans as suites
+
     base = fig7_cfg(core, netsim, workload, "reno", 1, MAIN_SIM_TIME)
     cfgs = {"unarmed": base,
-            "armed": dataclasses.replace(base, telemetry=fig5_spec(netsim))}
+            "armed": dataclasses.replace(
+                base, telemetry=suites.fig5_spec(FIG5_SIM_TIME))}
     turns = []
     for name in ("unarmed", "armed", "armed", "unarmed"):
         cfg = cfgs[name]
@@ -1505,14 +1491,19 @@ def phase_telemetry(kern, core, netsim, workload) -> dict:
     (results/reference_plans.json, Tier B as the plans phase), the groups
     equal to the reference's; the sketch's logf on the card; and fig7-reno
     µs per tick armed and unarmed in turns."""
+    from repro_torch.analysis import plans as suites
+
     rp = reference_plan_script()
     with open(REFERENCE_PLANS) as f:
         ref = json.load(f)
     want = ref["plans"]["fig5"]
-    plan = fig5_plan(core, netsim, workload)
+    plan = suites.fig5_plan(FIG5_SIM_TIME, FIG5_SEEDS)
+    spec = suites.fig5_spec(FIG5_SIM_TIME)
+    predicted = predicted_groups(plan, spec)
     pr, seconds, counts = counted(kern, lambda: netsim.run_plan(
-        plan, device=DEVICE, telemetry=fig5_spec(netsim)))
+        plan, device=DEVICE, telemetry=spec))
     info = check_plan(pr, counts, want["n_compile_groups"])
+    check_prediction("fig5", predicted, pr.n_compile_groups)
     if info["n_compile_groups"] != want["n_compile_groups"]:
         raise AssertionError(f"fig5: {info['n_compile_groups']} groups, the "
                              f"reference {want['n_compile_groups']}")
@@ -1522,7 +1513,7 @@ def phase_telemetry(kern, core, netsim, workload) -> dict:
     if failed:
         raise AssertionError(f"fig5: the suite's assertions fail: {failed}")
     out = dict(seconds=seconds, us_per_tick=1e6 * seconds / info["ticks"],
-               **info, cells=cells, claims=claims,
+               groups_predicted=predicted, **info, cells=cells, claims=claims,
                reference_claims=fig5_claims(want["cells"]),
                tier_b=tier_b("fig5", cells, ref, FIG5_SEEDS, FIG5_METRICS),
                sketch=sketch_check(kern["nc"], netsim),
@@ -1531,26 +1522,12 @@ def phase_telemetry(kern, core, netsim, workload) -> dict:
     return out
 
 
-def churn_events(netsim, cfg, label: str) -> list:
-    """churn._events: the labeled gauntlet on ``cfg``'s fabric."""
-    t = cfg.sim_time
-    churn_job, bh_job, arr, dep, rearr, bh, flap = CHURN_EVENTS[label]
-    bh_flow = [int(f) for f in
-               (cfg.topo.flow_to_job == bh_job).nonzero()[0]][:1]
-    return [
-        netsim.job_departs(0.0, churn_job),
-        netsim.job_arrives(arr * t, churn_job),
-        netsim.job_departs(dep * t, churn_job),
-        netsim.job_arrives(rearr * t, churn_job),
-        netsim.link_flap(flap[0] * t, flap[1] * t, 0, flap[2]),
-        netsim.blackhole(bh[0] * t, bh[1] * t, bh_flow),
-    ]
-
-
 def churn_window_names(label: str) -> dict:
     """churn._window_names: start tick -> window name."""
+    from repro_torch.analysis import plans as suites
+
     t = CHURN_SIM_TIME
-    _, _, arr, dep, rearr, bh, flap = CHURN_EVENTS[label]
+    _, _, arr, dep, rearr, bh, flap = suites.CHURN_EVENTS[label]
 
     def tick(x):
         return max(0, int(round(x / DT)))
@@ -1561,44 +1538,6 @@ def churn_window_names(label: str) -> dict:
             tick(bh[1] * t): "blackhole-clear"}
 
 
-def churn_spec(netsim):
-    """churn.telemetry_spec: overlap and iterations, the three detectors,
-    the 0.8 overlap threshold, ~1000 samples a run."""
-    n_ticks = int(round(CHURN_SIM_TIME / DT))
-    return netsim.TelemetrySpec(
-        probes=("interleave_overlap", "job_iter"),
-        detectors=("interleave", "iter_sketch", "reinterleave"),
-        overlap_threshold=0.8, stride=max(1, n_ticks // 1000))
-
-
-def churn_plan(core, netsim, workload):
-    """churn.make_plan: algo x variant x schedule x seed; the schedule a
-    ``field="*"`` axis resolving, per point config, to the schedule's
-    sweep overrides."""
-    faults = netsim.FaultSpec(n_events=8, churn=True, link_flaps=True,
-                              blackholes=True)
-    tel = churn_spec(netsim)
-
-    def build(pt):
-        algo = pt["algo"]
-        return fig7_cfg(core, netsim, workload, algo, VARIANT[pt["variant"]],
-                        CHURN_SIM_TIME, topo=netsim.dumbbell(
-                            CHURN_JOBS, sockets_per_job=SUITE_SOCKETS[algo],
-                            cap_gbps=CHURN_CAP_GBPS),
-                        models=("gpt2",) * CHURN_JOBS, faults=faults,
-                        telemetry=tel)
-
-    def schedule(label):
-        return lambda cfg: netsim.fault_schedule(
-            cfg, churn_events(netsim, cfg, label), spec=faults).overrides()
-    return netsim.Plan(name="churn-gauntlet", build=build, axes=(
-        netsim.Axis("algo", tuple(SUITE_SOCKETS)),
-        netsim.Axis("variant", tuple(VARIANT)),
-        netsim.Axis("schedule", CHURN_SCHEDULES, field="*",
-                    resolve=schedule),
-        netsim.Axis("seed", CHURN_SEEDS)))
-
-
 def churn_claims(cells: dict) -> dict:
     """churn._summarize's assertions per (algo, schedule) on {algo/variant/
     schedule: per-seed reports}: after every non-exempt fault window MLTCP
@@ -1607,9 +1546,11 @@ def churn_claims(cells: dict) -> dict:
     re-converges from every window, and the baseline's stability sits
     below MLTCP's by the algorithm's margin.  Each failure names its kind
     and, for the first two, its windows."""
+    from repro_torch.analysis import plans as suites
+
     out = {}
     for algo in SUITE_SOCKETS:
-        for label in CHURN_SCHEDULES:
+        for label in suites.CHURN_SCHEDULES:
             ml = cells[f"{algo}/WI/{label}"]
             base = cells[f"{algo}/OFF/{label}"]
             names = churn_window_names(label)
@@ -1681,14 +1622,18 @@ def phase_faults(kern, core, netsim, workload) -> dict:
     gauntlet, re-arrival), assertion by assertion and window by window;
     each cell beside the reference's (Tier B); the groups equal to the
     reference's."""
+    from repro_torch.analysis import plans as suites
+
     rp = reference_plan_script()
     with open(REFERENCE_PLANS) as f:
         ref = json.load(f)
     want = ref["plans"]["churn"]
-    plan = churn_plan(core, netsim, workload)
+    plan = suites.churn_plan(CHURN_SIM_TIME, CHURN_SEEDS)
+    predicted = predicted_groups(plan)
     pr, seconds, counts = counted(
         kern, lambda: netsim.run_plan(plan, device=DEVICE))
     info = check_plan(pr, counts, want["n_compile_groups"])
+    check_prediction("churn", predicted, pr.n_compile_groups)
     if info["n_compile_groups"] != want["n_compile_groups"]:
         raise AssertionError(f"churn: {info['n_compile_groups']} groups, "
                              f"the reference {want['n_compile_groups']}")
@@ -1704,12 +1649,64 @@ def phase_faults(kern, core, netsim, workload) -> dict:
                  if name not in CHURN_EXEMPT and v is not None),
                 default=None)
     out = dict(seconds=seconds, us_per_tick=1e6 * seconds / info["ticks"],
-               **info, cells=cells, claims=claims,
+               groups_predicted=predicted, **info, cells=cells, claims=claims,
                reference_claims=ref_claims,
                worst_reinterleave_iters=worst,
                tier_b=tier_b("churn", cells, ref, CHURN_SEEDS,
                              CHURN_METRICS))
     emit("faults", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the static verifier's gate
+# ---------------------------------------------------------------------------
+
+def phase_analysis(kern) -> dict:
+    """``repro_torch.analysis``'s gate on the card: `run_analysis` over the
+    five CI plans under the ``ci`` profile, each group's accounting run
+    (its first chunk) through the chunk kernel, the launch contract read
+    from the library and every envelope checked against the committed
+    ``analysis/budgets.json``; raises unless the report is ok.  Emits each
+    plan's proof, the phase's seconds and the budget book it observed, as
+    a baseline file holds it (what ``--update-budgets`` would write)."""
+    import torch
+
+    from repro_torch.analysis import CI_PLANS, run_analysis
+    from repro_torch.analysis.budget import BudgetBook
+
+    ms, nc, ops = kern["ms"], kern["nc"], kern["ops"]
+    torch.cuda.synchronize()
+    launches0 = (nc.LAUNCH_COUNT, ms.LAUNCH_COUNT,
+                 ops.FALLBACK_COUNT + ops.CHUNK_FALLBACK_COUNT)
+    t0 = time.time()
+    book = BudgetBook()
+    report = run_analysis(CI_PLANS, profile="ci", budgets=book)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    counts = dict(netsim_chunk=nc.LAUNCH_COUNT - launches0[0],
+                  mltcp_step=ms.LAUNCH_COUNT - launches0[1],
+                  fallbacks=(ops.FALLBACK_COUNT + ops.CHUNK_FALLBACK_COUNT
+                             - launches0[2]))
+    proofs = {k: v for k, v in report.proofs.items() if k != "source"}
+    out = dict(seconds=seconds, ok=report.ok(), profile=report.profile,
+               proofs=proofs, source=report.proofs["source"],
+               launches=counts,
+               findings=[f for f in report.to_json()["findings"]
+                         if f["severity"] != "info"],
+               budgets=book.to_json())
+    emit("analysis", **out)
+    groups = sum(p["groups_predicted"] for p in proofs.values())
+    bad = [(name, p) for name, p in proofs.items()
+           if p["groups_run"] != p["groups_predicted"]
+           or p["launches"] != p["groups_predicted"]
+           or p["kernel_groups_proven"] != p["groups_predicted"]
+           or p["kernel_fallbacks"] or p["spill_bytes"]]
+    if (not report.ok() or bad or counts != dict(
+            netsim_chunk=groups, mltcp_step=0, fallbacks=0)
+            or proofs["fig13"]["groups_run"] > 2):
+        raise AssertionError(f"analysis: {report.render()}\nplans {bad}, "
+                             f"launches {counts} for {groups} groups")
     return out
 
 
@@ -3168,23 +3165,29 @@ CLUSTER_SIM_TIME = 4.0
 def cluster_run(kern, jobs) -> dict:
     """``cluster.simulate_shared_cluster(jobs)`` at the example's defaults
     (DCQCN, default against MLTCP-WI, 4 s, seed 0) through ``run_plan``
-    and the chunk kernel, its launches counted alone; raises on a
-    fallback, a per-tick launch or a non-finite value."""
+    and the chunk kernel, its launches counted alone, its runs held to
+    the plan lint's prediction; raises on a fallback, a per-tick launch or
+    a non-finite value."""
     import torch
 
     from repro_torch import cluster
+    from repro_torch.cluster.runner import shared_cluster_plan
     from repro_torch.configs import get_config
+    from repro_torch.netsim import counters
 
     ms, nc, ops = kern["ms"], kern["nc"], kern["ops"]
     profiles = {a: cluster.profile_from_arch(get_config(a))
                 for a in dict.fromkeys(jobs)}
+    predicted = predicted_groups(shared_cluster_plan(jobs))
     torch.cuda.synchronize()
     ms.LAUNCH_COUNT = nc.LAUNCH_COUNT = 0
     ops.FALLBACK_COUNT = ops.CHUNK_FALLBACK_COUNT = 0
     t0 = time.time()
-    rep = cluster.simulate_shared_cluster(jobs)
+    with counters.watch() as w:
+        rep = cluster.simulate_shared_cluster(jobs)
     torch.cuda.synchronize()
     seconds = time.time() - t0
+    check_prediction(f"shared-cluster {jobs}", predicted, w.traces)
     launches = dict(netsim_chunk=nc.LAUNCH_COUNT, mltcp_step=ms.LAUNCH_COUNT,
                     fallbacks=ops.FALLBACK_COUNT + ops.CHUNK_FALLBACK_COUNT)
     values = (rep.baseline_avg + rep.mltcp_avg
@@ -3209,7 +3212,7 @@ def cluster_run(kern, jobs) -> dict:
         avg_speedup=rep.avg_speedup, p99_speedup=rep.p99_speedup,
         interleave_before=rep.interleave_before,
         interleave_after=rep.interleave_after, launches=launches,
-        seconds=seconds)
+        groups_predicted=predicted, groups_run=w.traces, seconds=seconds)
 
 
 def phase_cluster(kern) -> dict:
@@ -3230,6 +3233,8 @@ def armed_attributes(nc, netsim, core, workload) -> dict:
     points (the fig 5 and churn widths)."""
     import dataclasses
 
+    from repro_torch.analysis import plans as suites
+
     out = {}
     for armed in (nc.ARM_TEL, nc.ARM_FAULTS, nc.ARM_TEL | nc.ARM_FAULTS):
         for algo, variant, agg, fac in sorted(nc.ARMED_SPECIALIZATIONS):
@@ -3237,8 +3242,8 @@ def armed_attributes(nc, netsim, core, workload) -> dict:
                 nc.kernel_attributes(algo, variant, agg, fac, armed)
     fig5 = dataclasses.replace(
         fig7_cfg(core, netsim, workload, "reno", 1, FIG5_SIM_TIME),
-        telemetry=fig5_spec(netsim))
-    churn = churn_plan(core, netsim, workload).build(
+        telemetry=suites.fig5_spec(FIG5_SIM_TIME))
+    churn = suites.churn_plan(CHURN_SIM_TIME, CHURN_SEEDS).build(
         dict(algo="reno", variant="WI", schedule="gauntlet", seed=1))
     return dict(specializations=out,
                 registers_range=[min(x["registers"] for x in out.values()),
@@ -3472,6 +3477,7 @@ def main(argv=None) -> int:
     plans = phase_plans(sim_kernels, core, netsim, workload)
     tel = phase_telemetry(sim_kernels, core, netsim, workload)
     flt = phase_faults(sim_kernels, core, netsim, workload)
+    phase_analysis(sim_kernels)
     armed = armed_attributes(nc, netsim, core, workload)
     lm = phase_lm_kernels(fa, rl, ref)
     served = phase_serve(fa, rl, sim_kernels)

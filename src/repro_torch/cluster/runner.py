@@ -24,16 +24,13 @@ class ClusterReport:
     interleave_after: float
 
 
-def simulate_shared_cluster(arch_ids: list[str], *, algo: str = "dcqcn",
-                            sim_time: float = 4.0, seed: int = 0,
-                            sockets_per_job: int = 2,
-                            work_scale: float = 0.05, hw: HwSpec = H100,
-                            device=None) -> ClusterReport:
-    """Run the architectures' training jobs as competing traffic on one
-    dumbbell, default against MLTCP (WI) congestion control.  ``work_scale``
-    shrinks every phase program uniformly (ratio-preserving); ``hw`` is
-    the accelerator the jobs' compute gaps are reckoned on; ``device``
-    where the simulator runs (None: the CUDA card)."""
+def shared_cluster_plan(arch_ids: list[str], *, algo: str = "dcqcn",
+                        sim_time: float = 4.0, seed: int = 0,
+                        sockets_per_job: int = 2, work_scale: float = 0.05,
+                        hw: HwSpec = H100) -> netsim.Plan:
+    """The plan `simulate_shared_cluster` runs: the architectures' training
+    jobs on one dumbbell, a scheme axis of default against MLTCP (WI)
+    congestion control."""
     profiles = [profile_from_arch(get_config(a), hw=hw).scaled(work_scale)
                 for a in arch_ids]
     topo = netsim.dumbbell(len(arch_ids), sockets_per_job=sockets_per_job)
@@ -54,10 +51,25 @@ def simulate_shared_cluster(arch_ids: list[str], *, algo: str = "dcqcn",
         return netsim.SimConfig(topo=topo, jobs=jobs, protocol=proto,
                                 sim_time=sim_time, dt=dt, seed=seed, **red)
 
-    result = netsim.run_plan(netsim.Plan(
-        name="shared-cluster",
-        axes=(netsim.Axis("scheme", ("default", "mltcp")),),
-        build=build), device=device)
+    return netsim.Plan(name="shared-cluster",
+                       axes=(netsim.Axis("scheme", ("default", "mltcp")),),
+                       build=build)
+
+
+def simulate_shared_cluster(arch_ids: list[str], *, algo: str = "dcqcn",
+                            sim_time: float = 4.0, seed: int = 0,
+                            sockets_per_job: int = 2,
+                            work_scale: float = 0.05, hw: HwSpec = H100,
+                            device=None) -> ClusterReport:
+    """Run the architectures' training jobs as competing traffic on one
+    dumbbell, default against MLTCP (WI) congestion control.  ``work_scale``
+    shrinks every phase program uniformly (ratio-preserving); ``hw`` is
+    the accelerator the jobs' compute gaps are reckoned on; ``device``
+    where the simulator runs (None: the CUDA card)."""
+    result = netsim.run_plan(shared_cluster_plan(
+        arch_ids, algo=algo, sim_time=sim_time, seed=seed,
+        sockets_per_job=sockets_per_job, work_scale=work_scale, hw=hw),
+        device=device)
     (base,), (ml,) = (result.select(scheme="default"),
                       result.select(scheme="mltcp"))
     sp = netsim.speedup_stats(base, ml)

@@ -536,8 +536,12 @@ class GroupProfile:
     ``device_bytes`` is the card memory the run added at its peak (under
     ``run_plan(..., profile=True)``, which resets the card's peak
     statistic per group; None on the CPU and otherwise);
-    ``cost_envelope`` has no counterpart yet (ROADMAP queue 1 item 24)
-    and stays None.  ``traced`` is True for a group that ran.
+    ``cost_envelope`` (under ``profile=True``) is the group's launch
+    envelope, `analysis.budget.group_envelope`: the chunk kernel's CTAs,
+    threads, shared memory, launches, operand and trace bytes and, on the
+    card, its registers and spills, in the leaves `analysis/budgets.json`
+    pins (None for a group that does not take the chunk kernel).
+    ``traced`` is True for a group that ran.
     """
 
     n_points: int                     # K on the sweep axis
@@ -996,6 +1000,10 @@ def _run_group(cfg: SimConfig, sweep: SweepParams, prof: GroupProfile,
     prof.traced = w.traces > 0
     if on_card and profile:
         prof.device_bytes = int(torch.cuda.max_memory_allocated(dev) - base)
+    if profile:
+        from repro_torch.analysis import budget
+
+        prof.cost_envelope = budget.group_envelope(cfg, sweep)
     # every leaf postprocess reads, on the host in one copy each
     return tree_map(lambda x: x.cpu(), raw._replace(final_state=None))
 
@@ -1024,7 +1032,8 @@ def run_plan(plan: Plan, *, device=None, shard="auto", pad_jobs: bool = True,
                each result carries a `.telemetry`
                (`telemetry.TelemetryResult`).
     profile:   also record each group's device-memory peak
-               (`GroupProfile.device_bytes`); the time split is recorded
+               (`GroupProfile.device_bytes`) and launch envelope
+               (`GroupProfile.cost_envelope`); the time split is recorded
                always, since it costs nothing here.
     keep_going: isolate per-group failures — a group that raises is
                recorded on `PlanResult.group_errors` (its members' result

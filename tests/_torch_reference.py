@@ -36,7 +36,10 @@ _MODULES = ("repro.core", "repro.netsim", "repro.netsim.experiment",
             "repro.optim", "repro.optim.adamw", "repro.optim.grad_compress",
             "repro.train.train_step", "repro.data",
             "repro.checkpoint", "repro.launch.train", "repro.roofline.hw",
-            "repro.cluster", "repro.models.api", "repro.configs")
+            "repro.cluster", "repro.models.api", "repro.configs",
+            # the static verifier (its plan registry imports benchmarks/
+            # lazily, inside reference_modules())
+            "repro.analysis")
 _loaded: dict[str, types.ModuleType] = {}
 # every reference module the imports brought in, by dotted name: what
 # `reference_modules` puts back

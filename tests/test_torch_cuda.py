@@ -528,3 +528,52 @@ def test_cuda_full_width_two_layers_loss_and_gradients_kernel_vs_plain(arch):
     assert float(abs(lk - lp) / abs(lp)) <= FAMILY_REL_BOUND
     for name in gp:
         assert _rel(gk[name], gp[name]) <= FAMILY_REL_BOUND, name
+
+
+# ---------------------------------------------------------------------------
+# the static verifier's launch contract, read from the library
+# ---------------------------------------------------------------------------
+
+def _ci_groups():
+    """(label, group config, its CPU sweep) of every group the analysis
+    gate proves: the five CI plans, fig 5 armed and unarmed."""
+    from repro_torch.analysis import plans
+
+    for name in plans.CI_PLANS:
+        plan, tel, lint_unarmed = plans.resolve_entry(name)
+        variants = [(name, tel)] + ([(f"{name}[unarmed]", None)]
+                                    if lint_unarmed else [])
+        for label, telemetry in variants:
+            _, cfgs, overrides, groups = experiment.resolve_plan(
+                plan, telemetry=telemetry)
+            for gi, g in enumerate(groups):
+                yield (f"{label}/group{gi}", g.cfg,
+                       experiment.group_sweep(cfgs, overrides, g,
+                                              device="cpu"))
+
+
+def test_analysis_library_smem_equals_prediction_for_ci_groups():
+    from repro_torch.analysis import kernel_lint
+
+    n = 0
+    for label, cfg, sweep in _ci_groups():
+        setup = kernel_lint.launch_setup(cfg, sweep)
+        findings, facts = kernel_lint.lint_library(cfg, sweep, label=label,
+                                                   setup=setup)
+        assert facts["library_smem_bytes"] == nc.smem_bytes(
+            **nc.shape_of(cfg)), label
+        assert findings == [], findings
+        n += 1
+    assert n == 23
+
+
+def test_analysis_ci_specializations_do_not_spill():
+    from repro_torch.analysis import kernel_lint
+
+    specs = {kernel_lint.specialization_of(cfg, sweep)
+             for _, cfg, sweep in _ci_groups()}
+    assert specs <= kernel_lint.built_specializations()
+    for spec in sorted(specs):
+        attrs = nc.kernel_attributes(*spec)
+        assert attrs["local_bytes"] == 0, (spec, attrs)
+        assert attrs["max_threads"] >= nc.MAX_THREADS, (spec, attrs)
