@@ -34,6 +34,21 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   from the plan cache with no launch, and times one group as K grows
   from 2 to 264; fig 10 Reno runs at seeds 1-3, beside the reference's
   three seeds;
+* the other figure plans (``figures``): figs 7-9 (every algorithm, OFF
+  and WI), Table 2 (four snapshots on the two-tier fabric, each job
+  alone), fig 13 (Static against MLQCN), fig 14 (the triangle, Cassini
+  without a schedule), fig 15 (F1..F6 in the CC kernels), fig 16 (S x I,
+  one WI group of K = 48), fig 17 (WI against MD) and kernel_sweep,
+  copies of the suites' plans (``analysis/plans.py``), through
+  ``run_plan`` and the chunk kernel at 1.5 s and seeds 1-3, each counted:
+  groups as the plan lint predicted and as the suites assert, each cell
+  beside the reference's, the paper's claims held wherever the reference
+  holds them at the same seed, F1 bit for bit equal to linear(1.75,
+  0.25), and kernel_sweep's chunk and per-tick paths in turns; the CC
+  tick's and the chunk kernel's parity cases include F1..F6, and the
+  chunk kernel's the plans' own shapes (fig 14's triangle under its
+  Cassini schedule, Table 2's one-hot job masks on its two-tier fabric,
+  fig 13's Static factors at 3 jobs);
 * telemetry and faults: the fig 5 timeline plan (benchmarks/timeline.py:
   Reno, CUBIC, DCQCN x OFF/WI x seeds 1-3 with the suite's probes and
   detectors) and the churn gauntlet (benchmarks/churn.py: three jobs on a
@@ -105,6 +120,7 @@ imports JAX or the reference package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -141,6 +157,10 @@ CHUNK_CASE_SCALE = 0.25
 # depth of the armed kernel's cases (telemetry and faults armed: the
 # per-tick side costs more a tick)
 ARMED_CASE_SIM_TIME = 0.03
+# the paper's F families (core/aggressiveness.py), which the CC kernels
+# compute from the launch's F id, and the depth of their chunk cases
+F_FAMILIES = ("F1", "F2", "F3", "F4", "F5", "F6")
+F_CASE_SIM_TIME = 0.04
 SEEDS = (1, 2)
 # paper §4.1 (slope, intercept) and RED/ECN thresholds, benchmarks/common.py
 PARAMS = {"reno": (1.75, 0.25), "cubic": (1.0, 0.5), "dcqcn": (1.067, 0.267)}
@@ -164,7 +184,7 @@ BARRIER_CYCLES = 20
 # The unarmed chunk kernel's fig7-reno specialization (Reno WI, job
 # statistics, no factors): its registers as PERF.md §6 row 1 records them;
 # arming telemetry and faults must leave its code as it was.
-UNARMED_FIG7_REGISTERS = 117
+UNARMED_FIG7_REGISTERS = 119
 
 RESULTS: dict = {}
 
@@ -196,6 +216,28 @@ def _device_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
+@contextlib.contextmanager
+def traced(activities):
+    """A `torch.profiler.profile` session, the one way this script opens
+    one, with the card idle at both of its edges.  `main` sets
+    TEARDOWN_CUPTI=1 before torch loads, so that every session starts
+    from a fresh CUPTI state: without it each session in a long process
+    lost a few more device records than the last (4 more each cycle of
+    three 303-kernel traces on an H100; a deepseek-moe-16b prefill lost 1
+    of its 28 flash launches 10 minutes into this script); with it no
+    session of the same 7-minute probe lost one (`scripts/cupti_probe.py`).
+    The teardown completes in a later CUDA call: a process whose last
+    CUDA work is a traced session does not exit, so the script's last
+    session (`serve_families`) is followed by the cluster phase."""
+    import torch
+    from torch.profiler import profile
+
+    with profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+
+
 def device_rows(prof) -> list:
     """The profiler's device-side rows (kernels, copies, fills): the
     host-side ops that launched them carry the same time again."""
@@ -209,11 +251,11 @@ def device_ms(fn, reps: int) -> float:
     """Device time per call of ``fn``: the summed duration of the kernels
     it runs, from the profiler's CUPTI trace (host time excluded)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with traced([ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -265,9 +307,10 @@ def back_to_back_ms(fn, reps: int) -> float:
 # kernel operands
 # ---------------------------------------------------------------------------
 
-def fuzz_operands(ms, core, algo, variant, aggregate, factors, k, n, gen):
+def fuzz_operands(ms, core, algo, variant, aggregate, factors, k, n, gen,
+                  f_spec="linear"):
     """Random mid-run operands on the card, in the ranges the CPU tests
-    fuzz (tests/_torch_reference.py)."""
+    fuzz (tests/_torch_reference.py), under the F family ``f_spec``."""
     import torch
 
     dev = torch.device(DEVICE)
@@ -295,7 +338,8 @@ def fuzz_operands(ms, core, algo, variant, aggregate, factors, k, n, gen):
                        u(5e-4, 3e-3)[:, 0]], dim=-1).contiguous()
     now = u(0.01, 0.02)[:, 0].contiguous()
     fac = torch.where(u(0, 1) < 0.5, u(0.25, 2.0), -1.0) if factors else None
-    p = ms.static_params(core.CCParams(algo=algo, variant=variant), aggregate)
+    p = ms.static_params(core.CCParams(algo=algo, variant=variant), aggregate,
+                         f_spec)
     return p, dyn, arrays, now, fac
 
 
@@ -380,6 +424,19 @@ def phase_kernel(ms, core) -> dict:
                         ms, ms.mltcp_tick(*ops),
                         ms.mltcp_tick_reference(*ops)))
                     n_specs += 1
+    # the paper's F1..F6 (the launch's F id) under every variant that
+    # reads F, with and without factors
+    n_f = 0
+    for f_spec in F_FAMILIES:
+        for algo in (0, 1, 2):
+            for variant in (1, 2, 3):
+                for factors in (False, True):
+                    ops = fuzz_operands(ms, core, algo, variant, True,
+                                        factors, 4, 1000, gen, f_spec)
+                    worst = max(worst, compare_outputs(
+                        ms, ms.mltcp_tick(*ops),
+                        ms.mltcp_tick_reference(*ops)))
+                    n_f += 1
     torch.cuda.synchronize()
 
     def timed(algo, k, n, reps, plain_reps):
@@ -402,7 +459,8 @@ def phase_kernel(ms, core) -> dict:
     large = [timed(a, 64, 16384, 50, 10) for a in (0, 1, 2)]
     for row in large:
         row["gbytes_per_s"] = row["bytes"] / (row["device_ms"] * 1e-3) / 1e9
-    out = dict(specializations=n_specs, shape=[4, 1000], bitwise=True,
+    out = dict(specializations=n_specs, f_family_cases=n_f,
+               f_families=list(F_FAMILIES), shape=[4, 1000], bitwise=True,
                max_abs_err=worst, main_shape=main_shape, large=large)
     emit("kernel_vs_plain", **out)
     return out
@@ -551,16 +609,34 @@ def chunk_cases(core, netsim, workload, sim_time: float) -> list:
     OFF/WI/MD, CUBIC, DCQCN with ECN, Static factors, per-flow statistics,
     Cassini with stragglers at the fig 7 width (K=2, N=4); the fig 10
     width (6 jobs x 2 flows, padded to 2-6 active jobs, K=5); the two-tier
-    leaf/spine (M=9) with a 4-phase GPT-3 hybrid job.  The workload is
-    scaled to a quarter of the suite's (iterations of ~12 ms, not ~45 ms)
-    so that a short case completes iterations; the widths are the
+    leaf/spine (M=9) with a 4-phase GPT-3 hybrid job; and the shapes only
+    the figure plans drive: fig 14's triangle (three GPT-2 jobs, DCQCN OFF
+    under the infeasible Cassini schedule, as its Cassini points ride the
+    OFF group), Table 2's two-tier fabric (GPT-2 beside the GPT-3 hybrid)
+    under its one-hot `solo` masks, OFF and WI, and fig 13's DCQCN WI at 3
+    jobs with Static factors beside the adaptive sentinel.  The workload
+    is scaled to a quarter of the suite's (iterations of ~12 ms, not
+    ~45 ms) so that a short case completes iterations, and the Cassini
+    schedule is `fig14_schedule`'s for that workload; the widths are the
     suite's."""
     import numpy as np
+
+    from repro_torch.analysis import plans as suites
 
     def cfg(algo, variant, **kw):
         return fig7_cfg(core, netsim, workload, algo, variant, sim_time,
                         scale=CHUNK_CASE_SCALE, **kw)
     seeds = dict(seed=list(SEEDS))
+    triangle = netsim.triangle(sockets_per_job=2)
+    sched, feasible = workload.cassini_schedule(triangle, [
+        workload.profile_for("gpt2").scaled(WORK_SCALE * CHUNK_CASE_SCALE)
+        for _ in range(3)])
+    if feasible:
+        raise AssertionError("Cassini found a schedule on fig 14's triangle")
+    table2 = dict(topo=workload.table2_snapshots(sockets_per_job=2)[-1].topo,
+                  models=("gpt2", "gpt3_hybrid"))
+    solo = dict(seed=[SEEDS[0], SEEDS[1], SEEDS[0]],
+                job_active=[[True, True], [True, False], [False, True]])
     return [
         ("reno_off", cfg("reno", 0), seeds),
         ("reno_wi", cfg("reno", 1), seeds),
@@ -585,7 +661,35 @@ def chunk_cases(core, netsim, workload, sim_time: float) -> list:
          cfg("cubic", 1, topo=netsim.two_tier([(0, 1), (1, 2), (2, 3), (3, 0)],
                                              sockets_per_job=2),
              models=("gpt3_hybrid", "gpt2", "gpt2", "gpt2")), seeds),
+        ("fig14_triangle_dcqcn_off_cassini",
+         cfg("dcqcn", 0, topo=triangle, models=("gpt2",) * 3,
+             cassini=sched), seeds),
+        ("table2_two_tier_dcqcn_off_solo", cfg("dcqcn", 0, **table2), solo),
+        ("table2_two_tier_dcqcn_wi_solo", cfg("dcqcn", 1, **table2), solo),
+        ("fig13_dcqcn_wi_static_3jobs",
+         cfg("dcqcn", 1, topo=netsim.dumbbell(3, sockets_per_job=2),
+             models=("gpt2",) * 3),
+         dict(seed=list(SEEDS), static_job_factors=np.stack(
+             [suites.STATIC_FACTORS, np.full(3, -1.0)]))),
     ]
+
+
+def f_cases(core, netsim, workload, sim_time: float) -> list:
+    """(name, config, sweep overrides) of the F families in the chunk
+    kernel: F1..F6 on Reno WI at fig 15's width (three GPT-2 jobs on
+    dumbbell(3, 2)), and F3 (the one with a division) on CUBIC MD and on
+    DCQCN WI at the fig 7 width; the workload as `chunk_cases` cuts it."""
+    def cfg(algo, variant, f_spec, **kw):
+        return fig7_cfg(core, netsim, workload, algo, variant, sim_time,
+                        scale=CHUNK_CASE_SCALE,
+                        proto_kw=dict(f_spec=f_spec), **kw)
+    seeds = dict(seed=list(SEEDS))
+    fig15 = dict(topo=netsim.dumbbell(3, sockets_per_job=2),
+                 models=("gpt2",) * 3)
+    return ([(f"reno_wi_{f}", cfg("reno", 1, f, **fig15), seeds)
+             for f in F_FAMILIES]
+            + [("cubic_md_F3", cfg("cubic", 2, "F3"), seeds),
+               ("dcqcn_wi_F3", cfg("dcqcn", 1, "F3"), seeds)])
 
 
 def armed_cases(core, netsim, workload, sim_time: float) -> list:
@@ -664,6 +768,7 @@ def phase_chunk_vs_per_tick(kern, core, netsim, workload) -> dict:
     out = {}
     sim_time = CHUNK_CASE_SIM_TIME
     cases = (chunk_cases(core, netsim, workload, sim_time)
+             + f_cases(core, netsim, workload, F_CASE_SIM_TIME)
              + armed_cases(core, netsim, workload, ARMED_CASE_SIM_TIME))
     for name, cfg, overrides in cases:
         sweep = netsim.make_sweep(cfg, device=DEVICE, **overrides)
@@ -688,7 +793,8 @@ def phase_chunk_vs_per_tick(kern, core, netsim, workload) -> dict:
             chunk_us_per_tick=1e6 * chunk_s / ticks,
             per_tick_us_per_tick=1e6 * tick_s / ticks)
     emit("chunk_vs_per_tick", sim_time=sim_time,
-         armed_sim_time=ARMED_CASE_SIM_TIME, cases=out)
+         f_sim_time=F_CASE_SIM_TIME, armed_sim_time=ARMED_CASE_SIM_TIME,
+         cases=out)
     return out
 
 
@@ -1000,7 +1106,7 @@ def phase_profile(kern, core, netsim, workload) -> dict:
     kernel's own device time per launch.  The profiler adds host cost, so
     the busy share is a lower bound."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from repro_torch.netsim import engine
 
@@ -1008,8 +1114,7 @@ def phase_profile(kern, core, netsim, workload) -> dict:
         sweep = netsim.make_sweep(cfg, device=DEVICE, seed=list(SEEDS))
         engine.run_ticks(cfg, sweep, per_tick=per_tick)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
             engine.run_ticks(cfg, sweep, per_tick=per_tick)
             torch.cuda.synchronize()
@@ -1105,21 +1210,27 @@ def check_prediction(name: str, predicted: int, ran: int) -> None:
                              f"{predicted} groups, the run made {ran}")
 
 
-def check_plan(pr, counts: dict, max_groups: int) -> dict:
+def check_plan(pr, counts: dict, max_groups: int, idle=()) -> dict:
     """At most ``max_groups`` groups, one chunk launch per chunk per group,
     no per-tick CC launch, no fallback, and a finite iteration on every
-    job of every point."""
+    active job of every point but the [point label, job] pairs of
+    ``idle`` (those the reference's run of the plan also leaves without
+    one)."""
     import numpy as np
 
     cfg = pr.results[0].cfg
+    active = reference_plan_script().active_jobs
     want = dict(netsim_chunk=pr.n_compile_groups * n_chunks_run(cfg),
                 mltcp_step=0, fallbacks=0, chunk_fallbacks=0)
     if not 1 <= pr.n_compile_groups <= max_groups or counts != want:
         raise AssertionError(f"plan {pr.plan.name}: {pr.n_compile_groups} "
                              f"groups, counts {counts}, expected {want}")
+    idle = {(label, j) for label, j in idle}
     for r in pr:
-        if any(x.size == 0 or not np.all(np.isfinite(x))
-               for x in r.iter_times):
+        if any(r.iter_times[j].size == 0
+               or not np.all(np.isfinite(r.iter_times[j]))
+               for j in active(r.point, len(r.iter_times))
+               if (r.point.label(), j) not in idle):
             raise AssertionError(f"{pr.plan.name} {r.point.label()}: a job "
                                  f"recorded no finite iteration")
     return dict(n_compile_groups=pr.n_compile_groups,
@@ -1153,7 +1264,8 @@ def tier_b(name: str, cells: dict, ref: dict, seeds,
            metrics=("avg_speedup", "p99_speedup")) -> dict:
     """The port's cells against the reference's at the same seeds (each
     cell a {metric: [value per seed]}; None for "never", an infinite
-    time).  The runs diverge chaotically (loss and CNP draws threshold on
+    time; a cell without the metric is skipped).  The runs diverge
+    chaotically (loss and CNP draws threshold on
     ``expm1``, which differs by a few ulp across frameworks), so the
     port's run is in effect one more seed: a metric's tolerance is the
     widest spread the reference itself shows across seeds 1-3 in any cell
@@ -1168,11 +1280,13 @@ def tier_b(name: str, cells: dict, ref: dict, seeds,
     for metric in metrics:
         spreads = [max(v) - min(v) for v in (
             [x for x in c[metric] if x is not None]
-            for c in plan["cells"].values()) if v]
+            for c in plan["cells"].values() if metric in c) if v]
         tol = max(spreads) if spreads else 0.0
         out["tolerance"][metric] = tol
         n_out = n = 0
         for cell, got in cells.items():
+            if metric not in got:
+                continue
             for col, seed, value in zip(cols, seeds, got[metric]):
                 want = plan["cells"][cell][metric][col]
                 gap = (None if value is None or want is None
@@ -1282,7 +1396,7 @@ def k_row(kern, netsim, cfg, k: int) -> dict:
     apart (100 chunks), and µs per point-tick; ``paced_by`` names the
     larger of the host's time and the kernel's."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     ticks = ticks_run(cfg)
     seeds = list(range(1, k + 1))
@@ -1293,7 +1407,7 @@ def k_row(kern, netsim, cfg, k: int) -> dict:
         check_counts(f"K={k}", cfg, counts)
         walls.append(seconds)
     wall_s = statistics.median(walls[1:])
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with traced([ProfilerActivity.CUDA]) as prof:
         netsim.simulate_sweep(cfg, sweep, device=DEVICE)
         torch.cuda.synchronize()
     rows = device_rows(prof)
@@ -1378,6 +1492,187 @@ def phase_plans(kern, core, netsim, workload) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the paper's other figure plans
+# ---------------------------------------------------------------------------
+
+# the suites' REPRO_SMOKE depth, at the reference's seeds 1-3
+FIGURE_SIM_TIME = 1.5
+FIGURE_SEEDS = (1, 2, 3)
+# each figure's entry in results/benchmarks.json (the JAX reference's
+# suites, seed 1, REPRO_SMOKE)
+FIGURE_RECORDED = {"fig7-9": "fig7_9_convergence",
+                   "table2": "fig11_table2_diversity",
+                   "fig13": "fig13_partial_compat",
+                   "fig14": "fig14_circular_dependency",
+                   "fig15": "fig15_agg_functions",
+                   "fig16": "fig16_slope_intercept",
+                   "fig17": "fig17_wi_vs_md"}
+# the metrics of each figure plan's cells that the figures phase holds to
+# the reference's (tier_b); kernel_sweep reports only timings
+FIGURE_METRICS = {
+    "fig7-9": ("avg_speedup", "p99_speedup", "baseline_interleave",
+               "mltcp_interleave", "converged_at_iter",
+               "baseline_drops_per_s", "mltcp_drops_per_s",
+               "baseline_marks_per_s", "mltcp_marks_per_s"),
+    "table2": ("avg_speedup", "p99_speedup", "vs_ideal"),
+    "fig13": ("mlqcn_avg", "mlqcn_p99", "static_avg", "static_p99"),
+    "fig14": ("avg_speedup", "p99_speedup", "interleave"),
+    "fig15": ("avg_speedup", "p99_speedup", "interleave"),
+    "fig16": ("avg_speedup", "p99_speedup"),
+    "fig17": ("avg_speedup", "p99_speedup"),
+}
+
+
+def figure_means(cells: dict) -> dict:
+    """Each cell's metrics as the mean over its seeds (None where a seed
+    has none), the suites' own aggregation."""
+    return {cell: {m: (None if None in v else statistics.mean(v))
+                   for m, v in c.items()} for cell, c in cells.items()}
+
+
+def f1_equals_linear(kern, netsim, plan) -> dict:
+    """fig 15's F1 group against the same points as Reno WI under the
+    linear F of slope 1.75 and intercept 0.25, both through the chunk
+    kernel: the same formula, so every leaf equal bit for bit."""
+    import dataclasses
+
+    from repro_torch.netsim import experiment
+
+    points, cfgs, overrides, groups = experiment.resolve_plan(plan)
+    group = next(g for g in groups if points[g.idxs[0]]["scheme"] == "F1")
+    sweep = experiment.group_sweep(cfgs, overrides, group, device=DEVICE)
+    if not (bool((sweep.slope == 1.75).all())
+            and bool((sweep.intercept == 0.25).all())):
+        raise AssertionError("fig 15's F1 group is not at Reno WI's slope "
+                             "1.75 and intercept 0.25")
+    linear = dataclasses.replace(group.cfg, protocol=dataclasses.replace(
+        group.cfg.protocol, f_spec="linear", slope=1.75, intercept=0.25))
+    runs = {}
+    for name, cfg in (("F1", group.cfg), ("linear", linear)):
+        raw, seconds, counts = run_counted(kern, cfg, sweep)
+        check_counts(f"fig15 {name}", cfg, counts)
+        runs[name] = (raw, seconds)
+    err, n_leaves = compare_trees(runs["F1"][0], runs["linear"][0],
+                                  what="F1 != linear(1.75, 0.25)")
+    return dict(k=len(group.idxs), ticks=ticks_run(group.cfg), bitwise=True,
+                leaves=n_leaves, max_abs_err=err,
+                seconds={k: v[1] for k, v in runs.items()})
+
+
+def kernel_sweep_turns(kern, netsim, suites) -> dict:
+    """The kernel_sweep plan's group (Reno WI, 2 and 3 jobs x seeds 1-3,
+    padded into one) on the chunk kernel at FIGURE_SIM_TIME and on the
+    per-tick path (its plain version: the reference suite's "oracle"
+    mode) at PER_TICK_SIM_TIME, in turns (per-tick, chunk, chunk,
+    per-tick): µs per tick of each and their ratio."""
+    from repro_torch.netsim import experiment
+
+    turns = []
+    for per_tick in (True, False, False, True):
+        sim_time = PER_TICK_SIM_TIME if per_tick else FIGURE_SIM_TIME
+        points, cfgs, overrides, groups = experiment.resolve_plan(
+            suites.kernel_sweep_plan(sim_time, FIGURE_SEEDS))
+        (group,) = groups
+        sweep = experiment.group_sweep(cfgs, overrides, group, device=DEVICE)
+        _, seconds, counts = run_counted(kern, group.cfg, sweep,
+                                         per_tick=per_tick)
+        check_counts("kernel_sweep turn", group.cfg, counts,
+                     per_tick=per_tick)
+        turns.append(dict(path="per_tick" if per_tick else "chunk",
+                          k=len(group.idxs), ticks=ticks_run(group.cfg),
+                          seconds=seconds, launches=counts,
+                          us_per_tick=1e6 * seconds / ticks_run(group.cfg)))
+    med = {path: statistics.median(t["us_per_tick"] for t in turns
+                                   if t["path"] == path)
+           for path in ("chunk", "per_tick")}
+    return dict(turns=turns, chunk_us_per_tick=med["chunk"],
+                per_tick_us_per_tick=med["per_tick"],
+                per_tick_over_chunk=med["per_tick"] / med["chunk"])
+
+
+def phase_figures(kern, core, netsim, workload) -> dict:
+    """The paper's other figure plans (`analysis.plans.FIGURES`: figs 7-9,
+    Table 2, figs 13-17, kernel_sweep) through `netsim.run_plan` on the
+    card at the suites' 1.5 s and seeds 1-3, each counted on its own: the
+    plan lint's groups, every group on the chunk kernel (one launch a chunk,
+    no per-tick launch, no fallback; fig 15's F1..F6 groups among them),
+    the suites' own group assertions; each cell against the reference's
+    (Tier B); the paper's claims, failing only where the reference holds
+    one at the same seed; F1 against linear(1.75, 0.25), bit for bit; and
+    kernel_sweep's two paths in turns."""
+    from repro_torch.analysis import plans as suites
+
+    t0 = time.time()
+    rp = reference_plan_script()
+    with open(REFERENCE_PLANS) as f:
+        ref = json.load(f)
+    with open(os.path.join(ROOT, "results", "benchmarks.json")) as f:
+        recorded = json.load(f)
+    out, summary = {}, {}
+    for name, build in suites.FIGURES.items():
+        plan = build(FIGURE_SIM_TIME, FIGURE_SEEDS)
+        predicted = predicted_groups(plan)
+        pr, seconds, counts = counted(
+            kern, lambda: netsim.run_plan(plan, device=DEVICE))
+        lo, hi = rp.SUITE_GROUPS.get(name, (predicted, predicted))
+        idle = ref["plans"].get(name, {}).get("idle_jobs", ())
+        info = check_plan(pr, counts, hi, idle)
+        check_prediction(name, predicted, pr.n_compile_groups)
+        if info["n_compile_groups"] < lo:
+            raise AssertionError(f"{name}: {info['n_compile_groups']} "
+                                 f"groups, the suite's {lo}-{hi}")
+        row = dict(seconds=seconds, us_per_tick=1e6 * seconds / info["ticks"],
+                   groups_predicted=predicted, **info)
+        if name in ref["plans"]:
+            want = ref["plans"][name]
+            if info["n_compile_groups"] != want["n_compile_groups"]:
+                raise AssertionError(f"{name}: {info['n_compile_groups']} "
+                                     f"groups, the reference "
+                                     f"{want['n_compile_groups']}")
+            cells = rp.figure_cells(name, netsim, workload, pr)
+            feasible = (bool(suites.fig14_schedule()[1]) if name == "fig14"
+                        else None)
+            claims = rp.figure_claims(name, cells, feasible)
+            ref_claims = rp.figure_claims(name, want["cells"],
+                                          want.get("cassini_has_schedule"))
+            unheld = [(c, FIGURE_SEEDS[i])
+                      for c, i in rp.unshared_claims(claims, ref_claims)]
+            if unheld:
+                raise AssertionError(f"{name}: claims the reference holds "
+                                     f"fail on the port at seeds: {unheld}")
+            row.update(
+                cells=cells, means=figure_means(cells),
+                reference_means=figure_means(want["cells"]),
+                recorded=recorded.get(FIGURE_RECORDED[name]),
+                claims=claims, reference_claims=ref_claims,
+                failed_in_both=[(c, FIGURE_SEEDS[i])
+                                for c, held in claims.items()
+                                for i, h in enumerate(held)
+                                if not h and not ref_claims[c][i]],
+                tier_b=tier_b(name, cells, ref, FIGURE_SEEDS,
+                              FIGURE_METRICS[name]))
+            if name == "fig14":
+                row["cassini_has_schedule"] = feasible
+        out[name] = row
+        summary[name] = dict(
+            seconds=seconds, us_per_tick=row["us_per_tick"],
+            us_per_group_tick=row["us_per_tick"] / info["n_compile_groups"],
+            groups=info["n_compile_groups"], predicted=predicted,
+            k=[g["k"] for g in info["groups"]],
+            launches=counts["netsim_chunk"])
+    out["f1_equals_linear"] = f1_equals_linear(
+        kern, netsim, suites.fig15_plan(FIGURE_SIM_TIME, FIGURE_SEEDS))
+    out["kernel_sweep_turns"] = kernel_sweep_turns(kern, netsim, suites)
+    out["summary"] = summary
+    out["outside_tolerance"] = [dict(plan=name, **o) for name in ref["plans"]
+                                if name in out and "tier_b" in out[name]
+                                for o in out[name]["tier_b"]["outside"]]
+    out["seconds"] = time.time() - t0
+    emit("figures", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # telemetry and faults: the fig 5 timeline and the churn gauntlet plans
 # ---------------------------------------------------------------------------
 
@@ -1403,10 +1698,15 @@ CHURN_METRICS = ("interleave_stability", "max_reinterleave_iters")
 
 
 def reference_plan_script():
-    """scripts/reference_plans.py as a module (its cell extraction reads a
-    PlanResult of either package through the netsim accessors; it imports
-    nothing of the reference until its main runs)."""
-    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    """scripts/reference_plans.py as a module: the figure plans' cells
+    (`figure_cells`, read from a PlanResult of either package through the
+    netsim accessors), the paper's claims on them (`figure_claims`,
+    `unshared_claims`), the suites' group limits (`SUITE_GROUPS`) and the
+    jobs a point runs (`active_jobs`); it imports nothing of the reference
+    until its main runs."""
+    scripts = os.path.join(ROOT, "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
     import reference_plans
     return reference_plans
 
@@ -2245,13 +2545,13 @@ def profile_top(fn, keys: tuple = (), n: int = 8, host: bool = True) -> dict:
     the host's ops, and a call of ~10^5 launches costs minutes to sum
     with them)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CUDA]
     if host:
         activities.append(ProfilerActivity.CPU)
-    with profile(activities=activities) as prof:
+    with traced(activities) as prof:
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
@@ -3255,8 +3555,8 @@ def armed_attributes(nc, netsim, core, workload) -> dict:
 
 
 def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
-                 timing: dict, prof: dict, plans: dict, lm: dict,
-                 served: dict, armed: dict, tel: dict, flt: dict,
+                 timing: dict, prof: dict, plans: dict, figures: dict,
+                 lm: dict, served: dict, armed: dict, tel: dict, flt: dict,
                  trained: dict, families: dict, clustered: dict) -> list:
     main_row = next(r for r in kern["main_shape"] if r["algo"] == 0)
     serve_attrs = lm["flash"]["attributes"]["float32_d256"]
@@ -3303,6 +3603,9 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
         "plan_launches": {name: plans[name]["launches"]["netsim_chunk"]
                           for name in ("fig10-reno", "fig10-dcqcn",
                                        "fig12")},
+        # the figures phase's plans, each counted on its own
+        "figure_plan_launches": {name: row["launches"] for name, row in
+                                 figures["summary"].items()},
         # the armed kernel (telemetry and faults): its plans' launches, its
         # specializations, and fig7-reno armed against unarmed
         "armed_plan_launches": {"fig5": tel["launches"]["netsim_chunk"],
@@ -3314,7 +3617,8 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
         "armed": armed,
         "armed_us_per_tick": tel["fig7_reno"]["armed_us_per_tick"],
         "unarmed_us_per_tick": tel["fig7_reno"]["unarmed_us_per_tick"],
-        "max_abs_err": max([timing["max_abs_err"]]
+        "max_abs_err": max([timing["max_abs_err"],
+                            figures["f1_equals_linear"]["max_abs_err"]]
                            + [c["max_abs_err"] for c in chunks.values()]),
         "armed_cases_bitwise": sorted(name for name, c in chunks.items()
                                       if c["armed"]),
@@ -3441,6 +3745,8 @@ def main(argv=None) -> int:
     if probe and probe[0] not in PROBES:
         ap.error(f"--probe takes one of {', '.join(PROBES)}, not {probe[0]}")
 
+    # the profiler's CUPTI teardown after each session (see `traced`)
+    os.environ["TEARDOWN_CUPTI"] = "1"
     import torch
 
     if not torch.cuda.is_available():
@@ -3475,6 +3781,7 @@ def main(argv=None) -> int:
     timing = phase_chunk_timing(sim_kernels, core, netsim, workload)
     prof = phase_profile(sim_kernels, core, netsim, workload)
     plans = phase_plans(sim_kernels, core, netsim, workload)
+    figures = phase_figures(sim_kernels, core, netsim, workload)
     tel = phase_telemetry(sim_kernels, core, netsim, workload)
     flt = phase_faults(sim_kernels, core, netsim, workload)
     phase_analysis(sim_kernels)
@@ -3485,8 +3792,8 @@ def main(argv=None) -> int:
     families = phase_serve_families(fa, rl, sim_kernels)
     clustered = phase_cluster(sim_kernels)
     table = kernel_table(kern, main_path, states, chunks, timing, prof,
-                         plans, lm, served, armed, tel, flt, trained,
-                         families, clustered)
+                         plans, figures, lm, served, armed, tel, flt,
+                         trained, families, clustered)
     check_kernel_table(table)
     RESULTS["kernels"] = table
     write_results(args.out, t_start)

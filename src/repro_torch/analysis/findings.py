@@ -118,8 +118,9 @@ rule("plan/group-mismatch", ERROR,
 # --- dispatch layer (the route the port's wrappers take) -------------------
 rule("dispatch/kernel-fallback", ERROR,
      "the card would take the counted per-tick path for this group",
-     "`kernels.ops.netsim_chunk` sends a non-default favoritism or F "
-     "family without Static factors, a custom telemetry probe or a point "
+     "`kernels.ops.netsim_chunk` sends a non-default favoritism without "
+     "Static factors, a callable F (the kernels compute the linear F and "
+     "F1..F6), a custom telemetry probe or a point "
      "over the shared-memory budget down the per-tick loop; a plan that "
      "claims the chunk kernel then runs ~165 launches a tick instead of "
      "one a chunk, and its timings are void.")

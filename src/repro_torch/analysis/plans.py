@@ -18,6 +18,12 @@ the ``--ci`` gate proves (``CI_PLANS``), built the way
 * ``churn``: algo x OFF/WI x fault schedule x seed, with telemetry and
   faults armed on a 100 Gbps 3-job dumbbell (benchmarks/churn.py).
 
+Beside them, ``FIGURES`` holds the other figure suites' plans as plain
+builders (no registry entry, no CLI name), which ``chip_smoke.py``'s
+``figures`` phase runs on the card: ``fig7-9`` (benchmarks/convergence.py),
+``table2`` (diversity.py), ``fig13``, ``fig14`` (circular.py), ``fig15``,
+``fig16`` and ``fig17`` (parameters.py) and ``kernel_sweep``.
+
 The depth and the seeds follow ``benchmarks/common.py``: ``REPRO_SMOKE=1``
 1.5 s and seed 1, ``REPRO_FULL=1`` 20 s, seeds 1-3 and the unscaled
 workload, else 4 s and seeds 1-2 (the churn plan runs 18 s times the
@@ -33,19 +39,22 @@ from typing import Callable, Optional
 
 import numpy as np
 
-__all__ = ["PlanEntry", "PLANS", "CI_PLANS", "resolve_entry", "depth",
-           "protocol", "build_cfg", "fig12_plan", "fig13_plan",
-           "fig5_spec", "fig5_plan", "kernel_sweep_plan", "churn_spec",
-           "churn_plan", "churn_events", "CHURN_EVENTS", "STATIC_FACTORS",
-           "SOCKETS"]
+__all__ = ["PlanEntry", "PLANS", "CI_PLANS", "FIGURES", "resolve_entry",
+           "depth", "protocol", "build_cfg", "fig7_9_plan", "table2_plan",
+           "fig12_plan", "fig13_plan", "fig14_plan", "fig14_schedule",
+           "fig15_plan", "fig16_plan", "fig17_plan", "fig5_spec",
+           "fig5_plan", "kernel_sweep_plan", "churn_spec", "churn_plan",
+           "churn_events", "CHURN_EVENTS", "STATIC_FACTORS", "SOCKETS"]
 
 DT = 2e-5
 RTT = 100e-6
 # paper §4.1 (slope, intercept) of the WI scheme, benchmarks/common.py (an
-# OFF point keeps them: the variant ignores them)
+# OFF point keeps them: the variant ignores them), and of the MD scheme
 PARAMS = {"reno": (1.75, 0.25), "cubic": (1.0, 0.5), "dcqcn": (1.067, 0.267)}
+MD_PARAMS = {"reno": (1.0, 1.0), "cubic": (0.8, 0.8),
+             "dcqcn": (1.067, 0.267)}
 ALGOS = {"reno": 0, "cubic": 1, "dcqcn": 2}
-VARIANTS = {"OFF": 0, "WI": 1}
+VARIANTS = {"OFF": 0, "WI": 1, "MD": 2}
 # ECN thresholds for the RoCE fabric; RED drop thresholds for TCP
 RED_BY_ALGO = {
     "reno": dict(red_qmin=150e3, red_qmax=1.5e6, red_pmax=0.12),
@@ -56,6 +65,12 @@ RED_BY_ALGO = {
 SOCKETS = {"reno": 2, "cubic": 2, "dcqcn": 1}
 
 FIG12_PROBS = (0.0, 0.05, 0.10, 0.20, 0.30)
+FIG7_ALGOS = ("reno", "cubic", "dcqcn")
+TABLE2_JOBS = 2                 # every Table-2 snapshot pairs two jobs
+FIG15_SCHEMES = ("OFF", "F1", "F2", "F3", "F4", "F5", "F6")
+FIG16_SLOPES = (0.5, 1.0, 1.75, 2.5)
+FIG16_INTERCEPTS = (0.1, 0.25, 0.5, 1.0)
+FIG17_ALGOS = ("reno", "cubic")
 FIG13_COMPUTE_SCALES = (1.5, 1.0, 0.7, 0.45, 0.25)
 # Static [67]: fixed per-job factors replacing F (partial_compat.py)
 STATIC_FACTORS = np.asarray([1.3, 1.0, 0.7])
@@ -86,15 +101,16 @@ def depth() -> dict:
                 churn_sim_time=18.0 * scale)
 
 
-def protocol(algo: str, variant: str = "WI"):
-    """common.protocol: the algorithm's paper parameters, OFF or WI."""
+def protocol(algo: str, variant: str = "WI", f_spec: str = "linear"):
+    """common.protocol: the algorithm's paper parameters, OFF, WI or MD,
+    with the F family ``f_spec``."""
     from repro_torch.core import CCParams, MLTCPConfig
 
-    slope, intercept = PARAMS[algo]
+    slope, intercept = (MD_PARAMS if variant == "MD" else PARAMS)[algo]
     return MLTCPConfig(
         cc=CCParams(algo=ALGOS[algo], variant=VARIANTS[variant], tick_dt=DT,
                     rtt=RTT),
-        slope=slope, intercept=intercept)
+        slope=slope, intercept=intercept, f_spec=f_spec)
 
 
 def build_cfg(topo, profiles, proto, *, sim_time: float, **kw):
@@ -165,6 +181,160 @@ def fig13_plan(sim_time: Optional[float] = None, seeds=None):
     return netsim.Plan(name="fig13", build=build, axes=(
         netsim.Axis("cs", FIG13_COMPUTE_SCALES),
         netsim.Axis("scheme", ("base", "mlqcn", "static")),
+        netsim.Axis("seed", seeds)))
+
+
+def fig7_9_plan(sim_time: Optional[float] = None, seeds=None):
+    """convergence.run: algo x variant (OFF/WI) x seed, two GPT-2 jobs on
+    dumbbell(2, 2) for every algorithm (this suite gives DCQCN two
+    sockets a job too, unlike fig 5's `SOCKETS`): six groups."""
+    from repro_torch import netsim
+
+    sim_time, seeds = _depth(sim_time, seeds)
+    topo = netsim.dumbbell(2, sockets_per_job=2)
+    profs = _gpt2(2)
+
+    def build(pt):
+        return build_cfg(topo, profs, protocol(pt["algo"], pt["variant"]),
+                         sim_time=sim_time)
+    return netsim.Plan(name="fig7-9", build=build, axes=(
+        netsim.Axis("algo", FIG7_ALGOS),
+        netsim.Axis("variant", ("OFF", "WI")),
+        netsim.Axis("seed", seeds)))
+
+
+def _solo_mask(v):
+    """diversity.run's `solo` resolver: every job, or one job alone."""
+    if v == "all":
+        return np.ones((TABLE2_JOBS,), bool)
+    mask = np.zeros((TABLE2_JOBS,), bool)
+    mask[v] = True
+    return mask
+
+
+def _table2_where(pt) -> bool:
+    # isolation points only need the baseline protocol
+    return pt["solo"] == "all" or pt["scheme"] == "base"
+
+
+def table2_plan(sim_time: Optional[float] = None, seeds=None):
+    """diversity.run: the four `workload.table2_snapshots` on the two-tier
+    fabric, scheme (base DCQCN / MLQCN) x the one-hot `solo` axis on
+    ``job_active`` x seed, isolation points only under base; the
+    snapshots of one phase structure merge, so at most four groups."""
+    from repro_torch import netsim, workload
+
+    sim_time, seeds = _depth(sim_time, seeds)
+    by_name = {s.name: s for s in workload.table2_snapshots(
+        sockets_per_job=2)}
+
+    def build(pt):
+        snap = by_name[pt["snap"]]
+        variant = "WI" if pt["scheme"] == "mlqcn" else "OFF"
+        return build_cfg(snap.topo, list(snap.profiles),
+                         protocol("dcqcn", variant), sim_time=sim_time)
+    return netsim.Plan(name="table2", build=build, where=_table2_where,
+                       axes=(netsim.Axis("snap", tuple(by_name)),
+                             netsim.Axis("scheme", ("base", "mlqcn")),
+                             netsim.Axis("solo", ("all",)
+                                         + tuple(range(TABLE2_JOBS)),
+                                         field="job_active",
+                                         resolve=_solo_mask),
+                             netsim.Axis("seed", seeds)))
+
+
+def fig14_schedule():
+    """circular.run's Cassini schedule for three GPT-2 jobs on the
+    triangle, and whether it is feasible (the suite's
+    `cassini_has_schedule`; the triangle's loop makes it False)."""
+    from repro_torch import netsim, workload
+
+    return workload.cassini_schedule(
+        netsim.triangle(sockets_per_job=2),
+        [p.scaled(depth()["work_scale"]) for p in _gpt2(3)])
+
+
+def fig14_plan(sim_time: Optional[float] = None, seeds=None):
+    """circular.run: scheme (base DCQCN / MLQCN / Cassini) x seed on
+    ``netsim.triangle(2)``; the (infeasible) Cassini schedule rides the
+    OFF group's sweep leaves: two groups."""
+    from repro_torch import netsim
+
+    sim_time, seeds = _depth(sim_time, seeds)
+    topo = netsim.triangle(sockets_per_job=2)
+    profs = _gpt2(3)
+    sched, _ = fig14_schedule()
+
+    def build(pt):
+        variant = "WI" if pt["scheme"] == "mlqcn" else "OFF"
+        return build_cfg(topo, profs, protocol("dcqcn", variant),
+                         sim_time=sim_time,
+                         cassini=sched if pt["scheme"] == "cassini" else None)
+    return netsim.Plan(name="fig14", build=build, axes=(
+        netsim.Axis("scheme", ("base", "mlqcn", "cassini")),
+        netsim.Axis("seed", seeds)))
+
+
+def fig15_plan(sim_time: Optional[float] = None, seeds=None):
+    """parameters.fig15_agg_functions: OFF and WI under each of F1..F6, x
+    seed, Reno, three GPT-2 jobs on dumbbell(3, 2): seven groups (the F
+    family is static)."""
+    from repro_torch import netsim
+
+    sim_time, seeds = _depth(sim_time, seeds)
+    topo = netsim.dumbbell(3, sockets_per_job=2)
+    profs = _gpt2(3)
+
+    def build(pt):
+        s = pt["scheme"]
+        proto = (protocol("reno", "OFF") if s == "OFF"
+                 else protocol("reno", "WI", f_spec=s))
+        return build_cfg(topo, profs, proto, sim_time=sim_time)
+    return netsim.Plan(name="fig15", build=build, axes=(
+        netsim.Axis("scheme", FIG15_SCHEMES), netsim.Axis("seed", seeds)))
+
+
+def fig16_plan(sim_time: Optional[float] = None, seeds=None):
+    """parameters.fig16_heatmap: variant x slope x intercept x seed, Reno on
+    dumbbell(2, 2); S and I are sweep fields, and `where` prunes the OFF
+    baseline to the first (S, I): two groups, WI of 4 x 4 x seeds
+    points."""
+    from repro_torch import netsim
+
+    sim_time, seeds = _depth(sim_time, seeds)
+    topo = netsim.dumbbell(2, sockets_per_job=2)
+    profs = _gpt2(2)
+
+    def build(pt):
+        return build_cfg(topo, profs, protocol("reno", pt["variant"]),
+                         sim_time=sim_time)
+
+    def where(pt):
+        return pt["variant"] == "WI" or (
+            pt["slope"] == FIG16_SLOPES[0]
+            and pt["intercept"] == FIG16_INTERCEPTS[0])
+    return netsim.Plan(name="fig16", build=build, where=where, axes=(
+        netsim.Axis("variant", ("OFF", "WI")),
+        netsim.Axis("slope", FIG16_SLOPES),
+        netsim.Axis("intercept", FIG16_INTERCEPTS),
+        netsim.Axis("seed", seeds)))
+
+
+def fig17_plan(sim_time: Optional[float] = None, seeds=None):
+    """parameters.fig17_wi_vs_md: algo (Reno, CUBIC) x variant (OFF / WI /
+    MD) x seed on dumbbell(2, 2): six groups."""
+    from repro_torch import netsim
+
+    sim_time, seeds = _depth(sim_time, seeds)
+    topo = netsim.dumbbell(2, sockets_per_job=2)
+    profs = _gpt2(2)
+
+    def build(pt):
+        return build_cfg(topo, profs, protocol(pt["algo"], pt["variant"]),
+                         sim_time=sim_time)
+    return netsim.Plan(name="fig17", build=build, axes=(
+        netsim.Axis("algo", FIG17_ALGOS),
+        netsim.Axis("variant", ("OFF", "WI", "MD")),
         netsim.Axis("seed", seeds)))
 
 
@@ -308,6 +478,15 @@ PLANS: dict[str, PlanEntry] = {
 }
 
 CI_PLANS = ("fig12", "fig13", "fig5", "kernel_sweep", "churn")
+
+# the figure suites' plans the registry does not lint, by the name the
+# figures phase of chip_smoke.py and scripts/reference_plans.py use; each
+# builder takes (sim_time, seeds)
+FIGURES: dict[str, Callable] = {
+    "fig7-9": fig7_9_plan, "table2": table2_plan, "fig13": fig13_plan,
+    "fig14": fig14_plan, "fig15": fig15_plan, "fig16": fig16_plan,
+    "fig17": fig17_plan, "kernel_sweep": kernel_sweep_plan,
+}
 
 
 def resolve_entry(name: str):

@@ -3,8 +3,9 @@
 // (netsim_chunk.cu), so it exists once.
 //
 // Algorithm 1 (boundary test, iter_gap EWMA, max_gap, per-flow or
-// job-aggregated bytes_ratio), F = slope*ratio + intercept with optional
-// Static factors (>= 0 replaces F, < 0 keeps it), WI/MD routing, and the
+// job-aggregated bytes_ratio), F (the linear slope*ratio + intercept or one
+// of the paper's F1..F6, `f_value`) with optional Static factors (>= 0
+// replaces F, < 0 keeps it), WI/MD routing, and the
 // Reno, CUBIC or DCQCN update, op for op as the plain PyTorch version
 // (repro_torch/kernels/mltcp_step.py::mltcp_tick_reference).  Built with
 // --fmad=false and IEEE division; the min/max/clamp helpers follow torch's
@@ -92,10 +93,31 @@ struct Signals {
   float factor;       // Static factor (read when FACTORS)
 };
 
-// A sweep point's protocol scalars, the DynamicParams field order.
+// A sweep point's protocol scalars, the DynamicParams field order, and the
+// launch's F family (F_IDS of mltcp_step.py: 0 the linear F, 1..6 F1..F6).
 struct Dyn {
   float slope, intercept, g, gamma, init_gap;
+  int f_id;
 };
+
+// F(x) of the F family `f_id` (uniform across the launch): the linear
+// slope*x + intercept, or the paper's F1..F6 as
+// repro_torch/core/aggressiveness.py writes them, in the same association
+// (each product and sum rounded on its own under --fmad=false, F3's
+// division IEEE, as torch's reciprocal), so the per-tick kernel, the chunk
+// kernel and the plain version agree bit for bit.
+__device__ __forceinline__ float f_value(int f_id, float x, float slope,
+                                         float intercept) {
+  switch (f_id) {
+    case 1: return 1.75f * x + 0.25f;                        // F1
+    case 2: return 1.75f * (x * x) + 0.25f;                  // F2
+    case 3: return 1.0f / (-3.5f * x + 4.0f);                // F3
+    case 4: return (-1.75f * (x * x) + 3.5f * x) + 0.25f;    // F4
+    case 5: return -1.75f * x + 2.0f;                        // F5
+    case 6: return -1.75f * (x * x) + 2.0f;                  // F6
+    default: return slope * x + intercept;                   // linear
+  }
+}
 
 // Advance `s` one tick at time `now`; returns whether the tick's ack opens
 // a new training iteration (Algorithm 1 line 16, the n_boundaries count).
@@ -127,7 +149,8 @@ __device__ __forceinline__ bool cc_update(Flow& s, const Signals& x,
 
   // ---------------- F(bytes_ratio), variant routing ----------------
   float adaptive = 1.0f;
-  if (VARIANT != VAR_OFF) adaptive = d.slope * ratio + d.intercept;
+  if (VARIANT != VAR_OFF)
+    adaptive = f_value(d.f_id, ratio, d.slope, d.intercept);
   float f_vals = adaptive;
   if (FACTORS) f_vals = x.factor >= 0.0f ? x.factor : adaptive;
   const float f_wi = (VARIANT == VAR_WI || VARIANT == VAR_BOTH) ? f_vals : 1.0f;

@@ -3,10 +3,11 @@
 // Replaces the Pallas TPU kernel repro/kernels/mltcp_step.py::_kernel
 // (launched by mltcp_tick_arrays).  One thread advances one flow of one
 // sweep point: Algorithm 1 (boundary test, iter_gap EWMA, max_gap, per-flow
-// or job-aggregated bytes_ratio), F = slope*ratio + intercept with optional
-// Static factors (>= 0 replaces F, < 0 keeps it), WI/MD routing, and the
-// Reno, CUBIC or DCQCN update.  State is [K, N] contiguous; the grid covers
-// K*N with the ragged edge masked; dyn is [K, 5] and now is [K].
+// or job-aggregated bytes_ratio), F (linear, slope*ratio + intercept, or one
+// of F1..F6, the launch's `f_id`) with optional Static factors (>= 0
+// replaces F, < 0 keeps it), WI/MD routing, and the Reno, CUBIC or DCQCN
+// update.  State is [K, N] contiguous; the grid covers K*N with the ragged
+// edge masked; dyn is [K, 5] and now is [K].
 //
 // What bounds it: a pure byte-mover, ~86 B read and 72 B written per flow
 // (~160 B, ~50 ps per flow at 3.35 TB/s).  At the paper's shapes (K*N of a
@@ -56,7 +57,7 @@ template <int ALGO, int VARIANT, bool AGG, bool FACTORS>
 __global__ void __launch_bounds__(256)
 mltcp_step_kernel(Ptrs p, Consts c, const float* __restrict__ dyn,
                   const float* __restrict__ now_k,
-                  const float* __restrict__ factors, long long K,
+                  const float* __restrict__ factors, int f_id, long long K,
                   long long N) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= K * N) return;
@@ -65,7 +66,7 @@ mltcp_step_kernel(Ptrs p, Consts c, const float* __restrict__ dyn,
 #define IN_F(idx) (static_cast<const float*>(p.in[idx])[i])
 #define OUT_F(idx) (static_cast<float*>(p.out[idx])[i])
   const Dyn d{dyn[k * 5 + 0], dyn[k * 5 + 1], dyn[k * 5 + 2],
-              dyn[k * 5 + 3], dyn[k * 5 + 4]};
+              dyn[k * 5 + 3], dyn[k * 5 + 4], f_id};
   const float now = now_k[k];
 
   Flow s;
@@ -125,12 +126,12 @@ constexpr int BLOCK = 256;
 struct Launch {
   template <int ALGO, int VARIANT, bool AGG, bool FACTORS>
   static int run(const Ptrs& p, const Consts& c, const float* dyn,
-                 const float* now, const float* factors, long long K,
-                 long long N, cudaStream_t stream) {
+                 const float* now, const float* factors, int f_id,
+                 long long K, long long N, cudaStream_t stream) {
     const long long total = K * N;
     const unsigned grid = (unsigned)((total + BLOCK - 1) / BLOCK);
     mltcp_step_kernel<ALGO, VARIANT, AGG, FACTORS>
-        <<<grid, BLOCK, 0, stream>>>(p, c, dyn, now, factors, K, N);
+        <<<grid, BLOCK, 0, stream>>>(p, c, dyn, now, factors, f_id, K, N);
     return 0;
   }
 };
@@ -138,15 +139,16 @@ struct Launch {
 }  // namespace
 
 // Launch the fused tick on `stream`.  `ins`/`outs` are host arrays of device
-// pointers in IN_ORDER / OUT_ORDER; `consts` a host array of CONST_FIELDS.
-// Returns cudaGetLastError() (0 on success), or -1 for an unknown
-// specialization.
+// pointers in IN_ORDER / OUT_ORDER; `consts` a host array of CONST_FIELDS;
+// `f_id` the F family (F_IDS).  Returns cudaGetLastError() (0 on success),
+// or -1 for an unknown specialization.
 extern "C" int mltcp_step_launch(int algo, int variant, int aggregate,
                                  int use_factors, const void* const* ins,
                                  void* const* outs, const float* consts,
                                  int fast_recovery_stages, const void* dyn,
                                  const void* now, const void* factors,
-                                 long long K, long long N, void* stream) {
+                                 int f_id, long long K, long long N,
+                                 void* stream) {
   Ptrs p;
   for (int j = 0; j < N_IN; ++j) p.in[j] = ins[j];
   for (int j = 0; j < N_OUT; ++j) p.out[j] = outs[j];
@@ -158,7 +160,8 @@ extern "C" int mltcp_step_launch(int algo, int variant, int aggregate,
   const float* f = static_cast<const float*>(factors);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc = dispatch<Launch>(algo, variant, aggregate != 0,
-                                  use_factors != 0, p, c, d, t, f, K, N, s);
+                                  use_factors != 0, p, c, d, t, f, f_id, K,
+                                  N, s);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

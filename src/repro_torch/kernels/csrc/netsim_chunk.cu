@@ -31,8 +31,8 @@
 // by phase, always by the same `for (x = tid; x < count; x += nt)` split,
 // so state a thread writes in one phase and reads in a later one is its
 // own.  The engine-level options (ECN vs RED, Cassini, the CUBIC epoch
-// reset) are runtime branches uniform across the CTA; the CC
-// specializations stay template parameters.
+// reset) and the F family are runtime branches uniform across the CTA;
+// the CC specializations stay template parameters.
 //
 // Telemetry and faults (netsim/telemetry.py, netsim/faults.py) are the
 // template parameter ARMED (bit 0 telemetry, bit 1 faults); ARMED == 0 is
@@ -110,7 +110,9 @@ enum Operand {
   O_TEL_F, O_TEL_I, O_TEL_HIST, O_TEL_EV, O_SERIES, O_SAMPLE_TICK,
   N_OPERAND
 };
-// DIMS: the int array's order.  D_ARMED is the specialization's ARMED;
+// DIMS: the int array's order.  D_F_ID is the F family (mltcp_cc.cuh's
+// f_value), uniform across the launch.  D_ARMED is the specialization's
+// ARMED;
 // the armed launch's flags and sizes follow: fault channels, the
 // detectors, the ring (stride, slots, width), the tail's first tick, the
 // sketch's bins, the schedule's rows, and each built-in probe's column
@@ -118,7 +120,7 @@ enum Operand {
 // order.
 enum Dim {
   D_K, D_M, D_N, D_J, D_S, D_D, D_P, D_MAX_ITERS, D_TICKS, D_U_STRIDE,
-  D_ECN, D_CASSINI, D_CUBIC_RESET, D_N_CHUNKS, D_CHUNK,
+  D_ECN, D_CASSINI, D_CUBIC_RESET, D_N_CHUNKS, D_CHUNK, D_F_ID,
   D_ARMED, D_CHURN, D_BLACKHOLE, D_FLAPS, D_JOB_ACTIVE, D_INTERLEAVE,
   D_SKETCH, D_REINTERLEAVE, D_STRIDE, D_CAP, D_SERIES_W, D_TAIL_START,
   D_BINS, D_EVENTS,
@@ -354,7 +356,8 @@ __device__ void run_point(const Args& a, int k, int tid, int nt,
     if (tid == 0) p_red[M] = overflow[M] = serve[M] = 0.0f;
   }
   const float* const q = g_params + (long long)k * N_PARAM;
-  const Dyn dyn{q[Q_SLOPE], q[Q_INTERCEPT], q[Q_G], q[Q_GAMMA], q[Q_INIT_GAP]};
+  const Dyn dyn{q[Q_SLOPE], q[Q_INTERCEPT], q[Q_G], q[Q_GAMMA], q[Q_INIT_GAP],
+                a.dim[D_F_ID]};
   const float qmin = q[Q_RED_QMIN], qmax = q[Q_RED_QMAX];
   const float pmax = q[Q_RED_PMAX], eps = q[Q_CASSINI_EPS];
   const float span = qmax - qmin, rest = 1.0f - pmax;
@@ -740,7 +743,8 @@ __device__ void run_point(const Args& a, int k, int tid, int nt,
         if (jobf) {
           // F of the post-update detection state (core.f_values)
           float f = 1.0f;
-          if (VARIANT != VAR_OFF) f = dyn.slope * s.ratio + dyn.intercept;
+          if (VARIANT != VAR_OFF)
+            f = f_value(dyn.f_id, s.ratio, dyn.slope, dyn.intercept);
           if (FACTORS) f = x.factor >= 0.0f ? x.factor : f;
           x_fjob[n] = f * spj_inv[n];
         }

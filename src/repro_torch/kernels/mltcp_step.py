@@ -3,9 +3,10 @@ plain PyTorch version, its build and its launch counter.
 
 One launch advances every flow of every sweep point one simulator tick:
 Algorithm 1 (boundary test, ``iter_gap`` EWMA, ``max_gap``, per-flow or
-job-aggregated ``bytes_ratio``), F = slope·ratio + intercept with the
-optional Static factors (>= 0 replaces F, < 0 keeps it), WI/MD routing,
-and the Reno, CUBIC or DCQCN update.
+job-aggregated ``bytes_ratio``), F (the linear slope·ratio + intercept
+or one of the paper's F1..F6, `F_IDS`) with the optional Static factors
+(>= 0 replaces F, < 0 keeps it), WI/MD routing, and the Reno, CUBIC or
+DCQCN update.
 
 It replaces the Pallas TPU kernel ``repro/kernels/mltcp_step.py::_kernel``
 (launched by ``mltcp_tick_arrays``).  The TPU form packs flows into
@@ -14,7 +15,8 @@ here state is ``[K, N]`` contiguous, one thread per (k, n) over a 1-D grid
 of K·N with the ragged edge masked, ``dyn`` is ``[K, 5]`` (each thread
 reads its point's row) and ``now`` is ``[K]``.  ``algo``, ``variant``,
 ``aggregate`` and the presence of factors are template parameters chosen
-on the host, as the TPU kernel specializes at trace time.
+on the host, as the TPU kernel specializes at trace time; the F family is
+a launch argument (``f_id``), one for every flow of the launch.
 
 What bounds it: it is a pure byte-mover.  Per flow it reads 20 float32
 and one int32 state/feedback values plus two bool signals (86 B, 90 B
@@ -36,7 +38,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core import iteration
+from repro_torch.core import aggressiveness, iteration
 from repro_torch.core.cc import cubic
 from repro_torch.core.cc.types import Algo, Variant
 from repro_torch.kernels import build
@@ -56,6 +58,12 @@ IN_DTYPES = {"stage": torch.int32, "loss": torch.bool, "cnp": torch.bool}
 # Layout of a ``dyn`` row (== core.DynamicParams field order).
 DYN_FIELDS = ("slope", "intercept", "g", "gamma", "init_comm_gap")
 NDYN = len(DYN_FIELDS)
+# The F families the kernels compute (mltcp_cc.cuh's f_value), by the
+# kernels' F id: the linear F over the point's slope and intercept, and
+# the paper's F1..F6 (core/aggressiveness.py).  Any other F (a callable)
+# is not a kernel's (`f_id` raises for it).
+F_IDS = {"linear": 0, "F1": 1, "F2": 2, "F3": 3, "F4": 4, "F5": 5, "F6": 6}
+F_SPECS = {i: spec for spec, i in F_IDS.items()}
 
 # Launches of the CUDA kernel (never of the plain version).
 LAUNCH_COUNT = 0
@@ -68,10 +76,21 @@ CONST_FIELDS = ("mss_over_rtt", "rtt", "tick_dt", "min_cwnd", "beta",
                 "inc_timer", "cnp_interval")
 
 
-def static_params(cc, aggregate: bool) -> dict:
-    """The kernel's static specialization from a `CCParams`."""
+def f_id(f_spec) -> int:
+    """The kernels' F id of an F family (`F_IDS`).  Raises ValueError for
+    any other F (a callable, an unknown name): no kernel computes it, and
+    this is the one place that says which families a kernel takes."""
+    if isinstance(f_spec, str) and f_spec in F_IDS:
+        return F_IDS[f_spec]
+    raise ValueError(f"f_spec={f_spec!r} is none of the kernels' F "
+                     f"families {tuple(F_IDS)}")
+
+
+def static_params(cc, aggregate: bool, f_spec="linear") -> dict:
+    """The kernel's static specialization from a `CCParams`, and the F
+    family of the launch."""
     return {"algo": int(cc.algo), "variant": int(cc.variant),
-            "aggregate": bool(aggregate), "cc": cc}
+            "aggregate": bool(aggregate), "cc": cc, "f_id": f_id(f_spec)}
 
 
 def _consts(cc) -> dict:
@@ -96,7 +115,9 @@ def mltcp_tick_reference(p: dict, dyn: Tensor, arrays: dict, now: Tensor,
                          static_factors: Tensor | None = None) -> dict:
     """The kernel's function in separate torch ops (same signature).
 
-    ``p``: `static_params`; ``dyn``: [K, 5] per DYN_FIELDS; ``arrays``:
+    ``p``: `static_params` (its ``f_id`` names F: the linear F over the
+    point's slope and intercept, or one of `core.aggressiveness`'s
+    F1..F6); ``dyn``: [K, 5] per DYN_FIELDS; ``arrays``:
     {field: [K, N]} per IN_ORDER ("job_numer" only when aggregating);
     ``now``: [K]; ``static_factors``: optional [K, N].  Returns {field:
     [K, N]} per OUT_ORDER.  Op for op the arithmetic of `core.cc_tick`.
@@ -136,7 +157,8 @@ def mltcp_tick_reference(p: dict, dyn: Tensor, arrays: dict, now: Tensor,
     if variant == int(Variant.OFF):
         adaptive = torch.ones_like(ratio)
     else:
-        adaptive = slope * ratio + intercept
+        adaptive = aggressiveness.make_fn(F_SPECS[p["f_id"]], slope,
+                                          intercept)(ratio)
     if static_factors is not None:
         f_vals = torch.where(static_factors >= 0.0, static_factors, adaptive)
     else:
@@ -218,7 +240,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.mltcp_step_launch.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
 
 
@@ -305,7 +327,7 @@ def mltcp_tick(p: dict, dyn: Tensor, arrays: dict, now: Tensor,
             p["cc"].fast_recovery_stages,
             dyn.data_ptr(), now.data_ptr(),
             None if static_factors is None else static_factors.data_ptr(),
-            k, n, stream)
+            p["f_id"], k, n, stream)
     build.check_launch("mltcp_step", rc)
     LAUNCH_COUNT += 1
     return outs

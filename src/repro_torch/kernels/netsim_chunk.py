@@ -126,7 +126,7 @@ OPERANDS = (
 PROBE_DIMS = tuple(f"D_OFF_{name.upper()}" for name in telem.BUILTIN_PROBES)
 DIMS = ("D_K", "D_M", "D_N", "D_J", "D_S", "D_D", "D_P", "D_MAX_ITERS",
         "D_TICKS", "D_U_STRIDE", "D_ECN", "D_CASSINI", "D_CUBIC_RESET",
-        "D_N_CHUNKS", "D_CHUNK",
+        "D_N_CHUNKS", "D_CHUNK", "D_F_ID",
         "D_ARMED", "D_CHURN", "D_BLACKHOLE", "D_FLAPS", "D_JOB_ACTIVE",
         "D_INTERLEAVE", "D_SKETCH", "D_REINTERLEAVE", "D_STRIDE", "D_CAP",
         "D_SERIES_W", "D_TAIL_START", "D_BINS", "D_EVENTS") + PROBE_DIMS
@@ -466,7 +466,8 @@ def prepare(cfg, statics, sweep, wl) -> RunOperands:
     dims = dict(D_K=k, D_M=M, D_N=N, D_J=J, D_S=S, D_D=cfg.rtt_ticks, D_P=P,
                 D_MAX_ITERS=cfg.max_iters_recorded,
                 D_ECN=int(cfg.is_ecn()), D_CASSINI=int(cassini is not None),
-                D_CUBIC_RESET=int(cfg.cubic_epoch_reset_on_comm_start))
+                D_CUBIC_RESET=int(cfg.cubic_epoch_reset_on_comm_start),
+                D_F_ID=ms.f_id(cfg.protocol.f_spec))
     dims.update(_armed_dims(cfg, sweep))
     layout = telemetry_layout(cfg)
     tel_scalars = (0.0,) * 6

@@ -14,11 +14,13 @@ version on CPU tensors; nothing catches a build or launch failure.
 `mltcp_cc_tick` computes the job-aggregated numerator and the
 ``n_boundaries`` counter outside the kernel, as the reference wrapper does,
 and hands the protocol scalars (``dyn``) and the Static-baseline factors
-to the kernel as operands.  Only the structural options the kernel does
-not implement (a favoritism policy other than ``largest_data_sent``, an F
-family other than ``linear``, both only without Static factors) run
-`core.cc_tick` instead — loudly, via ``FALLBACK_COUNT`` and one warning per
-reason.  Every other case goes to `mltcp_step.mltcp_tick`.
+to the kernel as operands, and the F family (the linear F or one of the
+paper's F1..F6) as the launch's F id.  Only the structural options the
+kernel does not implement (a favoritism policy other than
+``largest_data_sent`` without Static factors, an F that is a Python
+callable) run `core.cc_tick` instead — loudly, via
+``FALLBACK_COUNT`` and one warning per reason.  Every other case goes to
+`mltcp_step.mltcp_tick`.
 
 `netsim_chunk` decides, once per run, whether a simulator run goes through
 the chunk kernel: on the card it does, but for two structural cases that
@@ -84,14 +86,18 @@ def reset_fallback_warnings() -> None:
 
 def fallback_reason(cfg: core.MLTCPConfig,
                     static_factors: Optional[Tensor]) -> Optional[str]:
-    """Why this config cannot run the kernel (None: it can).  With Static
-    factors the favoritism policy and F family are moot, as in the
-    reference dispatch."""
-    if static_factors is None:
-        if cfg.favoritism != "largest_data_sent":
-            return f"favoritism={cfg.favoritism!r}"
-        if cfg.f_spec != "linear":
-            return f"f_spec={cfg.f_spec!r}"
+    """Why this config cannot run the kernel (None: it can): a favoritism
+    policy other than ``largest_data_sent`` without Static factors (with
+    them it is moot, as in the reference dispatch), or an F that
+    `mltcp_step.f_id` refuses (a callable: the kernels compute the linear
+    F and F1..F6 alone).  Static factors do not make F moot: their
+    negative sentinel entries keep the flow's F."""
+    if static_factors is None and cfg.favoritism != "largest_data_sent":
+        return f"favoritism={cfg.favoritism!r}"
+    try:
+        ms.f_id(cfg.f_spec)
+    except ValueError:
+        return f"f_spec={cfg.f_spec!r}"
     return None
 
 
@@ -152,8 +158,8 @@ def mltcp_cc_tick(cfg: core.MLTCPConfig, state: core.MLTCPState,
     }
     if aggregate:
         arrays["job_numer"] = groups.spread(groups.sum(d.bytes_sent + ackb))
-    out = ms.mltcp_tick(ms.static_params(cfg.cc, aggregate), dyn.stacked(),
-                        arrays, fb.now, static_factors)
+    out = ms.mltcp_tick(ms.static_params(cfg.cc, aggregate, cfg.f_spec),
+                        dyn.stacked(), arrays, fb.now, static_factors)
 
     # boundary counter (metrics only), outside the kernel, through the same
     # predicate helper the plain path uses

@@ -297,14 +297,13 @@ def _fabric_key(topo: Topology):
 def _factors_need_split(cfg: SimConfig) -> bool:
     """True when Static-factor presence may not be mixed in one group.
 
-    The CC kernel's adaptive branch (which the sentinel factor entries
-    select) implements only the default linear F over largest_data_sent,
-    and the port's CC tick takes the kernel (or, on the CPU, its plain
-    version, the same arithmetic) whenever a sweep carries factors
-    (`kernels.ops.fallback_reason`).  Under any other F family or
-    favoritism policy a group must therefore keep factor-bearing and
-    adaptive points apart, so no sentinel ever selects that branch: the
-    reference's rule for a config with ``use_pallas_kernel=True``.
+    The reference's rule for a config with ``use_pallas_kernel=True``: its
+    kernel's adaptive branch (which the sentinel factor entries select)
+    implements only the default linear F over largest_data_sent, so under
+    any other F family or favoritism policy a group keeps factor-bearing
+    and adaptive points apart.  The port's CC kernels compute F1..F6 too,
+    but keep the rule, so that a plan's groups stay the reference's group
+    for group.
     """
     return (cfg.protocol.f_spec != "linear"
             or cfg.protocol.favoritism != "largest_data_sent")

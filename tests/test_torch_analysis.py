@@ -138,6 +138,11 @@ def _expectation_cfgs(favoritism, f_spec, factors):
 @pytest.mark.parametrize("favoritism", ("largest_data_sent",
                                         "smallest_data_sent"))
 def test_kernel_expectation_matches_reference(favoritism, f_spec, factors):
+    """The port's route where the reference's is its own, but one case:
+    F3 over largest_data_sent without factors, which the reference's
+    oracle takes (its Pallas kernel computes only the linear F) and the
+    port's CC kernels compute (the launch's F id), so the port says
+    "chunk" there by design."""
     ref_cfg, cfg = _expectation_cfgs(favoritism, f_spec, factors)
     with reference_modules():
         from repro.analysis import jaxpr_lint
@@ -146,8 +151,11 @@ def test_kernel_expectation_matches_reference(favoritism, f_spec, factors):
             ref_cfg, REF["repro.netsim"].make_sweep(ref_cfg))
     got = dispatch_lint.kernel_expectation(
         cfg, tnet.make_sweep(cfg, device="cpu"))
-    assert {"fused": "chunk", "fallback": "per-tick"}[want] == (
-        got if got == "chunk" else got[0])
+    route = {"fused": "chunk", "fallback": "per-tick"}[want]
+    if (f_spec, favoritism, factors) == ("F3", "largest_data_sent", False):
+        assert want == "fallback"
+        route = "chunk"
+    assert route == (got if got == "chunk" else got[0])
 
 
 def test_reference_rules_cover_reference_catalog():

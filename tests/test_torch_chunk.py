@@ -80,9 +80,25 @@ def _two_tier_cfg(**kw):
                 **kw)
 
 
+def _triangle_cassini_cfg():
+    """Fig. 14's circular dependency: three GPT-2 jobs on the triangle,
+    DCQCN OFF under the (infeasible) Cassini schedule of their own
+    profiles, as the figure's Cassini points run it."""
+    profiles = [workload.profile_for("gpt2").scaled(0.05) for _ in range(3)]
+    topo = netsim.triangle(sockets_per_job=2)
+    sched, feasible = workload.cassini_schedule(topo, profiles)
+    assert not feasible
+    return _cfg(algo=2, variant=0, n_jobs=3, topo=topo, cassini=sched,
+                sim_time=0.04,
+                jobs=workload.jobspec_from_profiles(profiles), **RED_ECN)
+
+
 # name -> (config, sweep overrides): Reno/CUBIC/DCQCN, OFF/WI/MD/BOTH,
 # Static factors, per-flow statistics, Cassini with stragglers, padded
-# jobs, the fig 10 width and the leaf/spine fabric
+# jobs, the fig 10 width, the leaf/spine fabric, the F families, and the
+# figure plans' own shapes (fig 14's triangle, Table 2's one-hot job masks
+# on its two-tier fabric, fig 13's Static factors beside the adaptive
+# sentinel at 3 jobs)
 CASES = {
     "reno_wi": (_cfg(), dict(seed=[3, 5])),
     "reno_off": (_cfg(variant=0), dict(seed=[3, 5])),
@@ -108,6 +124,26 @@ CASES = {
                     dict(seed=[1, 1, 1, 1], job_active=[
                         [j < n for j in range(6)] for n in (2, 3, 4, 6)])),
     "two_tier": (_two_tier_cfg(), dict(seed=[3, 5])),
+    # the paper's F1..F6 (the launch's F id), on Reno WI at fig 15's width
+    # (three jobs), and F3 on CUBIC MD and DCQCN WI
+    **{f"reno_wi_{f}": (_cfg(n_jobs=3, proto=dict(f_spec=f)),
+                        dict(seed=[3, 5]))
+       for f in ("F1", "F2", "F3", "F4", "F5", "F6")},
+    "cubic_md_F3": (_cfg(algo=1, variant=2, proto=dict(f_spec="F3")),
+                    dict(seed=[3, 5])),
+    "dcqcn_wi_F3": (_cfg(algo=2, spj=1, proto=dict(f_spec="F3"), **RED_ECN),
+                    dict(seed=[3, 5])),
+    "dcqcn_off_triangle_cassini": (_triangle_cassini_cfg(),
+                                   dict(seed=[3, 5])),
+    "dcqcn_wi_two_tier_solo": (
+        _cfg(algo=2, topo=netsim.two_tier([(0, 1), (2, 1)], n_leaves=4,
+                                          sockets_per_job=2), **RED_ECN),
+        dict(seed=[3, 5, 3], job_active=[[True, True], [True, False],
+                                         [False, True]])),
+    "dcqcn_wi_static_3jobs": (
+        _cfg(algo=2, n_jobs=3, **RED_ECN),
+        dict(seed=[3, 5], static_job_factors=[[1.3, 1.0, 0.7],
+                                              [-1.0, -1.0, -1.0]])),
 }
 
 

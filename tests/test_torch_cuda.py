@@ -10,8 +10,9 @@ checks of the ``cuda`` tests in ``test_torch_kernels.py``,
 ``test_torch_chunk.py``, ``test_torch_lm_kernels.py`` and
 ``test_torch_serve.py`` (files that import the reference), plus
 ``run_plan`` on the card: a padded-jobs point equals the same point run
-alone; and the armed chunk kernel (telemetry and faults, and the fig 5
-and churn plans' specializations at their widths) against the per-tick
+alone; the paper's F1..F6 in both CC kernels; and the armed chunk kernel
+(telemetry and faults, and the fig 5 and churn plans' specializations at
+their widths) against the per-tick
 path, its sketch bins against torch's, and a plan with
 telemetry and a fault-schedule axis on the kernel.  Without a card every
 test skips, with its reason.
@@ -118,15 +119,62 @@ def test_cuda_cc_kernel_equals_plain_version_bitwise():
                 (algo, name)
 
 
+F_FAMILIES = ("F1", "F2", "F3", "F4", "F5", "F6")
+
+
+@pytest.mark.parametrize("f_spec", F_FAMILIES)
+def test_cuda_cc_kernel_f_family_equals_plain_version_bitwise(f_spec):
+    """The launch's F id computes the F family op for op as
+    `core.aggressiveness` (WI, MD and both, with and without factors)."""
+    rng = np.random.default_rng(13)
+    k, n = 3, 257
+    dev = torch.device("cuda")
+    arrs = random_protocol_arrays(rng, (k, n))
+    fb = random_feedback_arrays(rng, (k, n))
+    total = rng.uniform(1e7, 2e8, (k, n)).astype(np.float32)
+    det, cc = arrs["det"], arrs["cc"]
+    arrays = {f: det[f] for f in ms.DET_FIELDS}
+    arrays.update({f: cc[f] for f in ms.CC_FIELDS})
+    arrays.update(stage=cc["inc_stage"], prev_ratio=det["bytes_ratio"],
+                  num_acks=fb["num_acks"],
+                  ack_bytes=fb["num_acks"] * np.float32(1500.0),
+                  loss=fb["loss"], cnp=fb["cnp"], total_bytes=total,
+                  job_numer=total * rng.uniform(0, 1.2, (k, n)).astype(
+                      np.float32))
+    arrays = {f: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+              for f, v in arrays.items()}
+    dyn = core.DynamicParams(
+        *[torch.tensor(v, dtype=torch.float32) for v in
+          ([1.75, 1.3, 0.5], [0.25, 0.4, 1.0], [0.75, 0.8, 0.7],
+           [0.5, 0.45, 0.6], [1e-3, 2e-3, 1.5e-3])]).stacked().to(dev)
+    now = torch.tensor([0.0123, 0.0171, 0.02], device=dev)
+    fac = torch.where(torch.rand((k, n), device=dev) < 0.5,
+                      torch.rand((k, n), device=dev) + 0.25, -1.0)
+    for algo in (0, 1, 2):
+        for variant in (1, 2, 3):
+            for factors in (None, fac):
+                p = ms.static_params(core.CCParams(algo=algo,
+                                                   variant=variant),
+                                     aggregate=True, f_spec=f_spec)
+                assert p["f_id"] == ms.F_IDS[f_spec]
+                got = ms.mltcp_tick(p, dyn, arrays, now, factors)
+                want = ms.mltcp_tick_reference(p, dyn, arrays, now, factors)
+                for name in ms.OUT_ORDER:
+                    assert np.array_equal(_bits(got[name]),
+                                          _bits(want[name])), \
+                        (algo, variant, factors is not None, name)
+
+
 def _cfg(algo=0, variant=1, n_jobs=2, spj=2, topo=None, jobs=None,
-         sim_time=0.02, **kw):
+         sim_time=0.02, f_spec="linear", **kw):
     return netsim.SimConfig(
         topo=topo or netsim.dumbbell(n_jobs, sockets_per_job=spj),
         jobs=jobs or netsim.JobSpec.simple([0.0025] * n_jobs,
                                            [5e6] * n_jobs),
         protocol=core.MLTCPConfig(
             cc=core.CCParams(algo=algo, variant=variant, tick_dt=DT,
-                             rtt=100e-6), slope=1.75, intercept=0.25),
+                             rtt=100e-6), slope=1.75, intercept=0.25,
+            f_spec=f_spec),
         sim_time=sim_time, dt=DT, seed=3, n_chunks=10, **kw)
 
 
@@ -139,12 +187,51 @@ def _two_tier_cfg():
                 jobs=workload.jobspec_from_profiles(profiles), n_jobs=3)
 
 
-@pytest.mark.parametrize("case", ["reno_wi", "dcqcn_wi_ecn", "two_tier"])
+def _triangle_cassini_case():
+    profiles = [workload.profile_for("gpt2").scaled(0.05) for _ in range(3)]
+    topo = netsim.triangle(sockets_per_job=2)
+    sched, feasible = workload.cassini_schedule(topo, profiles)
+    assert not feasible
+    return (_cfg(algo=2, variant=0, n_jobs=3, topo=topo, cassini=sched,
+                 sim_time=0.04,
+                 jobs=workload.jobspec_from_profiles(profiles), **RED_ECN),
+            dict(seed=[3, 5]))
+
+
+# name -> (config, sweep overrides) of the chunk kernel against the
+# per-tick path: Reno WI, DCQCN with ECN, the leaf/spine fabric, each F
+# family on Reno WI at fig 15's width (three jobs), and the shapes of the
+# figure plans that only they drive: fig 14's triangle with its Cassini
+# schedule on DCQCN OFF, Table 2's one-hot job masks on its two-tier
+# fabric, fig 13's Static factors beside the adaptive sentinel at 3 jobs
+CHUNK_CASES = {
+    "reno_wi": lambda: (_cfg(), dict(seed=[3, 5])),
+    "dcqcn_wi_ecn": lambda: (_cfg(algo=2, spj=1, **RED_ECN),
+                             dict(seed=[3, 5])),
+    "two_tier": lambda: (_two_tier_cfg(), dict(seed=[3, 5])),
+    **{f"reno_wi_{f}": (lambda f=f: (_cfg(n_jobs=3, f_spec=f),
+                                     dict(seed=[3, 5])))
+       for f in F_FAMILIES},
+    "dcqcn_off_triangle_cassini": _triangle_cassini_case,
+    "dcqcn_wi_two_tier_solo": lambda: (
+        _cfg(algo=2, topo=netsim.two_tier([(0, 1), (2, 1)], n_leaves=4,
+                                          sockets_per_job=2), **RED_ECN),
+        dict(seed=[3, 5, 3], job_active=[[True, True], [True, False],
+                                         [False, True]])),
+    "dcqcn_wi_static_3jobs": lambda: (
+        _cfg(algo=2, n_jobs=3, **RED_ECN),
+        dict(seed=[3, 5], static_job_factors=[[1.3, 1.0, 0.7],
+                                              [-1.0, -1.0, -1.0]])),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
 def test_cuda_chunk_kernel_equals_per_tick_path_bitwise(case):
-    cfg = {"reno_wi": lambda: _cfg(),
-           "dcqcn_wi_ecn": lambda: _cfg(algo=2, spj=1, **RED_ECN),
-           "two_tier": _two_tier_cfg}[case]()
-    sweep = netsim.make_sweep(cfg, device="cuda", seed=[3, 5])
+    from repro_torch.kernels import ops
+
+    cfg, overrides = CHUNK_CASES[case]()
+    sweep = netsim.make_sweep(cfg, device="cuda", **overrides)
+    assert ops.chunk_fallback_reason(cfg, sweep) is None
     before = nc.LAUNCH_COUNT
     got = engine.run_ticks(cfg, sweep)
     assert nc.LAUNCH_COUNT - before == cfg.n_chunks

@@ -652,14 +652,16 @@ def test_keep_going_records_a_failing_group():
 
 
 def test_counters_and_shard_on_the_cpu():
-    """The counters count runs and CC fallbacks (an F family the kernel
-    does not take, on the CPU's plain path: one per tick); ``shard``
-    changes nothing with no card."""
+    """The counters count runs and CC fallbacks (a favoritism policy the
+    kernel does not take, on the CPU's plain path: one per tick);
+    ``shard`` changes nothing with no card."""
     plan = tnet.Plan(name="fallback", build=lambda pt: _simple(
-        "port", sim_time=0.004, proto=_proto(tcore, f_spec="F1")),
+        "port", sim_time=0.004,
+        proto=_proto(tcore, favoritism="earliest_iter_start")),
         axes=(tnet.Axis("seed", (0, 1)),))
     with counters.watch(reset_warnings=True) as w:
-        with pytest.warns(UserWarning, match="f_spec='F1'"):
+        with pytest.warns(UserWarning,
+                          match="favoritism='earliest_iter_start'"):
             pr = tnet.run_plan(plan, device=DEV, shard=True)
     assert w.traces == 1 and pr.n_compile_groups == 1
     assert pr.n_kernel_fallbacks == w.fallbacks == 200

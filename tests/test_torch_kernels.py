@@ -211,9 +211,14 @@ def test_ops_rejects_unreduced_operands():
                            dyn=dyn)
 
 
+def _callable_f(x):
+    """An F of the caller's own (a callable): no kernel computes it."""
+    return 1.5 * x + 0.5
+
+
 @pytest.mark.parametrize("kw,reason", [
     ({"favoritism": "earliest_iter_start"}, "favoritism"),
-    ({"f_spec": "F3"}, "f_spec")])
+    ({"f_spec": _callable_f}, "f_spec")])
 def test_fallback_is_loud(kw, reason):
     cfg = tcore.MLTCPConfig(cc=tcore.CCParams(algo=0, variant=1), **kw)
     _, _, state, fb, total, _, dyn = _port_inputs(7)
