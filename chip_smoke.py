@@ -4,6 +4,7 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py --only dryrun [--out results.json]
     python3 chip_smoke.py --probe KERNEL [OLD/KERNEL.cu ...]
 
 It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
@@ -103,6 +104,20 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   a MoE job (deepseek-moe-16b's two-burst dp+ep profile beside two
   qwen3-1.7b jobs), each through ``run_plan`` and the chunk kernel.
 
+* the one-card dry run (``dryrun``): every (architecture x shape) cell of
+  ``repro_torch.launch.dryrun`` counted on the meta device (32 counted, 8
+  skipped as documented) with its H100 roofline terms; recurrentgemma-2b
+  served in bf16 through ``launch.serve`` (1 x 4096) and its prefill held
+  against the bf16 plain path; six cells run on the card at one row
+  (full width and depth, weights from seed 0), each warm step's kernel
+  launches equal to the planned ones, its arguments and its own bytes
+  each between the count and the count plus the caching allocator's
+  rounding, and its time at or above the roofline bound; and flash at
+  qwen3-1.7b's prefill_32k shape in bf16, held row by row against SDPA's
+  FLASH backend and the port's chunked plain route, beside its bound and
+  SDPA's time.
+
+``--only dryrun`` builds the two LM kernels and runs that phase alone.
 ``--probe KERNEL`` (``flash_attention`` or ``rg_lru``; ``--probe-flash``
 is ``--probe flash_attention``) is the short first call after a change to
 that kernel: it builds the kernels (``ptxas -v``), holds the checkout's
@@ -131,8 +146,6 @@ import time
 import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
-F32_OPS_PER_S = 67e12              # H100 SXM float32 outside tensor cores
 TF32_OPS_PER_S = 495e12            # H100 SXM TF32 tensor cores, dense
 DT = 2e-5
 RTT = 100e-6
@@ -370,10 +383,28 @@ def operand_bytes(ms, p, dyn, arrays, now, fac) -> int:
     return read + write
 
 
+def hbm_bytes_per_s() -> float:
+    """The H100's device-memory rate, from `repro_torch.roofline.hw` (the
+    dry run's roofline reads the same)."""
+    from repro_torch.roofline.hw import H100
+
+    return H100.hbm_bw
+
+
+def f32_ops_per_s() -> float:
+    """The H100's float32 peak outside the tensor cores, from
+    `repro_torch.roofline.hw`."""
+    import torch
+
+    from repro_torch.roofline.hw import H100
+
+    return H100.peak_flops(torch.float32)
+
+
 def bound_ms(ms, p, dyn, arrays, now, fac) -> tuple[float, str]:
     k, n = arrays["cwnd"].shape
-    t_bytes = operand_bytes(ms, p, dyn, arrays, now, fac) / HBM_BYTES_PER_S
-    t_ops = OPS_PER_FLOW[p["algo"]] * k * n / F32_OPS_PER_S
+    t_bytes = operand_bytes(ms, p, dyn, arrays, now, fac) / hbm_bytes_per_s()
+    t_ops = OPS_PER_FLOW[p["algo"]] * k * n / f32_ops_per_s()
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1027,8 +1058,8 @@ def chunk_bound(nc, cfg, st, after, run, inputs, traces) -> dict:
     # side by side on separate SMs
     chain_cycles = 7 * BARRIER_CYCLES + 2 * 8 * SMEM_LATENCY_CYCLES
     clock = sm_clock_hz()
-    times = {"bytes": nbytes / HBM_BYTES_PER_S,
-             "operations": k * ticks * ops / F32_OPS_PER_S,
+    times = {"bytes": nbytes / hbm_bytes_per_s(),
+             "operations": k * ticks * ops / f32_ops_per_s(),
              "latency": ticks * chain_cycles / clock}
     model = max(times, key=times.get)
     return dict(bytes=nbytes, iter_slots_written=slots, ops=k * ticks * ops,
@@ -2091,22 +2122,17 @@ def _tdtype(name):
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
-def attention_pairs(t: int, s: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the masks leave, per (batch, head)."""
-    total = 0
-    for q in range(t):
-        hi = min(q, s - 1) if causal else s - 1
-        lo = max(0, q - window + 1) if window > 0 else 0
-        total += max(0, hi - lo + 1)
-    return total
+def flash_bound(b, t, s, h, kv, dh, causal, window, dtype="float32"):
+    """(bound_ms, bound_by, flop, bytes) of one flash launch from the
+    kernel's own `cost` (q.k and p.v are 2·D flops each per unmasked pair;
+    q, k, v read once and the output written once), the FLOP at the
+    peak of ``dtype``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.roofline.hw import H100
 
-
-def flash_bound(b, t, s, h, kv, dh, causal, window, elt=4):
-    """(bound_ms, bound_by, flop, bytes): q.k and p.v are 2·D flops each per
-    unmasked pair; q, k, v read once and the output written once."""
-    flop = 4 * dh * b * h * attention_pairs(t, s, causal, window)
-    nbytes = elt * (2 * b * t * h * dh + 2 * b * s * kv * dh)
-    t_ops, t_bytes = flop / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    dt = _tdtype(dtype)
+    flop, nbytes = fa.cost(b, t, s, h, kv, dh, causal, window, dt)
+    t_ops, t_bytes = flop / H100.peak_flops(dt), nbytes / hbm_bytes_per_s()
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flop, nbytes)
 
@@ -2398,10 +2424,16 @@ def probe_rg_lru(rl, ref, sources) -> dict:
     return out
 
 
-def rglru_bound(b, t, d, elt=4):
-    """a and b read once, h written once; a multiply and an add each."""
-    nbytes = 3 * elt * b * t * d
-    t_ops, t_bytes = 2 * b * t * d / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+def rglru_bound(b, t, d):
+    """(bound_ms, bound_by, bytes) of one float32 scan from the kernel's
+    own `cost`: a and b read once, h written once; a multiply and an add
+    each."""
+    import torch
+
+    from repro_torch.kernels import rg_lru as rl
+
+    flop, nbytes = rl.cost(b, t, d, torch.float32)
+    t_ops, t_bytes = flop / f32_ops_per_s(), nbytes / hbm_bytes_per_s()
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", nbytes)
 
@@ -2859,7 +2891,7 @@ def grad_checks(fa, rl, ref, gen) -> dict:
         shape=[b, t, d], backward_ms=event_ms(backward, 10),
         reverse_scan_ms=event_ms(scan_only, 10),
         reverse_scan_device_ms=device_ms(scan_only, 10),
-        backward_bound_ms=1e3 * bwd_bytes / HBM_BYTES_PER_S,
+        backward_bound_ms=1e3 * bwd_bytes / hbm_bytes_per_s(),
         backward_bytes=bwd_bytes, scan_bound_ms=scan_b_ms,
         scan_bound_by=scan_b_by, scan_bytes=scan_bytes,
         plain_backward_ms=None)
@@ -2889,10 +2921,10 @@ def grad_checks(fa, rl, ref, gen) -> dict:
         forward_ms=event_ms(lambda: fa.flash_attention(
             q, k, v, causal=causal, window=window), 5),
         backward_flop=bwd_flop, backward_bytes=bwd_bytes,
-        backward_bound_ms=1e3 * max(bwd_flop / F32_OPS_PER_S,
-                                    bwd_bytes / HBM_BYTES_PER_S),
-        backward_bound_by=("operations" if bwd_flop / F32_OPS_PER_S
-                           >= bwd_bytes / HBM_BYTES_PER_S else "bytes"),
+        backward_bound_ms=1e3 * max(bwd_flop / f32_ops_per_s(),
+                                    bwd_bytes / hbm_bytes_per_s()),
+        backward_bound_by=("operations" if bwd_flop / f32_ops_per_s()
+                           >= bwd_bytes / hbm_bytes_per_s() else "bytes"),
         route="dense VJP of ref_attention (torch ops), as the reference's "
               "custom_vjp")
     del q, k, v, gq, mine, out
@@ -3527,6 +3559,390 @@ def phase_cluster(kern) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the one-card dry run and roofline (launch/dryrun.py, roofline/analysis.py)
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS_OK = "dry-run: 32 ok, 8 skipped (documented), 0 failed"
+# run on the card at one row, full width and depth (bf16 serving; a train
+# cell in the reference's hyper with one microbatch), weights from seed 0
+DRYRUN_CARD_CELLS = (("recurrentgemma-2b", "prefill_32k"),
+                     ("recurrentgemma-2b", "decode_32k"),
+                     ("recurrentgemma-2b", "long_500k"),
+                     ("recurrentgemma-2b", "train_4k"),
+                     ("qwen3-1.7b", "prefill_32k"),
+                     ("xlstm-125m", "long_500k"))
+DRYRUN_WARM = 2                 # warm steps of each card cell, each held
+# Memory is held in two parts, each between the count and the count plus
+# what the card's caching allocator may add (`dryrun.alloc_slack`: 512 B
+# rounding, and up to 1 MiB more on a block over 1 MiB): the arguments
+# (memory_allocated after the cell is built, against argument_bytes and
+# argument_slack_bytes) and the step's own bytes (max_memory_allocated
+# less memory_allocated before the step, against temp_bytes and
+# temp_upper_bytes).  A decode step replaces entries of the cache it is
+# given, so each step gets a new zeroed cache, as the count's did; and on
+# both sides the caller holds every argument through the step, since a
+# freed argument's whole block (up to 1 MiB over its bytes) leaves the
+# card's live bytes and only its bytes the count's.  On an
+# H100 80GB HBM3 at 700 W the step's own bytes equal the count on the two
+# prefills and the decode steps, and sit 3.06 MB (train) and 0.40 MB
+# (xlstm-125m's decode) above it; the arguments 14 KB to 386 MB above.
+# bf16 serving: recurrentgemma-2b at 1 x 4096 + 16, the kernel path's
+# prefill against the plain path's, both bf16 (max |diff| over max |plain|;
+# 0.0103 on the H100; flash alone is held to 2e-2 in bf16, 26 layers
+# compound it)
+BF16_SERVE_PROMPT = 4096
+BF16_SERVE_NEW = 16
+BF16_SERVE_REL_BOUND = 5e-2
+# flash at qwen3-1.7b's prefill_32k shape, bf16, causal
+QWEN_FLASH_CASE = (1, 32768, 32768, 16, 8, 128, True, 0, None, "bfloat16")
+# ... held per output row (one query position and head, over the head
+# dimension): |kernel - reference| / |reference|, both 2-norms, against
+# SDPA's FLASH backend and the port's own chunked plain route
+# (models/attention.attend, use_kernel=False) in float32 on the same bf16
+# inputs.  The plain route in bf16 rounds its scores to bf16 and sits
+# 2.6e-2 from both (H100 80GB HBM3, 700 W): it is recorded, not held.
+# With random q, k and v a row over n keys has |out| ~ sqrt(dh / n), so
+# FLASH_TOL's absolute 2e-2 is as large as the late rows themselves; the
+# ratio is not (the kernel sits 4.9e-3 from SDPA on it, same card).
+# Zeroing v over one of the kernel's 32-key tiles moves a row over n keys
+# by about sqrt(32 / n) of itself (0.031 at n = 32768), more or less as
+# the softmax weights those keys: `qwen_flash_bf16` checks that the bound
+# sees that tile, zeroed midway, in the last query block's rows alone
+# (0.13 at most there, same card).
+QWEN_FLASH_ROW_BOUND = 1e-2
+QWEN_FLASH_TILE = (16384, 32)   # (first key, keys): the kernel's BK
+QWEN_FLASH_LATE_ROWS = 64       # the last query block: the kernel's BQ
+
+
+def dryrun_counts() -> dict:
+    """Every (architecture x shape) cell counted on the meta device (the
+    kernel route; the plain route is the CPU tests' parity check), with
+    its roofline terms on the H100, by cell."""
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.roofline import analysis
+
+    t0 = time.time()
+    records = {}
+    for arch in ARCH_IDS:
+        for shape in SHAPES:
+            rec = dr.run_cell(arch, shape, verbose=False, plain=False)
+            if rec["status"] == "ok":
+                rec = analysis.roofline_cell(arch, shape, record=rec,
+                                             verbose=False)
+            rec.pop("traceback", None)
+            records[f"{arch}/{shape}"] = rec
+    said = dr.summary(records.values())
+    if said != DRYRUN_CELLS_OK:
+        bad = {k: r.get("error") for k, r in records.items()
+               if r["status"] == "error"}
+        raise AssertionError(f"{said}, expected {DRYRUN_CELLS_OK}: {bad}")
+    return dict(summary=said, seconds=time.time() - t0, cells=records)
+
+
+def card_cell(fa, rl, arch: str, shape: str) -> dict:
+    """One cell at one row: counted on meta, then run on the card (a cold
+    step, then DRYRUN_WARM warm steps): each warm step's launches equal
+    the planned ones, its CUDA-event time is at least the roofline bound,
+    and its arguments and own bytes lie within what the count allows (see
+    DRYRUN_WARM).  What fails is listed in the row's ``failed``."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.models import api
+    from repro_torch.roofline.hw import H100
+
+    cfg = get_config(arch)
+    cell = dr.build_cell(cfg, shape, rows=1, microbatches=1)
+    held = dr._tensors(cell.args)       # the caller keeps every argument
+    meta = dr.count_cell(cell)
+    del cell, held
+    dtype = dr.build_dtype(cfg, shape)
+    terms = {"compute": meta["flops"] / H100.peak_flops(dtype),
+             "memory": meta["bytes"] / H100.hbm_bw}
+    bound_s = max(terms.values())
+    decode = SHAPES[shape].kind == "decode"
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    cell = dr.build_cell(cfg, shape, rows=1, device=DEVICE, microbatches=1,
+                         seed=0)
+    torch.cuda.synchronize()
+    card_args = torch.cuda.memory_allocated() - base
+    out = cell.step(*cell.args)          # cold
+    torch.cuda.synchronize()
+    del out
+    steps = []
+    for _ in range(DRYRUN_WARM):
+        if decode:      # a new zeroed cache, held by the step's dict alone
+            model, rest = cell.args[0], cell.args[2:]
+            cell = cell._replace(args=())
+            gc.collect()
+            cell = cell._replace(args=(model, api.init_cache(
+                cfg, 1, SHAPES[shape].seq_len, dr.SERVE_DTYPE, DEVICE),
+                *rest))
+            del model, rest
+        gc.collect()
+        held = dr._tensors(cell.args)
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated() - base
+        before = (fa.LAUNCH_COUNT, rl.LAUNCH_COUNT)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = cell.step(*cell.args)
+        end.record()
+        end.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in _step_results(out))
+        del out, held
+        steps.append(dict(
+            ms=start.elapsed_time(end), live_before_bytes=live,
+            peak_bytes=peak, temp_bytes=peak - live,
+            launches=dict(flash_attention=fa.LAUNCH_COUNT - before[0],
+                          rg_lru=rl.LAUNCH_COUNT - before[1]),
+            finite=finite))
+    del cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = dict(
+        arch=arch, shape=shape, rows=1, dtype=str(dtype), steps=steps,
+        ms=min(s["ms"] for s in steps), planned=meta["planned_launches"],
+        flops=meta["flops"], bytes=meta["bytes"],
+        counted_peak_bytes=meta["peak_bytes"],
+        counted_argument_bytes=meta["argument_bytes"],
+        counted_argument_slack_bytes=meta["argument_slack_bytes"],
+        card_argument_bytes=card_args,
+        counted_temp_bytes=meta["temp_bytes"],
+        counted_temp_upper_bytes=meta["temp_upper_bytes"],
+        card_temp_bytes=max(s["temp_bytes"] for s in steps),
+        card_peak_bytes=max(s["peak_bytes"] for s in steps),
+        bound_ms=1e3 * bound_s, bound_by=("operations" if terms["compute"]
+                                          >= terms["memory"] else "bytes"),
+        count_s=meta["count_s"])
+    row["time_over_bound"] = row["ms"] / row["bound_ms"]
+    row["peak_rel_diff"] = (abs(row["card_peak_bytes"]
+                                - row["counted_peak_bytes"])
+                            / row["counted_peak_bytes"])
+    failed = []
+    for s in steps:
+        if s["launches"] != meta["planned_launches"]:
+            failed.append(f"launched {s['launches']}, planned "
+                          f"{meta['planned_launches']}")
+        if not s["finite"]:
+            failed.append("non-finite results")
+        if not (meta["temp_bytes"] <= s["temp_bytes"]
+                <= meta["temp_upper_bytes"]):
+            failed.append(f"the step's own bytes {s['temp_bytes']} outside "
+                          f"[{meta['temp_bytes']}, "
+                          f"{meta['temp_upper_bytes']}]")
+    if row["ms"] < row["bound_ms"]:
+        failed.append(f"{row['ms']} ms under the roofline bound "
+                      f"{row['bound_ms']} ms: the count is wrong")
+    high = meta["argument_bytes"] + meta["argument_slack_bytes"]
+    if not meta["argument_bytes"] <= card_args <= high:
+        failed.append(f"arguments {card_args} B outside "
+                      f"[{meta['argument_bytes']}, {high}]")
+    row["failed"] = [f"{arch} x {shape}: {f}" for f in failed]
+    return row
+
+
+def _step_results(out) -> list:
+    """The floating tensors among a step's results (its state excluded)."""
+    import torch
+
+    found = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            if x.is_floating_point():
+                found.append(x)
+        elif isinstance(x, dict):
+            for y in x.values():
+                walk(y)
+        elif isinstance(x, (tuple, list)) and not hasattr(x, "_fields"):
+            for y in x:
+                walk(y)
+    walk(out)
+    return found
+
+
+def bf16_serving(fa, rl) -> dict:
+    """recurrentgemma-2b served in bf16 through ``launch.serve`` (the kernel
+    path), its prefill then held against the plain path's, both bf16."""
+    import torch
+
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api
+
+    fa.LAUNCH_COUNT = rl.LAUNCH_COUNT = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = serve(SERVE_ARCH, batch=1, prompt_len=BF16_SERVE_PROMPT,
+                new_tokens=BF16_SERVE_NEW, preset="full", seed=0,
+                device=DEVICE, dtype="bfloat16")
+    torch.cuda.synchronize()
+    launches = dict(flash_attention=fa.LAUNCH_COUNT, rg_lru=rl.LAUNCH_COUNT)
+    cfg, model, req = out["cfg"], out["model"], out["request"]
+    kinds = [blk.kind for blk in model.layers]
+    want = dict(
+        flash_attention=kinds.count("attn_local") + kinds.count("attn"),
+        rg_lru=kinds.count("rec"))
+    with torch.no_grad():
+        logits_k, _ = api.prefill(cfg, model, req, out["max_len"],
+                                  use_kernel=True)
+        logits_p, _ = api.prefill(cfg, model, req, out["max_len"],
+                                  use_kernel=False)
+    if logits_k.dtype != torch.bfloat16 or not bool(
+            torch.isfinite(logits_k.float()).all()):
+        raise AssertionError(f"bf16 prefill: logits {logits_k.dtype}, "
+                             f"finite {bool(torch.isfinite(logits_k).all())}")
+    diff, rel = _rel_diff(logits_k, logits_p)
+    same = bool((torch.argmax(logits_k.float(), -1)
+                 == torch.argmax(logits_p.float(), -1)).all())
+    res = dict(arch=SERVE_ARCH, batch=1, prompt_len=BF16_SERVE_PROMPT,
+               new_tokens=BF16_SERVE_NEW, dtype="bfloat16",
+               launches=launches, prefill_ms=out["prefill_s"] * 1e3,
+               decode_tok_per_s=out["decode_tok_per_s"],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               logits_max_abs_diff=diff, logits_max_rel_diff=rel,
+               rel_bound=BF16_SERVE_REL_BOUND, first_token_same=same)
+    del out, model, logits_k, logits_p
+    torch.cuda.empty_cache()
+    if launches != want:
+        raise AssertionError(f"bf16 serve: launches {launches}, expected "
+                             f"{want} (one prefill)")
+    if rel > BF16_SERVE_REL_BOUND:
+        raise AssertionError(f"bf16 kernel vs plain prefill: {rel} over "
+                             f"{BF16_SERVE_REL_BOUND}")
+    return res
+
+
+def row_rel_err(got, want) -> "torch.Tensor":
+    """Per output row ([..., D] -> [...]): the 2-norm of got - want over
+    that of want, in float32."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm(dim=-1)
+            / want.norm(dim=-1).clamp_min(1e-30))
+
+
+def qwen_flash_bf16(fa) -> dict:
+    """The flash kernel at qwen3-1.7b's prefill_32k shape in bf16: held
+    within FLASH_TOL of SDPA's FLASH backend, and row by row within
+    QWEN_FLASH_ROW_BOUND of it and of the port's chunked plain route in
+    float32 on the same inputs (the dense plain version would need 68
+    GB); then timed beside its bound at the bf16 peak and SDPA.  The row
+    check must see one KV tile of v zeroed in the last query block's
+    rows: the rows over the most keys, which a tile moves least."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import attend
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(22)
+    b, t, s, h, kv, dh, causal, window, _, dtype = QWEN_FLASH_CASE
+    q, k, v = flash_operands(QWEN_FLASH_CASE, gen)
+    kern = lambda: fa.flash_attention(q, k, v, causal=causal)  # noqa: E731
+
+    def library(v=v):
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True).transpose(1, 2)
+    got, lib = kern(), library()
+    cfg = get_config("qwen3-1.7b")
+    with torch.no_grad():
+        plain = attend(cfg, q.float(), k.float(), v.float(), causal=causal)
+        err_plain = float(row_rel_err(got, plain).max())
+        err_lib_plain = float(row_rel_err(lib, plain).max())
+        plain = attend(cfg, q, k, v, causal=causal)
+        err_plain_bf16 = float(row_rel_err(got, plain).max())
+    err_lib = float(row_rel_err(got, lib).max())
+    zeroed = v.clone()
+    first, n_keys = QWEN_FLASH_TILE
+    zeroed[:, first:first + n_keys] = 0
+    late = slice(t - QWEN_FLASH_LATE_ROWS, t)
+    tile_seen = float(row_rel_err(library(zeroed)[:, late],
+                                  lib[:, late]).max())
+    err_abs = float((got.float() - lib.float()).abs().max())
+    del got, lib, plain, zeroed
+    failed = []
+    if err_abs > FLASH_TOL[dtype]:
+        failed.append(f"flash vs SDPA at {QWEN_FLASH_CASE}: {err_abs} over "
+                      f"{FLASH_TOL[dtype]}")
+    if max(err_lib, err_plain) > QWEN_FLASH_ROW_BOUND:
+        failed.append(f"flash at {QWEN_FLASH_CASE}: row error {err_lib} "
+                      f"(SDPA), {err_plain} (float32 plain route) over "
+                      f"{QWEN_FLASH_ROW_BOUND}")
+    if tile_seen <= QWEN_FLASH_ROW_BOUND:
+        failed.append(f"v zeroed over keys {QWEN_FLASH_TILE} moves the last "
+                      f"rows by {tile_seen} at most, within the bound "
+                      f"{QWEN_FLASH_ROW_BOUND}: the check is blind to a tile")
+    b_ms, b_by, flop, nbytes = flash_bound(b, t, s, h, kv, dh, causal,
+                                           window, dtype)
+    before = fa.LAUNCH_COUNT
+    res = dict(shape=[b, t, s, h, kv, dh], causal=causal, dtype=dtype,
+               ms=event_ms(kern, 5), library_ms=event_ms(library, 5),
+               library="scaled_dot_product_attention (FLASH_ATTENTION "
+                       "backend, enable_gqa=True, is_causal)",
+               max_row_rel_err_vs_library=err_lib,
+               max_row_rel_err_vs_plain_route_f32=err_plain,
+               library_vs_plain_route_f32_max_row_rel_err=err_lib_plain,
+               max_row_rel_err_vs_plain_route_bf16=err_plain_bf16,
+               zeroed_tile=list(QWEN_FLASH_TILE),
+               zeroed_tile_late_rows_max_row_rel=tile_seen,
+               row_bound=QWEN_FLASH_ROW_BOUND,
+               max_abs_err_vs_library=err_abs, bound_ms=b_ms, bound_by=b_by,
+               flop=flop, bytes=nbytes, failed=failed)
+    res["launches"] = fa.LAUNCH_COUNT - before
+    res["tflop_per_s"] = flop / (res["ms"] * 1e-3) / 1e12
+    del q, k, v
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_dryrun(fa, rl) -> dict:
+    """The dry run: every cell counted on meta, bf16 serving against the
+    plain path, six cells on the card held against their counts, and flash
+    at qwen3-1.7b's prefill_32k shape in bf16."""
+    t0 = time.time()
+    counts = dryrun_counts()
+    served = bf16_serving(fa, rl)
+    card = [card_cell(fa, rl, arch, shape)
+            for arch, shape in DRYRUN_CARD_CELLS]
+    failed = []
+    for row in card:
+        rec = counts["cells"][f"{row['arch']}/{row['shape']}"]
+        row["rows_that_fit"] = rec["rows_that_fit"]
+        if not rec["rows_that_fit"] >= 1:
+            row["failed"].append(f"{row['arch']} x {row['shape']}: "
+                                 f"rows_that_fit {rec['rows_that_fit']}")
+        failed += row["failed"]
+    flash = qwen_flash_bf16(fa)
+    failed += flash["failed"]
+    res = dict(count=dict(summary=counts["summary"],
+                          seconds=counts["seconds"],
+                          count_s={k: r["count_s"] for k, r in
+                                   counts["cells"].items()
+                                   if r["status"] == "ok"}),
+               bf16_serving=served, card_cells=card, flash_bf16_32k=flash,
+               seconds=time.time() - t0)
+    emit("dryrun", **res)
+    if failed:
+        raise AssertionError("dryrun: " + "; ".join(failed))
+    RESULTS["dryrun_cells"] = counts["cells"]
+    return res
+
+
 def armed_attributes(nc, netsim, core, workload) -> dict:
     """Registers, spills and static shared memory of each armed
     specialization, and the dynamic shared memory of the armed plans'
@@ -3557,7 +3973,8 @@ def armed_attributes(nc, netsim, core, workload) -> dict:
 def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
                  timing: dict, prof: dict, plans: dict, figures: dict,
                  lm: dict, served: dict, armed: dict, tel: dict, flt: dict,
-                 trained: dict, families: dict, clustered: dict) -> list:
+                 trained: dict, families: dict, clustered: dict,
+                 dry: dict) -> list:
     main_row = next(r for r in kern["main_shape"] if r["algo"] == 0)
     serve_attrs = lm["flash"]["attributes"]["float32_d256"]
     rg_attrs = lm["rg_lru"]["attributes"][
@@ -3669,6 +4086,12 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
         "family_launches": {arch: r["launches"]["flash_attention"]
                             for arch, r in families.items()},
         "family_shapes": lm["flash"]["family_shapes"],
+        # qwen3-1.7b's prefill_32k shape in bf16, beside SDPA's FLASH
+        # backend; and the dry run's card cells, launches as planned
+        "bf16_32k": dry["flash_bf16_32k"],
+        "dryrun_cell_launches": {f"{r['arch']}/{r['shape']}":
+                                 r["steps"][0]["launches"]["flash_attention"]
+                                 for r in dry["card_cells"]},
         "backward": trained["grad_checks"]["flash"],
         "shape": lm["flash"]["shape"],
     }, {
@@ -3692,6 +4115,9 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
         "train_launches": trained["launches"]["rg_lru"],
         "train_launches_per_step": trained["launches_per_step"]["rg_lru"],
         "backward": trained["grad_checks"]["rg_lru"],
+        "dryrun_cell_launches": {f"{r['arch']}/{r['shape']}":
+                                 r["steps"][0]["launches"]["rg_lru"]
+                                 for r in dry["card_cells"]},
         "registers": rg_attrs["registers"],
         "static_smem_bytes": rg_attrs["static_smem_bytes"],
         "dynamic_smem_bytes": rg_attrs["dynamic_smem_bytes"],
@@ -3719,6 +4145,7 @@ def check_kernel_table(table: list) -> None:
 
 
 PROBES = ("flash_attention", "rg_lru")
+ONLY = ("dryrun",)
 
 
 def write_results(path, t_start: float) -> None:
@@ -3738,6 +4165,8 @@ def main(argv=None) -> int:
                          "kernel beside these other sources of it")
     ap.add_argument("--probe-flash", nargs="*", metavar="SOURCE",
                     help="the same as --probe flash_attention SOURCE ...")
+    ap.add_argument("--only", choices=ONLY,
+                    help="build the LM kernels and run only this phase")
     args = ap.parse_args(argv)
     probe = args.probe
     if args.probe_flash is not None:
@@ -3772,6 +4201,11 @@ def main(argv=None) -> int:
             probe_rg_lru(rl, ref, probe[1:])
         write_results(args.out, t_start)
         return 0
+    if args.only:
+        phase_device([fa.LIBRARY, rl.LIBRARY])
+        phase_dryrun(fa, rl)
+        write_results(args.out, t_start)
+        return 0
     dev = phase_device([ms.LIBRARY, nc.LIBRARY, fa.LIBRARY, rl.LIBRARY])
     kern = phase_kernel(ms, core)
     chunks = phase_chunk_vs_per_tick(sim_kernels, core, netsim, workload)
@@ -3791,9 +4225,10 @@ def main(argv=None) -> int:
     trained = phase_train(fa, rl, ref, sim_kernels)
     families = phase_serve_families(fa, rl, sim_kernels)
     clustered = phase_cluster(sim_kernels)
+    dry = phase_dryrun(fa, rl)
     table = kernel_table(kern, main_path, states, chunks, timing, prof,
                          plans, figures, lm, served, armed, tel, flt,
-                         trained, families, clustered)
+                         trained, families, clustered, dry)
     check_kernel_table(table)
     RESULTS["kernels"] = table
     write_results(args.out, t_start)

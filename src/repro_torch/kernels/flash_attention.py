@@ -16,6 +16,12 @@ The kernel is built with its own nvcc flags (`NVCC_FLAGS`: no
 tensors it runs the dense plain version `ref.ref_attention`, which the
 kernel matches within 2e-5 in float32 and 2e-2 for bf16 inputs.
 
+On ``meta`` tensors (a dry run, `repro_torch.launch.dryrun`) the wrapper
+computes nothing: it returns an empty output of the kernel's shape and
+dtype, counts the launch it plans in `PLANNED_LAUNCHES` (never in
+`LAUNCH_COUNT`) and adds the kernel's `cost` to `PLANNED_FLOP` and
+`PLANNED_BYTES`.  A CUDA tensor never takes that branch.
+
 The backward pass is the reference's ``custom_vjp``
 (``repro/kernels/ops.py::_flash_vjp_bwd``): the vector-Jacobian product of
 the dense attention, recomputed with ``torch.autograd.grad`` through
@@ -36,6 +42,10 @@ Tensor = torch.Tensor
 
 # Launches of the CUDA kernel (never of the plain version).
 LAUNCH_COUNT = 0
+# Launches a dry run on meta tensors planned, and their `cost`
+PLANNED_LAUNCHES = 0
+PLANNED_FLOP = 0
+PLANNED_BYTES = 0
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 192, 256)     # the kernel's instantiations
 # build.NVCC_FLAGS without the two that fix the rounding: the kernel is
@@ -62,6 +72,35 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = build.KernelLibrary("flash_attention", _bind, flags=NVCC_FLAGS)
+
+
+def _causal_prefix(t: int, s: int, c: int) -> int:
+    """(q, k) pairs with 0 <= q < t, 0 <= k < s and k <= q + c: the sum
+    over q of clamp(q + c + 1, 0, s), in closed form."""
+    lo = min(max(-c, 0), t)             # first q with a key at all
+    hi = min(max(s - c - 1, 0), t)      # first q that sees all s keys
+    ramp = (hi - lo) * (lo + hi - 1) // 2 + (hi - lo) * (c + 1)
+    return ramp + (t - hi) * s
+
+
+def attention_pairs(t: int, s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave, per (batch, head): key k is
+    seen by query q when k <= q (causal) and k > q - window (window > 0),
+    positions counted from 0 on both sides, as the kernel masks them."""
+    upper = _causal_prefix(t, s, 0) if causal else t * s
+    if window > 0:
+        upper -= _causal_prefix(t, s, -window)
+    return upper
+
+
+def cost(b: int, t: int, s: int, h: int, kv: int, dh: int, causal: bool,
+         window: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(FLOP, bytes) of one launch: q.k and p.v are 2 * D FLOP each per
+    unmasked pair (`attention_pairs`); q, k and v read once and the
+    output written once."""
+    flop = 4 * dh * b * h * attention_pairs(t, s, causal, window)
+    nbytes = dtype.itemsize * (2 * b * t * h * dh + 2 * b * s * kv * dh)
+    return flop, nbytes
 
 
 def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
@@ -109,15 +148,23 @@ def kernel_attributes(dtype: torch.dtype, head_dim: int) -> dict:
 
 def _launch(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
             softcap: Optional[float]) -> Tensor:
-    """The kernel on CUDA tensors (counted), the plain version on CPU ones."""
-    global LAUNCH_COUNT
+    """The kernel on CUDA tensors (counted), the plain version on CPU ones,
+    the planned launch on meta ones."""
+    global LAUNCH_COUNT, PLANNED_LAUNCHES, PLANNED_FLOP, PLANNED_BYTES
     if q.device.type == "cpu":
         return ref_attention(q, k, v, causal=causal, window=window,
                              softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
     b, t, h, dh = q.shape
     s, kh = k.shape[1], k.shape[2]
+    if q.device.type == "meta":
+        flop, nbytes = cost(b, t, s, h, kh, dh, causal, window or 0,
+                            q.dtype)
+        PLANNED_LAUNCHES += 1
+        PLANNED_FLOP += flop
+        PLANNED_BYTES += nbytes
+        return torch.empty_like(q)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {dh} is not one of "
                          f"{HEAD_DIMS}")
@@ -172,7 +219,8 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     """q: [B, T, H, D]; k/v: [B, S, K, D] -> [B, T, H, D] in q's dtype.
 
     The CUDA kernel for CUDA tensors (D one of `HEAD_DIMS`), the plain
-    version for CPU tensors; raises on anything the kernel does not take.
+    version for CPU tensors, a planned launch (an empty output) for meta
+    tensors; raises on anything the kernel does not take.
     On the card it allocates the output, launches on the current stream
     without synchronizing, raises if the launch was refused, and counts the
     launch in `LAUNCH_COUNT`.  Differentiable (`FlashAttention`): the

@@ -14,6 +14,13 @@ loads into the same ring otherwise.  The C entry picks one by its
 holds to the C one at every launch.  On CPU tensors it runs the plain
 version `ref.ref_rg_lru`, which the kernel equals bit for bit.
 
+On ``meta`` tensors (a dry run, `repro_torch.launch.dryrun`) the wrapper
+computes nothing: it returns an empty output of the kernel's shape and
+dtype, counts the launch it plans in `PLANNED_LAUNCHES` (never in
+`LAUNCH_COUNT`) and adds the kernel's `cost` to `PLANNED_FLOP` and
+`PLANNED_BYTES`, the reverse scan of the backward pass included.  A CUDA
+tensor never takes that branch.
+
 The wrapper is a ``torch.autograd.Function`` (`RGLRU`).  The gradient of
 h_t = a_t h_{t-1} + b_t is itself a linear scan, backwards in time:
 
@@ -44,6 +51,10 @@ Tensor = torch.Tensor
 # version), and the same launches by specialization.
 LAUNCH_COUNT = 0
 ROUTE_LAUNCHES = {"general": 0, "aligned": 0}
+# Launches a dry run on meta tensors planned, and their `cost`
+PLANNED_LAUNCHES = 0
+PLANNED_FLOP = 0
+PLANNED_BYTES = 0
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/rg_lru.cu's UNIT_BYTES: the row width of one work unit
 UNIT_BYTES = 64
@@ -65,6 +76,15 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = build.KernelLibrary("rg_lru", _bind)
+
+
+def cost(bsz: int, t: int, d: int, dtype: torch.dtype,
+         h0: bool = False) -> tuple[int, int]:
+    """(FLOP, bytes) of one launch: a multiply and an add per element; a
+    and b read once, h written once, and the [B, D] initial state read
+    once where there is one."""
+    elems = bsz * t * d
+    return 2 * elems, dtype.itemsize * (3 * elems + (bsz * d if h0 else 0))
 
 
 def units(bsz: int, d: int, dtype: torch.dtype
@@ -121,12 +141,18 @@ def _check(name: str, t: Tensor, shape, dtype, device) -> None:
 
 
 def _scan(a: Tensor, b: Tensor, h0: Optional[Tensor]) -> Tensor:
-    """The kernel on CUDA tensors (counted), the plain version on CPU ones;
-    the operands are checked."""
-    global LAUNCH_COUNT
+    """The kernel on CUDA tensors (counted), the plain version on CPU ones,
+    the planned launch on meta ones; the operands are checked."""
+    global LAUNCH_COUNT, PLANNED_LAUNCHES, PLANNED_FLOP, PLANNED_BYTES
     bsz, t_len, d = a.shape
     if a.device.type == "cpu":
         return ref_rg_lru(a, b, h0)
+    if a.device.type == "meta":
+        flop, nbytes = cost(bsz, t_len, d, a.dtype, h0 is not None)
+        PLANNED_LAUNCHES += 1
+        PLANNED_FLOP += flop
+        PLANNED_BYTES += nbytes
+        return torch.empty_like(a)
     if a.device.type != "cuda":
         raise ValueError(f"rg_lru: no kernel for device {a.device}")
 
@@ -181,8 +207,9 @@ class RGLRU(torch.autograd.Function):
 
 def rg_lru(a: Tensor, b: Tensor, h0: Optional[Tensor] = None) -> Tensor:
     """The scan: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors.  a, b: [B, T, D]; h0: [B, D] or None; one dtype, float32
-    or bfloat16, all contiguous on one device.  Raises on anything else.
+    CPU tensors, a planned launch (an empty output) for meta tensors.
+    a, b: [B, T, D]; h0: [B, D] or None; one dtype, float32 or bfloat16,
+    all contiguous on one device.  Raises on anything else.
     On the card it allocates the output, launches on the current stream
     without synchronizing, raises if the launch was refused, and counts the
     launch in `LAUNCH_COUNT` and, under the specialization the C entry

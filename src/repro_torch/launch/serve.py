@@ -8,7 +8,10 @@ prefill runs through the kernels (``use_kernel=True``): flash attention and
 the RG-LRU scan, where the model has them.  Weights are random, drawn from
 ``seed``, and so are an audio model's frames (``max(prompt_len // 4, 4)``
 of them, the reference's request) and a vision model's patches.  Runs on the
-CUDA card unless ``device`` says otherwise (``--device cpu``).
+CUDA card unless ``device`` says otherwise (``--device cpu``).  ``dtype``
+(``--dtype``) is the parameters' and so the cache's dtype: float32, or
+bfloat16 as the reference's dry run serves (``SERVE_DTYPE``); frames and
+patches stay float32, as the reference's are.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ def _sync(dev: torch.device) -> None:
 
 def serve(arch: str, batch: int = 4, prompt_len: int = 32,
           new_tokens: int = 16, preset: str = "smoke", seed: int = 0,
-          device=None) -> dict:
+          device=None, dtype: str = "float32") -> dict:
     """Prefill a random prompt of ``batch`` rows, then decode greedily.
 
     Returns the generated ids [B, new_tokens], the prefill time, the decode
@@ -46,6 +49,7 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     model = api.init_params(cfg, gen, dev).requires_grad_(False)
+    model.to(getattr(torch, dtype))
     max_len = prompt_len + new_tokens + 8
 
     req = {"tokens": torch.randint(0, cfg.vocab, (batch, prompt_len),
@@ -94,12 +98,14 @@ def main(argv=None):
     ap.add_argument("--new", type=int, default=16)
     ap.add_argument("--preset", choices=("smoke", "full"), default="smoke")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
     out = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
                 new_tokens=args.new, preset=args.preset, seed=args.seed,
-                device=args.device)
+                device=args.device, dtype=args.dtype)
     print("generated ids:\n", out["generated"].cpu())
     print(f"prefill {out['prefill_s'] * 1e3:.1f} ms; decode "
           f"{out['decode_tok_per_s']:.1f} tok/s on {out['device']}")

@@ -232,7 +232,11 @@ def embed_inputs(cfg: ModelConfig, model: Model, tokens: Tensor,
         h = h * f32_sqrt(cfg.d_model)
     if extra_embeds is not None:
         if cfg.vit_dim:
-            extra_embeds = extra_embeds @ model.proj_vision
+            # float32 patches against bf16 weights multiply in float32, as
+            # jnp's type promotion has them
+            w = model.proj_vision
+            extra_embeds = extra_embeds @ w.to(
+                torch.promote_types(extra_embeds.dtype, w.dtype))
         h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
     return h
 

@@ -1,0 +1,163 @@
+"""Roofline analysis on one card.
+
+Per (arch x shape) cell, from the dry run's count
+(`repro_torch.launch.dryrun.run_cell`, the kernel route), the three
+roofline terms of the card (`hw.H100`):
+
+  compute    = FLOPs              / peak FLOP/s of the cell's dtype
+               (989e12 bf16, the reference's cells; 67e12 float32)
+  memory     = bytes accessed     / HBM bandwidth (3.35e12)
+  collective = 0: one card runs no collective
+
+The port of ``repro/roofline/analysis.py``, whose terms are per chip of a
+256-chip TPU mesh.  XLA's cost analysis counts a scanned layer body once,
+so the reference lowers every cell again at one and two layer groups,
+unrolled, and extrapolates to the full depth (`_extrapolate`).  The
+port's layers run as a Python loop and the dry run sees every op at full
+depth, so it needs no extrapolation; `_extrapolate` and `_reduced_cfg`
+stay, and the tests hold a full-depth count equal to the extrapolation
+of its one- and two-group counts.  ``useful_flops_ratio`` is
+`model_flops` (6 N D for training, 2 N D for serving) over the counted
+FLOPs of the one card.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.roofline.analysis --out results/roofline_torch.json
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+from repro_torch.launch import dryrun as dr
+from repro_torch.models import transformer
+from repro_torch.roofline.hw import H100, HwSpec
+
+
+def _reduced_cfg(cfg, n_groups: int):
+    """Same lead/tail structure, n_groups repetitions of the pattern."""
+    lead = cfg.first_k_dense
+    plen = len(cfg.block_pattern)
+    full_rest = cfg.n_layers - lead
+    tail = full_rest - (full_rest // plen) * plen
+    n_layers = lead + n_groups * plen + tail
+    enc = cfg.enc_layers
+    return dataclasses.replace(cfg, n_layers=n_layers,
+                               enc_layers=min(enc, n_groups * plen) if enc
+                               else 0)
+
+
+def _measure(cfg, shape_name: str, rows: Optional[int] = None,
+             seq_len: Optional[int] = None) -> dict:
+    """One cell's kernel-route count in the reference's ``_measure`` form
+    (one microbatch; no collectives on one card)."""
+    got = dr.count_cell(dr.build_cell(cfg, shape_name, rows,
+                                      seq_len=seq_len, microbatches=1))
+    return {"flops": got["flops"], "bytes": got["bytes"], "coll_bytes": 0,
+            "coll_by_kind": {}}
+
+
+def _extrapolate(m1: dict, m2: dict, g_full: int) -> dict:
+    out = {}
+    for key in ("flops", "bytes", "coll_bytes"):
+        body = m2[key] - m1[key]
+        stem = m1[key] - body
+        out[key] = max(stem + g_full * body, 0.0)
+        out[key + "_body"] = body
+        out[key + "_stem"] = stem
+    kinds = set(m1["coll_by_kind"]) | set(m2["coll_by_kind"])
+    out["coll_by_kind"] = {}
+    for k in kinds:
+        b = m2["coll_by_kind"].get(k, 0.0) - m1["coll_by_kind"].get(k, 0.0)
+        s = m1["coll_by_kind"].get(k, 0.0) - b
+        out["coll_by_kind"][k] = s + g_full * b
+    return out
+
+
+def model_flops(cfg, shape) -> float:
+    """MODEL_FLOPS = 6*N*D (dense) / 6*N_active*D (MoE); D = tokens/step."""
+    n = transformer.active_param_count(cfg)
+    if shape.kind == "train":
+        d = shape.global_batch * shape.seq_len
+        return 6.0 * n * d
+    if shape.kind == "prefill":
+        d = shape.global_batch * shape.seq_len
+        return 2.0 * n * d
+    return 2.0 * n * shape.global_batch          # decode: 1 token per seq
+
+
+def roofline_terms(record: dict, cfg, shape, hw: HwSpec = H100) -> dict:
+    """The roofline terms of a dry-run record (status "ok") on ``hw``:
+    compute at the peak of the cell's dtype (bf16 for every cell of the
+    reference's hyper-parameters; float32 for a float32 cell), memory,
+    collective (0), the dominant one, and the useful share."""
+    dtype = getattr(torch, record["dtype"])
+    flops = record["flops_per_device"]
+    terms = {"compute": flops / hw.peak_flops(dtype),
+             "memory": record["bytes_accessed_per_device"] / hw.hbm_bw,
+             "collective": 0.0}
+    mf = model_flops(cfg, shape)
+    return {
+        "peak_dtype": str(dtype).replace("torch.", ""),
+        "t_compute_s": terms["compute"],
+        "t_memory_s": terms["memory"],
+        "t_collective_s": terms["collective"],
+        "dominant": max(terms, key=terms.get),
+        "model_flops": mf,
+        "useful_flops_ratio": mf / flops if flops else 0.0,
+        "roofline_bound_s": max(terms.values()),
+        "step_lower_bound_s": max(terms.values()),
+    }
+
+
+def roofline_cell(arch: str, shape_name: str, hw: HwSpec = H100,
+                  verbose: bool = True, record: Optional[dict] = None
+                  ) -> dict:
+    """The dry-run record of one cell (``record``, or counted now) with its
+    roofline terms on ``hw``."""
+    cfg = get_config(arch)
+    rec = dict(record) if record is not None else dr.run_cell(
+        arch, shape_name, verbose=False)
+    if rec["status"] != "ok":
+        return rec
+    rec.update(roofline_terms(rec, cfg, SHAPES[shape_name], hw))
+    if verbose:
+        print(f"{arch:28s} {shape_name:12s} "
+              f"comp={rec['t_compute_s'] * 1e3:10.2f}ms "
+              f"mem={rec['t_memory_s'] * 1e3:10.2f}ms coll=0 "
+              f"dom={rec['dominant']:8s} "
+              f"useful={rec['useful_flops_ratio']:.2f}", flush=True)
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=ARCH_IDS)
+    ap.add_argument("--shape", choices=tuple(SHAPES))
+    ap.add_argument("--out", default="results/roofline_torch.json")
+    args = ap.parse_args(argv)
+    archs = (args.arch,) if args.arch else ARCH_IDS
+    shapes = (args.shape,) if args.shape else tuple(SHAPES)
+    t0 = time.perf_counter()
+    records = [roofline_cell(a, s) for a in archs for s in shapes]
+    n_ok = sum(r["status"] == "ok" for r in records)
+    n_err = sum(r["status"] == "error" for r in records)
+    print(f"roofline: {n_ok} ok, {n_err} failed in "
+          f"{time.perf_counter() - t0:.1f}s")
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(records, f, indent=1)
+        print("wrote", args.out)
+    if n_err:
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -664,3 +664,36 @@ def test_analysis_ci_specializations_do_not_spill():
         attrs = nc.kernel_attributes(*spec)
         assert attrs["local_bytes"] == 0, (spec, attrs)
         assert attrs["max_threads"] >= nc.MAX_THREADS, (spec, attrs)
+
+
+# ---------------------------------------------------------------------------
+# the dry run: meta counts against the card
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = [("recurrentgemma-2b", "prefill_32k"),
+                ("recurrentgemma-2b", "train_4k"),
+                ("qwen3-1.7b", "prefill_32k"),
+                ("qwen3-1.7b", "decode_32k")]
+
+
+@pytest.mark.parametrize("arch,shape", DRYRUN_CELLS, ids=str)
+def test_cuda_dryrun_planned_launches_equal_the_cards(arch, shape):
+    """One scaled-down cell counted on the meta device, then run on the
+    card (bf16 serving; a train cell with one microbatch): the kernels'
+    launches equal the planned ones.  (The peak is held at full width in
+    chip_smoke.py: at these widths the allocator's 512-byte rounding of
+    small tensors outweighs them.)"""
+    from repro_torch.launch import dryrun as dr
+
+    cfg = get_config(arch).scaled_down(window=16)
+    meta = dr.count_cell(dr.build_cell(cfg, shape, 2, seq_len=96,
+                                       microbatches=1))
+    cell = dr.build_cell(cfg, shape, 2, device="cuda", seq_len=96,
+                         microbatches=1, seed=3)
+    for _ in range(2):                  # cold, then warm
+        before = (fa.LAUNCH_COUNT, rl.LAUNCH_COUNT)
+        cell.step(*cell.args)
+        torch.cuda.synchronize()
+        assert {"flash_attention": fa.LAUNCH_COUNT - before[0],
+                "rg_lru": rl.LAUNCH_COUNT - before[1]} == \
+            meta["planned_launches"]

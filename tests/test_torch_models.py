@@ -31,6 +31,16 @@ the parallel form divides by their exponentials (forward logits 9.3e-6,
 prefill 4.5e-6, decode 5.6e-6; caches 2.9e-5, in the last block's conv
 state, the residual stream after seven blocks, up to 3.7); the other new
 configs stay under 2.7e-6.
+
+bf16 prefill (the dry run's serving dtype): the same float32 weights cast
+to bfloat16 on both sides (round to nearest even, so the bf16 weights are
+equal), the patches left float32, as both packages take them.  The two
+round their bf16 activations at other points (XLA keeps a fusion's
+intermediates in float32, eager torch rounds after every op), so they
+differ by about as much as bf16 does from float32.  Each logit and cache
+array is held within `BF16_REL_TOL` of its largest value in the
+reference's result: measured 2.7e-2 (logits) and 2.5e-2 (caches) for
+recurrentgemma-2b, 5.1e-3 and 6.3e-3 for internvl2-1b.
 """
 import dataclasses
 import functools
@@ -66,6 +76,12 @@ CASES = {
     "seamless-m4t-medium": ({}, 24),
 }
 AUX_RTOL = 1e-6
+BF16_REL_TOL = 5e-2
+# the prefill cases: every config in float32, the two serving configs of
+# the dry run's card cells in bf16 too
+PREFILL_CASES = ([pytest.param(arch, "float32", id=arch) for arch in CASES]
+                 + [pytest.param(arch, "bfloat16", id=f"{arch}-bfloat16")
+                    for arch in ("recurrentgemma-2b", "internvl2-1b")])
 
 
 @functools.lru_cache(maxsize=None)
@@ -99,11 +115,17 @@ def _setup(arch):
                 max_len=n_pos + 8, decode_toks=decode_toks)
 
 
-def _prefill_both(s):
-    rlogits, rcache = rapi.prefill(s["rcfg"], s["params"], s["rbatch"],
+def _prefill_both(s, dtype="float32"):
+    params, model = s["params"], s["model"]
+    if dtype != "float32":
+        params = jax.tree.map(lambda x: x.astype(dtype), params)
+        model = convert.params_from_reference(
+            s["pcfg"], jax.device_get(s["params"]), device="cpu"
+        ).to(getattr(torch, dtype))
+    rlogits, rcache = rapi.prefill(s["rcfg"], params, s["rbatch"],
                                    s["max_len"])
     with torch.no_grad():
-        plogits, pcache = api.prefill(s["pcfg"], s["model"], s["pbatch"],
+        plogits, pcache = api.prefill(s["pcfg"], model, s["pbatch"],
                                       s["max_len"])
     return rlogits, rcache, plogits, pcache
 
@@ -142,14 +164,45 @@ def test_ported_configs_equal_the_reference():
                 == dataclasses.asdict(ref_get_config(arch).scaled_down()))
 
 
-@pytest.mark.parametrize("arch", list(CASES))
-def test_prefill_matches_reference(arch):
+def _float32(tree):
+    """A cache with its floating tensors in float32 (numpy has no bf16)."""
+    if isinstance(tree, dict):
+        return {k: _float32(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def _assert_bf16_close(want, got, what):
+    """Within BF16_REL_TOL of the largest |value| of ``want``."""
+    want = np.asarray(want, dtype=np.float32)
+    assert want.shape == got.shape, (what, want.shape, got.shape)
+    err = float(np.abs(got - want).max())
+    assert err <= BF16_REL_TOL * float(np.abs(want).max()), (what, err)
+
+
+@pytest.mark.parametrize("arch,dtype", PREFILL_CASES)
+def test_prefill_matches_reference(arch, dtype):
     s = _setup(arch)
-    rlogits, rcache, plogits, pcache = _prefill_both(s)
-    np.testing.assert_allclose(plogits.numpy(), np.asarray(rlogits),
-                               **LOGIT_TOL)
-    _assert_caches_close(rcache,
-                         convert.cache_to_reference_layout(s["pcfg"], pcache))
+    rlogits, rcache, plogits, pcache = _prefill_both(s, dtype)
+    if dtype == "float32":
+        np.testing.assert_allclose(plogits.numpy(), np.asarray(rlogits),
+                                   **LOGIT_TOL)
+        _assert_caches_close(rcache, convert.cache_to_reference_layout(
+            s["pcfg"], pcache))
+        return
+    assert plogits.dtype == torch.bfloat16 and rlogits.dtype == jnp.bfloat16
+    assert {t.dtype for entry in pcache.values() for t in entry.values()
+            if t.is_floating_point()} == {torch.bfloat16}
+    _assert_bf16_close(rlogits, plogits.float().numpy(), "logits")
+    want = _leaves(jax.device_get(rcache))
+    got = _leaves(convert.cache_to_reference_layout(s["pcfg"],
+                                                    _float32(pcache)))
+    assert [p for p, _ in want] == [p for p, _ in got]
+    for (path, w), (_, g) in zip(want, got):
+        if path[-1] == "pos":
+            np.testing.assert_array_equal(g, np.asarray(w), err_msg=str(path))
+        else:
+            assert np.asarray(w).dtype == jnp.bfloat16, path
+            _assert_bf16_close(w, g, path)
 
 
 def test_recurrentgemma_case_wraps_the_ring_and_runs_the_tail():
