@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--out results.json]
-    python3 chip_smoke.py --only dryrun [--out results.json]
+    python3 chip_smoke.py --only dryrun|suites [--out results.json]
     python3 chip_smoke.py --probe KERNEL [OLD/KERNEL.cu ...]
 
 It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
@@ -40,7 +40,8 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   alone), fig 13 (Static against MLQCN), fig 14 (the triangle, Cassini
   without a schedule), fig 15 (F1..F6 in the CC kernels), fig 16 (S x I,
   one WI group of K = 48), fig 17 (WI against MD) and kernel_sweep,
-  copies of the suites' plans (``analysis/plans.py``), through
+  the suites' own plans (``repro_torch.figures`` through
+  ``analysis/plans.py``), through
   ``run_plan`` and the chunk kernel at 1.5 s and seeds 1-3, each counted:
   groups as the plan lint predicted and as the suites assert, each cell
   beside the reference's, the paper's claims held wherever the reference
@@ -50,6 +51,18 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   chunk kernel's the plans' own shapes (fig 14's triangle under its
   Cassini schedule, Table 2's one-hot job masks on its two-tier fabric,
   fig 13's Static factors at 3 jobs);
+* the paper-figure harness (``suites``): every suite of
+  ``repro_torch.figures`` (the port of ``benchmarks/``) run in-process as
+  ``python -m repro_torch.figures`` runs it, at REPRO_SMOKE depth (1.5 s,
+  seed 1; the churn gauntlet its own 4.5 s at seeds 1-3), each counted:
+  every group on the chunk kernel (kernel_sweep's per-tick oracle turns
+  counted apart), its ``_health`` without fallback, mispredict, group
+  error or budget mismatch, its derived keys those the reference recorded
+  (``results/benchmarks.json``), its values at seed 1 beside the
+  reference's within the earlier phases' tolerances, its own assertions
+  held, and ``churn.run()`` raising the Reno re-interleave assertion the
+  reference raises at seeds 1-3 while ``churn.run(algos=("cubic",
+  "dcqcn"))`` holds;
 * telemetry and faults: the fig 5 timeline plan (benchmarks/timeline.py:
   Reno, CUBIC, DCQCN x OFF/WI x seeds 1-3 with the suite's probes and
   detectors) and the churn gauntlet (benchmarks/churn.py: three jobs on a
@@ -117,7 +130,8 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   FLASH backend and the port's chunked plain route, beside its bound and
   SDPA's time.
 
-``--only dryrun`` builds the two LM kernels and runs that phase alone.
+``--only dryrun`` builds the two LM kernels and runs that phase alone;
+``--only suites`` builds the two simulator kernels and runs ``suites``.
 ``--probe KERNEL`` (``flash_attention`` or ``rg_lru``; ``--probe-flash``
 is ``--probe flash_attention``) is the short first call after a change to
 that kernel: it builds the kernels (``ptxas -v``), holds the checkout's
@@ -652,7 +666,7 @@ def chunk_cases(core, netsim, workload, sim_time: float) -> list:
     suite's."""
     import numpy as np
 
-    from repro_torch.analysis import plans as suites
+    from repro_torch.figures import partial_compat
 
     def cfg(algo, variant, **kw):
         return fig7_cfg(core, netsim, workload, algo, variant, sim_time,
@@ -701,7 +715,7 @@ def chunk_cases(core, netsim, workload, sim_time: float) -> list:
          cfg("dcqcn", 1, topo=netsim.dumbbell(3, sockets_per_job=2),
              models=("gpt2",) * 3),
          dict(seed=list(SEEDS), static_job_factors=np.stack(
-             [suites.STATIC_FACTORS, np.full(3, -1.0)]))),
+             [partial_compat.STATIC_FACTORS, np.full(3, -1.0)]))),
     ]
 
 
@@ -730,14 +744,15 @@ def armed_cases(core, netsim, workload, sim_time: float) -> list:
     0 under a schedule that departs and re-admits the last job, flaps the
     bottleneck, blackholes flow 0 and bursts the straggle probability,
     point 1 under the identity schedule.  Then the specializations the two
-    plan phases run, at their widths (`SUITE_SOCKETS`: DCQCN one socket a
-    job), OFF and WI: the fig 5 plan's (telemetry alone, `fig5_spec`) and
-    the churn gauntlet's (`churn_spec` and its fault spec on the 100 Gbps
+    plan phases run, at their widths (`timeline.SOCKETS`: DCQCN one socket
+    a job), OFF and WI: the fig 5 plan's (telemetry alone, `fig5_spec`) and
+    the churn gauntlet's (`churn.telemetry_spec`, `churn.SPEC`, the 100 Gbps
     3-job dumbbell, point 0 under the gauntlet schedule, point 1 under the
     staggered one)."""
     import numpy as np
 
     from repro_torch.analysis import plans as suites
+    from repro_torch.figures import churn, timeline
     from repro_torch.netsim import telemetry
 
     spec = netsim.TelemetrySpec(probes=telemetry.BUILTIN_PROBES, stride=7,
@@ -763,8 +778,8 @@ def armed_cases(core, netsim, workload, sim_time: float) -> list:
                 seed=list(SEEDS),
                 **{f: np.stack([sched.values[f], ident.values[f]])
                    for f in sched.values})))
-    churn_faults = suites.churn_faults()
-    for algo, sockets in SUITE_SOCKETS.items():
+    churn_faults = churn.SPEC
+    for algo, sockets in timeline.SOCKETS.items():
         for variant in VARIANT:
             cfg = fig7_cfg(core, netsim, workload, algo, VARIANT[variant],
                            sim_time, topo=netsim.dumbbell(
@@ -775,15 +790,15 @@ def armed_cases(core, netsim, workload, sim_time: float) -> list:
                         dict(seed=list(SEEDS))))
             cfg = fig7_cfg(core, netsim, workload, algo, VARIANT[variant],
                            sim_time, topo=netsim.dumbbell(
-                               suites.CHURN_JOBS, sockets_per_job=sockets,
-                               cap_gbps=suites.CHURN_CAP_GBPS),
-                           models=("gpt2",) * suites.CHURN_JOBS,
+                               churn.N_JOBS, sockets_per_job=sockets,
+                               cap_gbps=churn.CAP_GBPS),
+                           models=("gpt2",) * churn.N_JOBS,
                            scale=CHUNK_CASE_SCALE,
-                           telemetry=suites.churn_spec(CHURN_SIM_TIME),
+                           telemetry=churn.telemetry_spec(),
                            faults=churn_faults)
             scheds = [netsim.fault_schedule(
-                cfg, suites.churn_events(cfg, label), spec=churn_faults)
-                for label in suites.CHURN_SCHEDULES]
+                cfg, churn._events(cfg, label), spec=churn_faults)
+                for label in churn.SCHEDULES]
             out.append((f"{algo}_{variant.lower()}_churn", cfg, dict(
                 seed=list(SEEDS),
                 **{f: np.stack([sc.values[f] for sc in scheds])
@@ -1182,16 +1197,14 @@ def phase_profile(kern, core, netsim, workload) -> dict:
 # experiment plans: the paper's fig 10 and fig 12 through run_plan
 # ---------------------------------------------------------------------------
 
-# The suites' own axes (benchmarks/speedup_vs_jobs.py,
-# benchmarks/stragglers.py) at their REPRO_SMOKE depth and seed; fig 10
-# Reno at seeds 1-3 (the reference's seeds in results/reference_plans.json:
-# its spread across them is what settles whether the port's cells differ
-# from the reference's by chaos).
+# The suites' plans (repro_torch/figures/speedup_vs_jobs.py, stragglers.py)
+# at their REPRO_SMOKE depth and seed; fig 10 Reno at seeds 1-3 (the
+# reference's seeds in results/reference_plans.json: its spread across them
+# is what settles whether the port's cells differ from the reference's by
+# chaos).
 PLAN_SIM_TIME = 1.5
 PLAN_SEEDS = (1,)
 FIG10_RENO_SEEDS = (1, 2, 3)
-FIG10_JOBS = (2, 3, 4, 5, 6)
-FIG12_PROBS = (0.0, 0.05, 0.10, 0.20, 0.30)
 VARIANT = {"OFF": 0, "WI": 1}
 # the JAX reference's numbers for the same plans, seeds 1-3
 # (scripts/reference_plans.py); the cache the second fig 12 run reads
@@ -1203,20 +1216,6 @@ PLAN_CACHE = os.path.join(ROOT, "build", "plan_cache")
 K_SCALING = (2, 21, 132, 264)
 K_SIM_TIME = 0.3
 K_CHUNKS = (400, 80)
-
-
-def fig10_plan(core, netsim, workload, algo: str, seeds=PLAN_SEEDS):
-    """speedup_vs_jobs._plan: variant x job count x seed on dumbbell(n, 2);
-    the job counts pad into one group per variant."""
-    def build(pt):
-        n = pt["n_jobs"]
-        return fig7_cfg(core, netsim, workload, algo, VARIANT[pt["variant"]],
-                        PLAN_SIM_TIME,
-                        topo=netsim.dumbbell(n, sockets_per_job=2),
-                        models=("gpt2",) * n)
-    return netsim.Plan(name=f"fig10-{algo}", build=build, axes=(
-        netsim.Axis("variant", tuple(VARIANT)),
-        netsim.Axis("n_jobs", FIG10_JOBS), netsim.Axis("seed", seeds)))
 
 
 def predicted_groups(plan, telemetry=None) -> int:
@@ -1282,13 +1281,23 @@ def plan_cells(netsim, pr) -> dict:
         per = [netsim.speedup_stats(b, t) for b, t in zip(base, test)]
         return {m: [p[m] for p in per]
                 for m in ("avg_speedup", "p99_speedup")}
+    axes = {a.name: a.values for a in pr.plan.axes}
     if pr.plan.name == "fig12":
         return {f"{scheme}@{p}": stats(pr.select(p=p, scheme="base"),
                                        pr.select(p=p, scheme=scheme))
-                for p in FIG12_PROBS for scheme in ("mlqcn", "cassini")}
+                for p in axes["p"] for scheme in ("mlqcn", "cassini")}
     return {str(n): stats(pr.select(variant="OFF", n_jobs=n),
                           pr.select(variant="WI", n_jobs=n))
-            for n in FIG10_JOBS}
+            for n in axes["n_jobs"]}
+
+
+def plan_tolerance(plan: dict, metric: str) -> float:
+    """`tier_b`'s tolerance of one metric of a reference plan entry: the
+    widest spread the reference shows across its seeds in any cell."""
+    spreads = [max(v) - min(v) for v in (
+        [x for x in c[metric] if x is not None]
+        for c in plan["cells"].values() if metric in c) if v]
+    return max(spreads) if spreads else 0.0
 
 
 def tier_b(name: str, cells: dict, ref: dict, seeds,
@@ -1309,10 +1318,7 @@ def tier_b(name: str, cells: dict, ref: dict, seeds,
     out = {"seeds": list(seeds), "tolerance": {}, "cells": {},
            "outside": []}
     for metric in metrics:
-        spreads = [max(v) - min(v) for v in (
-            [x for x in c[metric] if x is not None]
-            for c in plan["cells"].values() if metric in c) if v]
-        tol = max(spreads) if spreads else 0.0
+        tol = plan_tolerance(plan, metric)
         out["tolerance"][metric] = tol
         n_out = n = 0
         for cell, got in cells.items():
@@ -1472,8 +1478,8 @@ def phase_plans(kern, core, netsim, workload) -> dict:
         ref = json.load(f)
     out, plans = {}, {}
     for algo, seeds in (("reno", FIG10_RENO_SEEDS), ("dcqcn", PLAN_SEEDS)):
-        plans[f"fig10-{algo}"] = (fig10_plan(core, netsim, workload, algo,
-                                             seeds), 2, {}, seeds)
+        plans[f"fig10-{algo}"] = (suites.fig10_plan(algo, PLAN_SIM_TIME,
+                                                    seeds), 2, {}, seeds)
     shutil.rmtree(PLAN_CACHE, ignore_errors=True)
     plans["fig12"] = (suites.fig12_plan(PLAN_SIM_TIME, PLAN_SEEDS), 2,
                       dict(cache_dir=PLAN_CACHE), PLAN_SEEDS)
@@ -1707,24 +1713,15 @@ def phase_figures(kern, core, netsim, workload) -> dict:
 # telemetry and faults: the fig 5 timeline and the churn gauntlet plans
 # ---------------------------------------------------------------------------
 
-# benchmarks/timeline.py at REPRO_SMOKE depth (common.SIM_TIME), seeds 1-3
+# the timeline suite (repro_torch/figures/timeline.py) at REPRO_SMOKE depth
+# (common.SIM_TIME), seeds 1-3
 FIG5_SIM_TIME = 1.5
 FIG5_SEEDS = (1, 2, 3)
-# paper §4.1: TCP jobs open parallel sockets, RoCE one QP (both suites)
-SUITE_SOCKETS = {"reno": 2, "cubic": 2, "dcqcn": 1}
-MAX_TTI_ITERS = 10.0
 FIG5_METRICS = ("tti_iters", "tti_seconds", "interleave_stability",
                 "p50_iter_s", "p99_iter_s")
-# benchmarks/churn.py: three GPT-2 jobs on a 100 Gbps dumbbell for
-# 18 s x WORK_SCALE, an 8-row schedule of churn, flaps and blackholes
-CHURN_SIM_TIME = 18.0 * WORK_SCALE
+# the churn suite (repro_torch/figures/churn.py) at its own depth
+# (churn.SIM_TIME, 18 s x WORK_SCALE), seeds 1-3
 CHURN_SEEDS = (1, 2, 3)
-CHURN_MAX_ITERS = 10.0
-CHURN_EXEMPT = ("blackhole-active", "cold-start")
-CHURN_REQUIRED = ("departure", "arrival", "re-arrival", "flap", "flap-clear",
-                  "blackhole-clear")
-CHURN_ML_MIN_STABILITY = 0.95
-CHURN_BASE_MARGIN = {"reno": 0.02, "cubic": 0.02, "dcqcn": 0.0}
 CHURN_METRICS = ("interleave_stability", "max_reinterleave_iters")
 
 
@@ -1743,20 +1740,20 @@ def reference_plan_script():
 
 
 def fig5_claims(cells: dict) -> dict:
-    """timeline._summarize's assertions per algorithm on {algo/variant:
-    per-seed values}: every MLTCP seed interleaves within MAX_TTI_ITERS
-    iterations, no baseline seed converges."""
+    """The timeline suite's assertions per algorithm
+    (`timeline._failures`) on {algo/variant: per-seed values}: every MLTCP
+    seed interleaves within `timeline.MAX_TTI_ITERS` iterations, no
+    baseline seed converges; each algorithm's failed messages."""
+    from repro_torch.figures import timeline
+
+    def iters(xs):
+        return [float("inf") if x is None else x for x in xs]
     out = {}
-    for algo in SUITE_SOCKETS:
+    for algo in timeline.SOCKETS:
         ml, base = cells[f"{algo}/WI"], cells[f"{algo}/OFF"]
-        failed = []
-        if not all(x is not None and x <= MAX_TTI_ITERS
-                   for x in ml["tti_iters"]):
-            failed.append(f"MLTCP time to interleave {ml['tti_iters']} "
-                          f"exceeds {MAX_TTI_ITERS}")
-        if any(base["converged"]):
-            failed.append(f"baseline interleaved: {base['converged']}")
-        out[algo] = dict(tti_iters=ml["tti_iters"], failed=failed)
+        out[algo] = dict(tti_iters=ml["tti_iters"], failed=timeline._failures(
+            algo, iters(ml["tti_iters"]), base["converged"],
+            iters(base["tti_iters"])))
     return out
 
 
@@ -1854,77 +1851,48 @@ def phase_telemetry(kern, core, netsim, workload) -> dict:
 
 
 def churn_window_names(label: str) -> dict:
-    """churn._window_names: start tick -> window name."""
+    """churn._window_names on the gauntlet's fabric at churn.SIM_TIME:
+    start tick -> window name."""
     from repro_torch.analysis import plans as suites
+    from repro_torch.figures import churn
 
-    t = CHURN_SIM_TIME
-    _, _, arr, dep, rearr, bh, flap = suites.CHURN_EVENTS[label]
-
-    def tick(x):
-        return max(0, int(round(x / DT)))
-    return {0: "cold-start", tick(arr * t): "arrival",
-            tick(dep * t): "departure", tick(rearr * t): "re-arrival",
-            tick(flap[0] * t): "flap", tick(flap[1] * t): "flap-clear",
-            tick(bh[0] * t): "blackhole-active",
-            tick(bh[1] * t): "blackhole-clear"}
+    cfg = suites.churn_plan(churn.SIM_TIME, CHURN_SEEDS[:1]).build(
+        dict(algo="reno", variant="WI", schedule=label, seed=1))
+    return churn._window_names(cfg, label)
 
 
 def churn_claims(cells: dict) -> dict:
-    """churn._summarize's assertions per (algo, schedule) on {algo/variant/
-    schedule: per-seed reports}: after every non-exempt fault window MLTCP
-    re-interleaves within CHURN_MAX_ITERS iterations (worst over seeds),
-    every required window is seen, MLTCP stability holds, no baseline run
+    """The churn suite's assertions (`churn._failures`) per (algo,
+    schedule) on {algo/variant/schedule: per-seed reports}: after every
+    non-exempt fault window MLTCP re-interleaves within
+    `churn.MAX_REINTERLEAVE_ITERS` iterations (worst over seeds), every
+    required window is seen, MLTCP stability holds, no baseline run
     re-converges from every window, and the baseline's stability sits
     below MLTCP's by the algorithm's margin.  Each failure names its kind
     and, for the first two, its windows."""
-    from repro_torch.analysis import plans as suites
+    from repro_torch.figures import churn
 
     out = {}
-    for algo in SUITE_SOCKETS:
-        for label in suites.CHURN_SCHEDULES:
+    for algo in churn.SOCKETS:
+        for label in churn.SCHEDULES:
             ml = cells[f"{algo}/WI/{label}"]
             base = cells[f"{algo}/OFF/{label}"]
             names = churn_window_names(label)
-            worst: dict = {}
-            for events in ml["events"]:
-                for e in events:
-                    name = names.get(e["start_tick"],
-                                     f"tick{e['start_tick']}")
-                    it = e["reinterleave_iters"]
-                    it = float("inf") if it is None else it
-                    worst[name] = max(worst.get(name, 0.0), it)
-            held = {k: v for k, v in worst.items() if k not in CHURN_EXEMPT}
+            worst = churn._worst([
+                [dict(window=names.get(e["start_tick"],
+                                       f"tick{e['start_tick']}"),
+                      reinterleave_iters=e["reinterleave_iters"])
+                 for e in events] for events in ml["events"]])
             ml_stab = min(ml["interleave_stability"])
             base_stab = max(base["interleave_stability"])
-            failed = []
-            missing = [w for w in CHURN_REQUIRED if w not in held]
-            if missing:
-                failed.append(dict(kind="missing", windows=missing,
-                                   msg="fault windows never observed"))
-            bad = {k: v for k, v in held.items() if v > CHURN_MAX_ITERS}
-            if bad:
-                failed.append(dict(
-                    kind="reinterleave", windows=sorted(bad),
-                    msg=f"MLTCP re-interleave over {CHURN_MAX_ITERS} "
-                        f"iterations: {bad}"))
-            if ml_stab < CHURN_ML_MIN_STABILITY:
-                failed.append(dict(kind="ml_stability",
-                                   msg=f"MLTCP stability {ml_stab}"))
-            if any(base["all_events_reconverged"]):
-                failed.append(dict(kind="baseline_reconverged",
-                                   msg="a baseline run re-converged after "
-                                       "every fault window"))
-            if base_stab > ml_stab - CHURN_BASE_MARGIN[algo]:
-                failed.append(dict(
-                    kind="margin",
-                    msg=f"baseline stability {base_stab} not below MLTCP's "
-                        f"{ml_stab} by {CHURN_BASE_MARGIN[algo]}"))
             out[f"{algo}/{label}"] = dict(
                 worst_reinterleave_iters={k: (None if v == float("inf")
                                               else v)
                                           for k, v in worst.items()},
                 ml_stability=ml_stab, baseline_stability=base_stab,
-                failed=failed)
+                failed=churn._failures(algo, label, worst, ml_stab,
+                                       base_stab,
+                                       any(base["all_events_reconverged"])))
     return out
 
 
@@ -1954,12 +1922,13 @@ def phase_faults(kern, core, netsim, workload) -> dict:
     each cell beside the reference's (Tier B); the groups equal to the
     reference's."""
     from repro_torch.analysis import plans as suites
+    from repro_torch.figures import churn
 
     rp = reference_plan_script()
     with open(REFERENCE_PLANS) as f:
         ref = json.load(f)
     want = ref["plans"]["churn"]
-    plan = suites.churn_plan(CHURN_SIM_TIME, CHURN_SEEDS)
+    plan = suites.churn_plan(churn.SIM_TIME, CHURN_SEEDS)
     predicted = predicted_groups(plan)
     pr, seconds, counts = counted(
         kern, lambda: netsim.run_plan(plan, device=DEVICE))
@@ -1977,7 +1946,7 @@ def phase_faults(kern, core, netsim, workload) -> dict:
                              f"reference holds them: {failed}")
     worst = max((v for c in claims.values()
                  for name, v in c["worst_reinterleave_iters"].items()
-                 if name not in CHURN_EXEMPT and v is not None),
+                 if name not in churn._EXEMPT and v is not None),
                 default=None)
     out = dict(seconds=seconds, us_per_tick=1e6 * seconds / info["ticks"],
                groups_predicted=predicted, **info, cells=cells, claims=claims,
@@ -1986,6 +1955,338 @@ def phase_faults(kern, core, netsim, workload) -> dict:
                tier_b=tier_b("churn", cells, ref, CHURN_SEEDS,
                              CHURN_METRICS))
     emit("faults", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the paper-figure harness: every suite of repro_torch.figures
+# ---------------------------------------------------------------------------
+
+# the suites' REPRO_SMOKE depth (1.5 s, seed 1; the churn suite its own
+# 4.5 s at seeds 1-3, the seeds of the reference's verdicts)
+SUITE_SMOKE = dict(REPRO_SMOKE="1", REPRO_FULL="0")
+CHURN_SUITE_SEEDS = (1, 2, 3)
+# the health every suite must show
+SUITE_HEALTH_ZERO = ("n_kernel_fallbacks", "n_group_mispredicts",
+                     "n_group_errors", "n_budget_mismatches")
+
+
+@contextlib.contextmanager
+def environment(**values):
+    """``os.environ`` with ``values`` set for the block."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def key_tree(d):
+    """A derived dict's nested keys (its values' types aside)."""
+    return {k: key_tree(v) if isinstance(v, dict) else None
+            for k, v in d.items()}
+
+
+def suite_cells(name: str, derived: dict) -> list:
+    """[(reference plan, cells, metrics)] of one suite's derived dict at
+    seed 1, in the layout of results/reference_plans.json (each metric a
+    one-value list; None for a value that is not finite), for the metrics
+    the plans, figures and telemetry phases hold to the reference."""
+    rp = reference_plan_script()
+
+    def one(x):
+        return [rp.finite(x) if x is not None else None]
+
+    def cells_of(pairs):
+        return {cell: {m: one(v) for m, v in metrics.items()}
+                for cell, metrics in pairs}
+    if name == "fig5_timeline":
+        return [("fig5", cells_of(
+            (f"{algo}/WI", {m: derived[algo][m] for m in FIG5_METRICS})
+            for algo in derived if algo != "_profile"), FIG5_METRICS)]
+    if name == "fig7_9_convergence":
+        metrics = ("avg_speedup", "p99_speedup", "baseline_interleave",
+                   "mltcp_interleave", "converged_at_iter")
+        return [("fig7-9", cells_of(
+            (algo, {m: c[m] for m in metrics})
+            for algo, c in derived.items()), metrics)]
+    if name == "fig10_speedup_vs_jobs":
+        out = []
+        for algo in ("reno", "dcqcn"):
+            out.append((f"fig10-{algo}", cells_of(
+                (key.split("_")[1][:-len("jobs")],
+                 {m: c[m] for m in ("avg_speedup", "p99_speedup")})
+                for key, c in derived.items()
+                if key.startswith(f"{algo}_")),
+                ("avg_speedup", "p99_speedup")))
+        return out
+    if name == "fig11_table2_diversity":
+        metrics = ("avg_speedup", "p99_speedup", "vs_ideal")
+        return [("table2", cells_of(
+            (snap, {m: c[m] for m in metrics})
+            for snap, c in derived.items()), metrics)]
+    if name == "fig12_stragglers":
+        return [("fig12", cells_of(
+            (f"{scheme}@{key[len('p='):]}",
+             {"avg_speedup": c[f"{scheme}_avg"],
+              "p99_speedup": c[f"{scheme}_p99"]})
+            for key, c in derived.items()
+            for scheme in ("mlqcn", "cassini")),
+            ("avg_speedup", "p99_speedup"))]
+    if name == "fig13_partial_compat":
+        return [("fig13", cells_of(derived.items()),
+                 FIGURE_METRICS["fig13"])]
+    if name == "fig14_circular_dependency":
+        d = derived
+        return [("fig14", cells_of((
+            ("base", {"interleave": d["base_interleave"]}),
+            ("mlqcn", {"avg_speedup": d["mlqcn_avg_speedup"],
+                       "p99_speedup": d["mlqcn_p99_speedup"],
+                       "interleave": d["mlqcn_interleave"]}),
+            ("cassini", {"avg_speedup": d["cassini_avg_speedup"]}))),
+            FIGURE_METRICS["fig14"])]
+    if name == "fig15_agg_functions":
+        return [("fig15", cells_of(
+            (f, {"avg_speedup": c["avg_speedup"],
+                 "interleave": c["interleave"]})
+            for f, c in derived.items()), ("avg_speedup", "interleave"))]
+    if name in ("fig16_slope_intercept", "fig17_wi_vs_md"):
+        plan = "fig16" if name.startswith("fig16") else "fig17"
+        return [(plan, cells_of(
+            (cell, {m: c[m] for m in ("avg_speedup", "p99_speedup")})
+            for cell, c in derived.items() if cell != "best"),
+            ("avg_speedup", "p99_speedup"))]
+    return []                                   # kernel_sweep: timings
+
+
+def churn_values(derived: dict, ref: dict) -> dict:
+    """The churn suite's numbers (over seeds 1-3) against the reference
+    suite's verdicts at the same seeds (results/reference_plans.json,
+    ``plans.churn.assertions``): MLTCP's least and the baseline's greatest
+    stability within the faults phase's interleave_stability tolerance,
+    each window's worst re-interleave iterations within its
+    max_reinterleave_iters tolerance; more than half of a metric's values
+    outside fails."""
+    plan = ref["plans"]["churn"]
+    tol = {m: plan_tolerance(plan, m) for m in CHURN_METRICS}
+    rows = []
+    for cell, d in derived.items():
+        if cell.startswith("_"):
+            continue
+        want = plan["assertions"][cell]
+        for key in ("ml_stability", "baseline_stability"):
+            rows.append((cell, key, "interleave_stability", d[key],
+                         want[key]))
+        for window, got in d["worst_reinterleave_iters"].items():
+            rows.append((cell, window, "max_reinterleave_iters", got,
+                         want["worst"].get(window)))
+    outside = []
+    for metric in CHURN_METRICS:
+        mine = [r for r in rows if r[2] == metric]
+        bad = [dict(cell=cell, value=key, port=got, reference=want,
+                    tolerance=tol[metric])
+               for cell, key, _, got, want in mine
+               if not ((got is None and want is None) or (
+                   got is not None and want is not None
+                   and abs(got - want) <= tol[metric]))]
+        outside += bad
+        if 2 * len(bad) > len(mine):
+            raise AssertionError(f"churn suite: {len(bad)} of {len(mine)} "
+                                 f"values outside the {metric} tolerance: "
+                                 f"{bad}")
+    return dict(tolerance=tol, values=len(rows), outside=outside)
+
+
+def phase_suites(kern, core, netsim, workload) -> dict:
+    """Every suite of `repro_torch.figures` (the port of ``benchmarks/``)
+    run in-process as ``python -m repro_torch.figures`` runs it
+    (`common.timed`, `common.merge_results` into a temporary file), at
+    REPRO_SMOKE depth, each counted on its own: every group of every
+    suite on the chunk kernel (one launch a chunk, no per-tick launch but
+    kernel_sweep's oracle turns, no fallback); the suite's ``_health``
+    with no fallback, mispredict, group error or budget mismatch; its
+    derived keys equal to the reference's recorded entry
+    (results/benchmarks.json); its values at seed 1 against the
+    reference's (Tier B, the existing phases' tolerances); its own
+    assertions held.  The churn suite runs at seeds 1-3: ``churn.run()``
+    must raise the Reno re-interleave assertion the reference raises
+    there, every failure shared with the reference, and
+    ``churn.run(algos=("cubic", "dcqcn"))`` must hold."""
+    import shutil
+    import tempfile
+
+    from repro_torch.figures import churn, common, kernel_sweep, timeline
+    from repro_torch.figures.__main__ import SUITES
+
+    t0 = time.time()
+    rp = reference_plan_script()
+    with open(REFERENCE_PLANS) as f:
+        ref = json.load(f)
+    with open(os.path.join(ROOT, "results", "benchmarks.json")) as f:
+        recorded = json.load(f)
+    tmp = tempfile.mkdtemp(prefix="suites-")
+    results_path = os.path.join(tmp, "figures_torch.json")
+    ran = []
+    run_plan = common.run_plan
+
+    def recording(plan, **kw):
+        pr = run_plan(plan, **kw)
+        ran.append(pr)
+        return pr
+
+    def suite(name, fn):
+        """(BenchResult, seconds, counts, plan results) of one suite."""
+        ran.clear()
+        r, seconds, counts = counted(kern, lambda: common.timed(name, fn))
+        return r, seconds, counts, list(ran)
+
+    def check_route(name, counts, prs, oracle_ticks=0):
+        want = dict(netsim_chunk=sum(pr.n_compile_groups
+                                     * n_chunks_run(pr.results[0].cfg)
+                                     for pr in prs),
+                    mltcp_step=oracle_ticks, fallbacks=0, chunk_fallbacks=0)
+        if counts != want:
+            raise AssertionError(f"suite {name}: launches and fallbacks "
+                                 f"{counts}, expected {want}")
+        return want
+
+    def check_health(name, health):
+        bad = {k: health[k] for k in SUITE_HEALTH_ZERO if health[k]}
+        if bad:
+            raise AssertionError(f"suite {name}: _health {bad}")
+
+    out, summary = {}, {}
+    timelines_dir = timeline.TIMELINES_DIR
+    common.run_plan = recording
+    timeline.TIMELINES_DIR = os.path.join(tmp, "timelines")
+    try:
+        with environment(**SUITE_SMOKE), \
+                common.at_depth(**common.depth(full=False, smoke=True)):
+            for name, fn in SUITES:
+                if name == "churn_gauntlet":
+                    continue
+                r, seconds, counts, prs = suite(name, fn)
+                common.merge_results({name: {**r.derived,
+                                             "_health": r.health}},
+                                     results_path)
+                print(r.csv_line(), flush=True)
+                oracle = 0
+                if name == "kernel_sweep":
+                    plan = kernel_sweep._plan(False, (2, 3))
+                    cfg = plan.build(plan.points()[0])
+                    oracle = 2 * ticks_run(cfg)     # warm-up + timed
+                    if r.derived["interpret"] or r.derived["kernel_fallbacks"]:
+                        raise AssertionError(f"kernel_sweep: {r.derived}")
+                want = check_route(name, counts, prs, oracle)
+                check_health(name, r.health)
+                row = dict(csv=r.csv_line(), seconds=seconds,
+                           suite_wall_s=r.wall_s, n_ticks=r.n_ticks,
+                           us_per_tick=1e6 * r.wall_s / max(r.n_ticks, 1),
+                           groups=[pr.n_compile_groups for pr in prs],
+                           launches=counts, expected=want, health=r.health)
+                if name in recorded:
+                    if key_tree(r.derived) != key_tree(recorded[name]):
+                        raise AssertionError(
+                            f"suite {name}: keys {key_tree(r.derived)}, the "
+                            f"reference's {key_tree(recorded[name])}")
+                    row["keys_equal_recorded"] = True
+                if name == "fig14_circular_dependency":
+                    want_cas = ref["plans"]["fig14"]["cassini_has_schedule"]
+                    if r.derived["cassini_has_schedule"] != want_cas:
+                        raise AssertionError("fig14: cassini_has_schedule "
+                                             f"{r.derived} != {want_cas}")
+                row["tier_b"] = {plan: tier_b(plan, cells, ref, (1,),
+                                              metrics)
+                                 for plan, cells, metrics
+                                 in suite_cells(name, r.derived)}
+                row["derived"] = r.derived
+                out[name] = row
+                summary[name] = dict(seconds=seconds,
+                                     us_per_tick=row["us_per_tick"],
+                                     groups=sum(row["groups"]),
+                                     launches=counts["netsim_chunk"],
+                                     oracle_launches=counts["mltcp_step"])
+            # the churn suite at the reference's verdict seeds: all three
+            # algorithms raise Reno's bound, as the reference does
+            with common.at_depth(SEEDS=CHURN_SUITE_SEEDS):
+                ran.clear()
+                t_all = time.time()
+                try:
+                    counted(kern, lambda: common.timed("churn_gauntlet",
+                                                       churn.run))
+                except AssertionError as exc:
+                    raised = str(exc)
+                    all_seconds = time.time() - t_all
+                else:
+                    raise AssertionError("churn.run() held every assertion; "
+                                         "the reference fails Reno's "
+                                         "re-interleave bound")
+                (pr,) = ran
+                # the counts `counted` set to 0 before the run that raised
+                all_launches = check_route(
+                    "churn_gauntlet (all algorithms)", dict(
+                        netsim_chunk=kern["nc"].LAUNCH_COUNT,
+                        mltcp_step=kern["ms"].LAUNCH_COUNT,
+                        fallbacks=kern["ops"].FALLBACK_COUNT,
+                        chunk_fallbacks=kern["ops"].CHUNK_FALLBACK_COUNT),
+                    ran)
+                claims = churn_claims(rp.churn_cells(netsim, pr))
+                ref_claims = churn_claims(ref["plans"]["churn"]["cells"])
+                unshared = {cell: bad for cell, c in claims.items()
+                            if (bad := unshared_failures(c,
+                                                         ref_claims[cell]))}
+                first = claims["reno/gauntlet"]["failed"]
+                if (unshared or not first or first[0]["kind"]
+                        != "reinterleave" or raised != first[0]["msg"]):
+                    raise AssertionError(
+                        f"churn.run() raised {raised!r}; the port's "
+                        f"failures not shared with the reference: "
+                        f"{unshared}; reno/gauntlet: {first}")
+                r, seconds, counts, prs = suite(
+                    "churn_gauntlet",
+                    lambda: churn.run(algos=("cubic", "dcqcn")))
+                common.merge_results({"churn_gauntlet": {
+                    **r.derived, "_health": r.health}}, results_path)
+                print(r.csv_line(), flush=True)
+                want = check_route("churn_gauntlet", counts, prs)
+                check_health("churn_gauntlet", r.health)
+                out["churn_gauntlet"] = dict(
+                    raised=raised, all_algorithms=dict(
+                        seconds=all_seconds, groups=pr.n_compile_groups,
+                        launches=all_launches),
+                    csv=r.csv_line(), seconds=seconds,
+                    suite_wall_s=r.wall_s, n_ticks=r.n_ticks,
+                    us_per_tick=1e6 * r.wall_s / max(r.n_ticks, 1),
+                    groups=[p.n_compile_groups for p in prs],
+                    launches=counts, expected=want, health=r.health,
+                    values=churn_values(r.derived, ref), derived=r.derived)
+                summary["churn_gauntlet"] = dict(
+                    seconds=seconds,
+                    us_per_tick=out["churn_gauntlet"]["us_per_tick"],
+                    groups=sum(out["churn_gauntlet"]["groups"]),
+                    launches=counts["netsim_chunk"])
+        with open(results_path) as f:
+            merged = sorted(json.load(f))
+    finally:
+        common.run_plan = run_plan
+        timeline.TIMELINES_DIR = timelines_dir
+        shutil.rmtree(tmp, ignore_errors=True)
+    if merged != sorted(name for name, _ in SUITES):
+        raise AssertionError(f"merged suites {merged}")
+    out["summary"] = summary
+    out["outside_tolerance"] = [
+        dict(suite=name, plan=plan, **o) for name, row in out.items()
+        if "tier_b" in row for plan, tb in row["tier_b"].items()
+        for o in tb["outside"]] + [
+        dict(suite="churn_gauntlet", **o)
+        for o in out["churn_gauntlet"]["values"]["outside"]]
+    out["seconds"] = time.time() - t0
+    emit("suites", **out)
     return out
 
 
@@ -3959,7 +4260,7 @@ def armed_attributes(nc, netsim, core, workload) -> dict:
     fig5 = dataclasses.replace(
         fig7_cfg(core, netsim, workload, "reno", 1, FIG5_SIM_TIME),
         telemetry=suites.fig5_spec(FIG5_SIM_TIME))
-    churn = suites.churn_plan(CHURN_SIM_TIME, CHURN_SEEDS).build(
+    churn_cfg = suites.churn_plan(None, CHURN_SEEDS).build(
         dict(algo="reno", variant="WI", schedule="gauntlet", seed=1))
     return dict(specializations=out,
                 registers_range=[min(x["registers"] for x in out.values()),
@@ -3967,7 +4268,7 @@ def armed_attributes(nc, netsim, core, workload) -> dict:
                 spilling={k: x["local_bytes"] for k, x in out.items()
                           if x["local_bytes"]},
                 smem_bytes={"fig5": nc.smem_bytes(**nc.shape_of(fig5)),
-                            "churn": nc.smem_bytes(**nc.shape_of(churn))})
+                            "churn": nc.smem_bytes(**nc.shape_of(churn_cfg))})
 
 
 def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
@@ -4145,7 +4446,7 @@ def check_kernel_table(table: list) -> None:
 
 
 PROBES = ("flash_attention", "rg_lru")
-ONLY = ("dryrun",)
+ONLY = ("dryrun", "suites")
 
 
 def write_results(path, t_start: float) -> None:
@@ -4166,7 +4467,9 @@ def main(argv=None) -> int:
     ap.add_argument("--probe-flash", nargs="*", metavar="SOURCE",
                     help="the same as --probe flash_attention SOURCE ...")
     ap.add_argument("--only", choices=ONLY,
-                    help="build the LM kernels and run only this phase")
+                    help="build the kernels this phase runs (dryrun: the LM "
+                         "kernels; suites: the simulator's) and run only "
+                         "this phase")
     args = ap.parse_args(argv)
     probe = args.probe
     if args.probe_flash is not None:
@@ -4201,9 +4504,14 @@ def main(argv=None) -> int:
             probe_rg_lru(rl, ref, probe[1:])
         write_results(args.out, t_start)
         return 0
-    if args.only:
+    if args.only == "dryrun":
         phase_device([fa.LIBRARY, rl.LIBRARY])
         phase_dryrun(fa, rl)
+        write_results(args.out, t_start)
+        return 0
+    if args.only == "suites":
+        phase_device([ms.LIBRARY, nc.LIBRARY])
+        phase_suites(sim_kernels, core, netsim, workload)
         write_results(args.out, t_start)
         return 0
     dev = phase_device([ms.LIBRARY, nc.LIBRARY, fa.LIBRARY, rl.LIBRARY])
@@ -4216,6 +4524,7 @@ def main(argv=None) -> int:
     prof = phase_profile(sim_kernels, core, netsim, workload)
     plans = phase_plans(sim_kernels, core, netsim, workload)
     figures = phase_figures(sim_kernels, core, netsim, workload)
+    phase_suites(sim_kernels, core, netsim, workload)
     tel = phase_telemetry(sim_kernels, core, netsim, workload)
     flt = phase_faults(sim_kernels, core, netsim, workload)
     phase_analysis(sim_kernels)

@@ -64,7 +64,7 @@ __all__ = ["lint_paths", "lint_sources", "DEFAULT_SCAN_DIRS", "LOOP_ROOTS",
 
 # Packages whose sources the default lint run scans, under src/.
 DEFAULT_SCAN_DIRS = ("repro_torch/core", "repro_torch/netsim",
-                     "repro_torch/kernels")
+                     "repro_torch/kernels", "repro_torch/figures")
 # The CUDA sources the lexical rule scans, under src/.
 CU_DIR = "repro_torch/kernels/csrc"
 
@@ -788,8 +788,8 @@ def lint_sources(sources: dict, loop_roots=()) -> tuple[list[Finding], dict]:
 
 
 def lint_paths(paths=None) -> tuple[list[Finding], dict]:
-    """Lint the port's sources (default: its core, netsim and kernels
-    packages) and the kernels' CUDA sources, from `LOOP_ROOTS`."""
+    """Lint the port's sources (default: its core, netsim, kernels and
+    figures packages) and the kernels' CUDA sources, from `LOOP_ROOTS`."""
     src_root = Path(__file__).resolve().parents[2]
     if paths is None:
         paths = [src_root / d for d in DEFAULT_SCAN_DIRS]

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of the reference package.
 
-A fresh interpreter whose import hook refuses ``jax``, ``jaxlib`` and
-``repro`` imports every ``repro_torch`` module and ``chip_smoke``, then
+A fresh interpreter whose import hook refuses ``jax``, ``jaxlib``,
+``repro`` and the reference's ``benchmarks`` imports every ``repro_torch``
+module and ``chip_smoke``, then
 runs a 200-tick simulation, the smoke-preset serve of recurrentgemma-2b, a
 2-step smoke-preset training run and one cluster profile on the CPU.
 """
@@ -14,7 +15,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r'''
 import importlib, importlib.abc, pkgutil, sys
 
-REFUSED = ("jax", "jaxlib", "repro")
+REFUSED = ("jax", "jaxlib", "repro", "benchmarks")
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
