@@ -15,9 +15,11 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   plain PyTorch version for every specialization, holds the chunk kernel
   (a whole chunk of fabric ticks per launch) bit for bit against the
   per-tick path on every output leaf for each algorithm, variant and
-  engine option at the paper's widths, and its armed specializations
-  (every telemetry probe and detector, all four fault channels) on every
-  leaf, the telemetry state's included, drives the simulator's main path
+  engine option at the paper's widths, and its armed kernel (one per
+  algorithm and ARMED; every telemetry probe and detector, all four fault
+  channels) on every leaf, the telemetry state's included, on each CC
+  specialization (every algorithm under WI, MD and BOTH, per-flow
+  statistics, Static factors), drives the simulator's main path
   through the chunk kernel at full width (the paper's Fig. 7-9 convergence
   setup: two GPT-2 jobs on a 50 Gbps dumbbell, Reno OFF and WI, a two-seed
   sweep each, the suite's 1.5 s of simulated time), checks the figure
@@ -70,7 +72,9 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   through ``run_plan`` and the armed chunk kernel, each counted, held to
   its suite's assertions and beside the reference's numbers; the
   sketch's ``logf`` against ``torch.log`` on every float32 in its range;
-  fig7-reno armed and unarmed in turns;
+  fig7-reno armed and unarmed in turns; fig 17's plan (WI against MD) and
+  fig 13's (Static factors) armed with the fig 5 spec, each bit for bit
+  on every non-telemetry leaf against its unarmed run;
 * the static verifier: ``repro_torch.analysis``'s gate over its five CI
   plans (fig 12, fig 13, fig 5 armed and unarmed, kernel_sweep, churn:
   ``analysis/plans.py``, whence the fig 12, fig 5 and churn phases take
@@ -116,6 +120,11 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   and an olmo-1b job, DCQCN, default against MLTCP, 4 s), then a mix with
   a MoE job (deepseek-moe-16b's two-burst dp+ep profile beside two
   qwen3-1.7b jobs), each through ``run_plan`` and the chunk kernel.
+* the examples (``repro_torch.examples``), each as ``python -m
+  repro_torch.examples.<name>`` runs it at its defaults: interleave_demo
+  (the armed chunk kernel), simulate_cluster, serve_lm on
+  recurrentgemma-2b (flash and RG-LRU) and quickstart (xlstm-125m, no
+  kernel; its loss assertion), each counted, its lines printed.
 
 * the one-card dry run (``dryrun``): every (architecture x shape) cell of
   ``repro_torch.launch.dryrun`` counted on the meta device (32 counted, 8
@@ -178,16 +187,18 @@ PER_TICK_FIG7 = dict(OFF_interleave=0.7506, WI_interleave=0.2101,
 SPEC_SIM_TIME = 0.15
 AGREE_SIM_TIME = 0.06
 # depth and workload scale of each chunk-vs-per-tick case (the per-tick
-# side sets its cost)
-CHUNK_CASE_SIM_TIME = 0.06
+# side sets its cost: ~3-8 ms a tick on the card's host)
+CHUNK_CASE_SIM_TIME = 0.03
 CHUNK_CASE_SCALE = 0.25
-# depth of the armed kernel's cases (telemetry and faults armed: the
-# per-tick side costs more a tick)
-ARMED_CASE_SIM_TIME = 0.03
+# depth and workload scale of the armed kernel's cases (telemetry and
+# faults armed: the per-tick side costs more a tick), half the others'
+# work an iteration so that a case still completes iterations
+ARMED_CASE_SIM_TIME = 0.02
+ARMED_CASE_SCALE = 0.125
 # the paper's F families (core/aggressiveness.py), which the CC kernels
 # compute from the launch's F id, and the depth of their chunk cases
 F_FAMILIES = ("F1", "F2", "F3", "F4", "F5", "F6")
-F_CASE_SIM_TIME = 0.04
+F_CASE_SIM_TIME = 0.03
 SEEDS = (1, 2)
 # paper §4.1 (slope, intercept) and RED/ECN thresholds, benchmarks/common.py
 PARAMS = {"reno": (1.75, 0.25), "cubic": (1.0, 0.5), "dcqcn": (1.067, 0.267)}
@@ -214,9 +225,14 @@ BARRIER_CYCLES = 20
 UNARMED_FIG7_REGISTERS = 119
 
 RESULTS: dict = {}
+# the script's start, which each phase's ``at_s`` counts from
+STARTED = time.time()
 
 
 def emit(phase: str, **fields) -> None:
+    """Record a phase's fields, with the seconds since the script started
+    when it ended (``at_s``), and print them as one JSON line."""
+    fields["at_s"] = time.time() - STARTED
     RESULTS[phase] = fields
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -743,11 +759,15 @@ def armed_cases(core, netsim, workload, sim_time: float) -> list:
     built-in probe, the three detectors and all four fault channels; point
     0 under a schedule that departs and re-admits the last job, flaps the
     bottleneck, blackholes flow 0 and bursts the straggle probability,
-    point 1 under the identity schedule.  Then the specializations the two
-    plan phases run, at their widths (`timeline.SOCKETS`: DCQCN one socket
-    a job), OFF and WI: the fig 5 plan's (telemetry alone, `fig5_spec`) and
-    the churn gauntlet's (`churn.telemetry_spec`, `churn.SPEC`, the 100 Gbps
-    3-job dumbbell, point 0 under the gauntlet schedule, point 1 under the
+    point 1 under the identity schedule.  The same at the fig 7 width on
+    the CC selections the armed kernel takes as launch dims: each
+    algorithm under MD and under BOTH, Reno and DCQCN with per-flow
+    statistics, each algorithm with Static factors beside the adaptive
+    sentinel (-1).  Then the specializations the two plan phases run, at
+    their widths (`timeline.SOCKETS`: DCQCN one socket a job), OFF and
+    WI: the fig 5 plan's (telemetry alone, `fig5_spec`) and the churn
+    gauntlet's (`churn.telemetry_spec`, `churn.SPEC`, the 100 Gbps 3-job
+    dumbbell, point 0 under the gauntlet schedule, point 1 under the
     staggered one)."""
     import numpy as np
 
@@ -759,32 +779,44 @@ def armed_cases(core, netsim, workload, sim_time: float) -> list:
                                 detectors=telemetry.DETECTORS)
     faults = netsim.FaultSpec(n_events=10, churn=True, link_flaps=True,
                               blackholes=True, straggle_bursts=True)
-    out = []
-    for algo in ("reno", "cubic", "dcqcn"):
-        for n_jobs in (2, 3):
-            cfg = fig7_cfg(core, netsim, workload, algo, 1, sim_time,
-                           topo=netsim.dumbbell(n_jobs, sockets_per_job=2),
-                           models=("gpt2",) * n_jobs, scale=CHUNK_CASE_SCALE,
-                           telemetry=spec, faults=faults)
-            t = sim_time
-            sched = netsim.fault_schedule(cfg, [
-                netsim.job_departs(0.2 * t, n_jobs - 1),
-                netsim.job_arrives(0.45 * t, n_jobs - 1),
-                netsim.link_flap(0.3 * t, 0.6 * t, 0, 0.5),
-                netsim.blackhole(0.1 * t, 0.35 * t, [0]),
-                netsim.straggle_burst(0.05 * t, 0.7 * t, 0.5)], spec=faults)
-            ident = netsim.identity_schedule(cfg, faults)
-            out.append((f"{algo}_wi_armed_{n_jobs}jobs", cfg, dict(
-                seed=list(SEEDS),
-                **{f: np.stack([sched.values[f], ident.values[f]])
-                   for f in sched.values})))
+
+    def fully_armed(name, algo, variant, n_jobs, proto_kw=None, **kw):
+        cfg = fig7_cfg(core, netsim, workload, algo, variant, sim_time,
+                       topo=netsim.dumbbell(n_jobs, sockets_per_job=2),
+                       models=("gpt2",) * n_jobs, scale=ARMED_CASE_SCALE,
+                       proto_kw=proto_kw, telemetry=spec, faults=faults,
+                       **kw)
+        t = sim_time
+        sched = netsim.fault_schedule(cfg, [
+            netsim.job_departs(0.2 * t, n_jobs - 1),
+            netsim.job_arrives(0.45 * t, n_jobs - 1),
+            netsim.link_flap(0.3 * t, 0.6 * t, 0, 0.5),
+            netsim.blackhole(0.1 * t, 0.35 * t, [0]),
+            netsim.straggle_burst(0.05 * t, 0.7 * t, 0.5)], spec=faults)
+        ident = netsim.identity_schedule(cfg, faults)
+        return (name, cfg, dict(
+            seed=list(SEEDS),
+            **{f: np.stack([sched.values[f], ident.values[f]])
+               for f in sched.values}))
+
+    out = [fully_armed(f"{algo}_wi_armed_{n_jobs}jobs", algo, 1, n_jobs)
+           for algo in ("reno", "cubic", "dcqcn") for n_jobs in (2, 3)]
+    out += [fully_armed(f"{algo}_{name}_armed", algo, variant, 2)
+            for algo in ("reno", "cubic", "dcqcn")
+            for name, variant in (("md", 2), ("both", 3))]
+    out += [fully_armed(f"{algo}_wi_per_flow_armed", algo, 1, 2,
+                        proto_kw=dict(aggregate_by_job=False))
+            for algo in ("reno", "dcqcn")]
+    out += [fully_armed(f"{algo}_wi_static_armed", algo, 1, 2,
+                        static_job_factors=np.asarray([1.3, -1.0]))
+            for algo in ("reno", "cubic", "dcqcn")]
     churn_faults = churn.SPEC
     for algo, sockets in timeline.SOCKETS.items():
         for variant in VARIANT:
             cfg = fig7_cfg(core, netsim, workload, algo, VARIANT[variant],
                            sim_time, topo=netsim.dumbbell(
                                2, sockets_per_job=sockets),
-                           scale=CHUNK_CASE_SCALE,
+                           scale=ARMED_CASE_SCALE,
                            telemetry=suites.fig5_spec(FIG5_SIM_TIME))
             out.append((f"{algo}_{variant.lower()}_fig5", cfg,
                         dict(seed=list(SEEDS))))
@@ -793,7 +825,7 @@ def armed_cases(core, netsim, workload, sim_time: float) -> list:
                                churn.N_JOBS, sockets_per_job=sockets,
                                cap_gbps=churn.CAP_GBPS),
                            models=("gpt2",) * churn.N_JOBS,
-                           scale=CHUNK_CASE_SCALE,
+                           scale=ARMED_CASE_SCALE,
                            telemetry=churn.telemetry_spec(),
                            faults=churn_faults)
             scheds = [netsim.fault_schedule(
@@ -1406,15 +1438,23 @@ def padded_vs_alone(kern, netsim, plan, n_jobs: int) -> dict:
 
 
 def same_results(a, b) -> bool:
+    """Every point of two plan results has the same axes and, bit for bit,
+    the same value of every leaf but the telemetry: the iteration times,
+    the drop and mark rates and the chunk traces."""
     import numpy as np
 
-    return all(
+    def same(p, q):
+        p, q = np.asarray(p), np.asarray(q)
+        return p.dtype == q.dtype and p.shape == q.shape and \
+            p.tobytes() == q.tobytes()
+    return len(a) == len(b) and all(
         x.point.axes == y.point.axes
-        and all(np.array_equal(p, q) for p, q in zip(x.iter_times,
-                                                     y.iter_times))
-        and all(np.array_equal(getattr(x, f), getattr(y, f))
-                for f in ("trace_t", "trace_util", "trace_incomm",
-                          "trace_drops", "trace_jobtput"))
+        and len(x.iter_times) == len(y.iter_times)
+        and all(same(p, q) for p, q in zip(x.iter_times, y.iter_times))
+        and all(same(getattr(x, f), getattr(y, f))
+                for f in ("drops_per_s", "marks_per_s", "trace_t",
+                          "trace_util", "trace_incomm", "trace_drops",
+                          "trace_jobtput"))
         for x, y in zip(a, b))
 
 
@@ -1955,6 +1995,54 @@ def phase_faults(kern, core, netsim, workload) -> dict:
                tier_b=tier_b("churn", cells, ref, CHURN_SEEDS,
                              CHURN_METRICS))
     emit("faults", **out)
+    return out
+
+
+# the figure plans whose CC specializations the armed kernel took only as
+# launch dims: fig 17 (Reno and CUBIC x OFF / WI / MD) and fig 13 (Static
+# factors against MLQCN on DCQCN)
+ARMED_PLANS = ("fig17", "fig13")
+
+
+def phase_armed_plans(kern, netsim) -> dict:
+    """Fig 17's and fig 13's plans (`analysis.plans.FIGURES`) at the
+    figures phase's depth through `run_plan` on the card, unarmed and then
+    with the fig 5 spec armed, each counted: the plan lint's groups, one
+    launch a chunk, no per-tick launch and no fallback, and every
+    non-telemetry leaf of every point of the armed run bitwise equal to
+    the unarmed run's (arming changes nothing); µs per tick of both."""
+    from repro_torch.analysis import plans as suites
+
+    spec = suites.fig5_spec(FIGURE_SIM_TIME)
+    with open(REFERENCE_PLANS) as f:
+        ref = json.load(f)
+    out = {}
+    for name in ARMED_PLANS:
+        plan = suites.FIGURES[name](FIGURE_SIM_TIME, FIGURE_SEEDS)
+        idle = ref["plans"].get(name, {}).get("idle_jobs", ())
+        runs, row = {}, {}
+        for arm, tel in (("unarmed", None), ("armed", spec)):
+            predicted = predicted_groups(plan, tel)
+            pr, seconds, counts = counted(kern, lambda: netsim.run_plan(
+                plan, device=DEVICE, telemetry=tel))
+            info = check_plan(pr, counts, predicted, idle)
+            check_prediction(f"{name} {arm}", predicted, pr.n_compile_groups)
+            if (tel is None) != all(r.telemetry is None for r in pr):
+                raise AssertionError(f"{name} {arm}: telemetry on the "
+                                     f"results does not match the run")
+            runs[arm] = pr
+            row[arm] = dict(seconds=seconds,
+                            us_per_tick=1e6 * seconds / info["ticks"],
+                            groups_predicted=predicted, **info)
+        if not same_results(runs["unarmed"].results, runs["armed"].results):
+            raise AssertionError(f"{name}: arming telemetry changed a "
+                                 f"non-telemetry leaf")
+        row.update(bitwise_unarmed=True, armed_over_unarmed=(
+            row["armed"]["us_per_tick"] / row["unarmed"]["us_per_tick"]))
+        out[name] = row
+    emit("armed_plans", sim_time=FIGURE_SIM_TIME, seeds=FIGURE_SEEDS,
+         spec=dict(probes=list(spec.probes), stride=spec.stride,
+                   detectors=list(spec.detectors)), **out)
     return out
 
 
@@ -3861,6 +3949,113 @@ def phase_cluster(kern) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the examples (repro_torch.examples), each as a user runs it
+# ---------------------------------------------------------------------------
+
+# (module, argv): each at its defaults, serve_lm for the model with both
+# language-model kernels
+EXAMPLES = (("interleave_demo", ()), ("simulate_cluster", ()),
+            ("serve_lm", ("--arch", "recurrentgemma-2b")), ("quickstart", ()))
+
+
+def run_example(kern, fa, rl, name: str, argv) -> tuple:
+    """``repro_torch.examples.<name>.main(argv)`` on the card with every
+    kernel's launches and the fallbacks counted from 0, timed on the host
+    clock around a synchronized run, its printed lines captured and
+    printed; returns (main's result, the row)."""
+    import importlib
+    import io
+
+    import torch
+
+    module = importlib.import_module(f"repro_torch.examples.{name}")
+    ms, nc, ops = kern["ms"], kern["nc"], kern["ops"]
+    torch.cuda.synchronize()
+    ms.LAUNCH_COUNT = nc.LAUNCH_COUNT = fa.LAUNCH_COUNT = rl.LAUNCH_COUNT = 0
+    ops.FALLBACK_COUNT = ops.CHUNK_FALLBACK_COUNT = 0
+    buf = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = module.main(list(argv))
+        torch.cuda.synchronize()
+    finally:
+        print(buf.getvalue(), end="", flush=True)
+    seconds = time.time() - t0
+    launches = dict(netsim_chunk=nc.LAUNCH_COUNT, mltcp_step=ms.LAUNCH_COUNT,
+                    flash_attention=fa.LAUNCH_COUNT, rg_lru=rl.LAUNCH_COUNT,
+                    fallbacks=ops.FALLBACK_COUNT + ops.CHUNK_FALLBACK_COUNT)
+    return out, dict(argv=list(argv), seconds=seconds, launches=launches,
+                     lines=buf.getvalue().splitlines())
+
+
+def phase_examples(kern, fa, rl) -> dict:
+    """The four examples' ``main`` on the card, each counted alone:
+    interleave_demo (the armed chunk kernel, one launch a chunk of each
+    scheme, no fallback, a finite time to interleave for MLTCP),
+    simulate_cluster (one launch a chunk of each scheme, finite values),
+    serve_lm on recurrentgemma-2b (one flash launch per attention block
+    and one RG-LRU launch per recurrent block of the prefill, decode on
+    the plain path) and quickstart (its own assertion that the loss
+    dropped; xLSTM launches none of the kernels); nothing else launched."""
+    from repro_torch.cluster.runner import shared_cluster_plan
+    from repro_torch.examples import interleave_demo, simulate_cluster
+
+    none = dict(netsim_chunk=0, mltcp_step=0, flash_attention=0, rg_lru=0,
+                fallbacks=0)
+    t0 = time.time()
+    out = {}
+    for name, argv in EXAMPLES:
+        res, row = run_example(kern, fa, rl, name, argv)
+        if name == "interleave_demo":
+            cfg = interleave_demo.make_plan(interleave_demo.SIM_TIME).build(
+                {"scheme": "mltcp"})
+            want = dict(none, netsim_chunk=2 * n_chunks_run(cfg))
+            if not (math.isfinite(res["tti_s"])
+                    and math.isfinite(res["tti_iters"])):
+                raise AssertionError(f"interleave_demo: MLTCP did not "
+                                     f"interleave: {res}")
+            row.update(res, ticks=ticks_run(cfg))
+        elif name == "simulate_cluster":
+            cfg = shared_cluster_plan(
+                simulate_cluster.JOBS,
+                sim_time=simulate_cluster.SIM_TIME).build(
+                    {"scheme": "mltcp"})
+            want = dict(none, netsim_chunk=2 * n_chunks_run(cfg))
+            values = (res.baseline_avg + res.mltcp_avg
+                      + [res.avg_speedup, res.p99_speedup,
+                         res.interleave_before, res.interleave_after])
+            if not all(map(math.isfinite, values)):
+                raise AssertionError(f"simulate_cluster: values {values}")
+            row.update(avg_speedup=res.avg_speedup,
+                       p99_speedup=res.p99_speedup,
+                       interleave=[res.interleave_before,
+                                   res.interleave_after],
+                       ticks=ticks_run(cfg))
+        elif name == "serve_lm":
+            kinds = [blk.kind for blk in res["model"].layers]
+            want = dict(none, flash_attention=kinds.count("attn")
+                        + kinds.count("attn_local"),
+                        rg_lru=kinds.count("rec"))
+            row.update(prefill_ms=1e3 * res["prefill_s"],
+                       decode_tok_per_s=res["decode_tok_per_s"],
+                       generated_shape=list(res["generated"].shape))
+        else:
+            want = none
+            row.update(steps=res["steps"], first_loss=res["first_loss"],
+                       last_loss=res["last_loss"],
+                       median_step_s=statistics.median(res["step_s"]),
+                       first_step_s=res["step_s"][0])
+        if row["launches"] != want:
+            raise AssertionError(f"{name}: launches {row['launches']}, "
+                                 f"expected {want}")
+        out[name] = row
+    out["seconds"] = time.time() - t0
+    emit("examples", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the one-card dry run and roofline (launch/dryrun.py, roofline/analysis.py)
 # ---------------------------------------------------------------------------
 
@@ -4246,27 +4441,30 @@ def phase_dryrun(fa, rl) -> dict:
 
 def armed_attributes(nc, netsim, core, workload) -> dict:
     """Registers, spills and static shared memory of each armed
-    specialization, and the dynamic shared memory of the armed plans'
-    points (the fig 5 and churn widths)."""
+    instantiation (one per algorithm and ARMED; the CC selections are its
+    launch dims), raising if one spills, and the dynamic shared memory of
+    the armed plans' points (the fig 5 and churn widths)."""
     import dataclasses
 
     from repro_torch.analysis import plans as suites
 
-    out = {}
-    for armed in (nc.ARM_TEL, nc.ARM_FAULTS, nc.ARM_TEL | nc.ARM_FAULTS):
-        for algo, variant, agg, fac in sorted(nc.ARMED_SPECIALIZATIONS):
-            out[f"armed{armed}_algo{algo}_var{variant}"] = \
-                nc.kernel_attributes(algo, variant, agg, fac, armed)
+    out = {f"armed{armed}_algo{algo}": nc.kernel_attributes(algo, 1, True,
+                                                            False, armed)
+           for armed in (nc.ARM_TEL, nc.ARM_FAULTS, nc.ARM_TEL | nc.ARM_FAULTS)
+           for algo in (0, 1, 2)}
+    spilling = {k: x["local_bytes"] for k, x in out.items()
+                if x["local_bytes"]}
+    if spilling:
+        raise AssertionError(f"armed chunk kernels spill: {spilling}")
     fig5 = dataclasses.replace(
         fig7_cfg(core, netsim, workload, "reno", 1, FIG5_SIM_TIME),
         telemetry=suites.fig5_spec(FIG5_SIM_TIME))
     churn_cfg = suites.churn_plan(None, CHURN_SEEDS).build(
         dict(algo="reno", variant="WI", schedule="gauntlet", seed=1))
-    return dict(specializations=out,
+    return dict(instantiations=out,
                 registers_range=[min(x["registers"] for x in out.values()),
                                  max(x["registers"] for x in out.values())],
-                spilling={k: x["local_bytes"] for k, x in out.items()
-                          if x["local_bytes"]},
+                spilling=spilling,
                 smem_bytes={"fig5": nc.smem_bytes(**nc.shape_of(fig5)),
                             "churn": nc.smem_bytes(**nc.shape_of(churn_cfg))})
 
@@ -4275,7 +4473,7 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
                  timing: dict, prof: dict, plans: dict, figures: dict,
                  lm: dict, served: dict, armed: dict, tel: dict, flt: dict,
                  trained: dict, families: dict, clustered: dict,
-                 dry: dict) -> list:
+                 dry: dict, armed_plans: dict, examples: dict) -> list:
     main_row = next(r for r in kern["main_shape"] if r["algo"] == 0)
     serve_attrs = lm["flash"]["attributes"]["float32_d256"]
     rg_attrs = lm["rg_lru"]["attributes"][
@@ -4324,10 +4522,18 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
         # the figures phase's plans, each counted on its own
         "figure_plan_launches": {name: row["launches"] for name, row in
                                  figures["summary"].items()},
-        # the armed kernel (telemetry and faults): its plans' launches, its
-        # specializations, and fig7-reno armed against unarmed
-        "armed_plan_launches": {"fig5": tel["launches"]["netsim_chunk"],
-                                "churn": flt["launches"]["netsim_chunk"]},
+        # the armed kernel (telemetry and faults): its plans' launches (fig
+        # 17 and fig 13 armed with the fig 5 spec too), its instantiations,
+        # and fig7-reno armed against unarmed
+        "armed_plan_launches": {
+            "fig5": tel["launches"]["netsim_chunk"],
+            "churn": flt["launches"]["netsim_chunk"],
+            **{name: armed_plans[name]["armed"]["launches"]["netsim_chunk"]
+               for name in ARMED_PLANS}},
+        # the examples that simulate (interleave_demo armed), each alone
+        "example_launches": {
+            name: examples[name]["launches"]["netsim_chunk"]
+            for name in ("interleave_demo", "simulate_cluster")},
         # the shared-cluster driver's run (default and MLTCP, 4 s each)
         "cluster_launches": clustered["launches"]["netsim_chunk"],
         "moe_cluster_launches":
@@ -4363,6 +4569,8 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": FLASH_REPLACES,
         "launches": served["launches"]["flash_attention"],
+        "serve_lm_example_launches":
+            examples["serve_lm"]["launches"]["flash_attention"],
         "max_abs_err": lm["flash_f32_max_abs_err"],
         "ms": lm["flash"]["ms"],
         "plain_ms": lm["flash"]["plain_ms"],
@@ -4401,6 +4609,8 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
         "source": "src/repro_torch/kernels/csrc/rg_lru.cu",
         "replaces": RGLRU_REPLACES,
         "launches": served["launches"]["rg_lru"],
+        "serve_lm_example_launches":
+            examples["serve_lm"]["launches"]["rg_lru"],
         "max_abs_err": lm["rg_lru"]["max_abs_err"],
         "ms": lm["rg_lru"]["ms"],
         "plain_ms": lm["rg_lru"]["plain_ms"],
@@ -4527,6 +4737,7 @@ def main(argv=None) -> int:
     phase_suites(sim_kernels, core, netsim, workload)
     tel = phase_telemetry(sim_kernels, core, netsim, workload)
     flt = phase_faults(sim_kernels, core, netsim, workload)
+    armed_plans = phase_armed_plans(sim_kernels, netsim)
     phase_analysis(sim_kernels)
     armed = armed_attributes(nc, netsim, core, workload)
     lm = phase_lm_kernels(fa, rl, ref)
@@ -4534,10 +4745,12 @@ def main(argv=None) -> int:
     trained = phase_train(fa, rl, ref, sim_kernels)
     families = phase_serve_families(fa, rl, sim_kernels)
     clustered = phase_cluster(sim_kernels)
+    examples = phase_examples(sim_kernels, fa, rl)
     dry = phase_dryrun(fa, rl)
     table = kernel_table(kern, main_path, states, chunks, timing, prof,
                          plans, figures, lm, served, armed, tel, flt,
-                         trained, families, clustered, dry)
+                         trained, families, clustered, dry, armed_plans,
+                         examples)
     check_kernel_table(table)
     RESULTS["kernels"] = table
     write_results(args.out, t_start)

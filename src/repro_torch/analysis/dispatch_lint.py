@@ -7,14 +7,11 @@ and host callbacks.  The port traces nothing: whether a run goes through
 the chunk kernel is decided once per run by `kernels.ops.netsim_chunk`, so
 this layer asks the same functions that decision asks, in the same order
 (`ops.chunk_fallback_reason`: `ops.fallback_reason`,
-`ops.custom_probe_reason`, `ops.check_armed_specialization`,
-`netsim_chunk.budget_reason`), and never re-states their logic:
+`ops.custom_probe_reason`, `netsim_chunk.budget_reason`), and never
+re-states their logic:
 
 * ``dispatch/kernel-fallback``: the card would take the counted per-tick
   path, with the reason;
-* ``dispatch/armed-unbuilt``: telemetry or faults armed on a CC
-  specialization the armed kernel is not built for, where the card raises;
-  the lint turns the exception into a finding;
 * ``dispatch/f64-operand``: a float64 tensor among the group's sweep
   leaves or its initial state (the counterpart of ``ir/f64-promotion``).
 
@@ -36,9 +33,7 @@ __all__ = ["kernel_expectation", "float64_leaves", "initial_state",
 
 def kernel_expectation(cfg, sweep) -> Union[str, tuple[str, str]]:
     """What the card runs for (cfg, sweep): ``"chunk"`` (the chunk kernel)
-    or ``("per-tick", reason)`` (the counted per-tick path).  Raises
-    ValueError, as the dispatch does, for telemetry or faults armed on a
-    specialization the armed kernel is not built for."""
+    or ``("per-tick", reason)`` (the counted per-tick path)."""
     from repro_torch.kernels import ops
 
     reason = ops.chunk_fallback_reason(cfg, sweep)
@@ -84,24 +79,19 @@ def lint_dispatch(cfg, sweep, *, label: str, state=None
     (built here on the CPU when None).
 
     Returns (findings, facts); facts = {"expectation": "chunk" |
-    "per-tick" | "unbuilt", "reason": str or None, "f64_operands": int}.
+    "per-tick", "reason": str or None, "f64_operands": int}.
     """
     findings: list[Finding] = []
     reason: Optional[str] = None
-    try:
-        exp = kernel_expectation(cfg, sweep)
-    except ValueError as e:
-        expectation, reason = "unbuilt", str(e)
-        findings.append(make_finding("dispatch/armed-unbuilt", label, reason))
+    exp = kernel_expectation(cfg, sweep)
+    if exp == "chunk":
+        expectation = "chunk"
     else:
-        if exp == "chunk":
-            expectation = "chunk"
-        else:
-            expectation, reason = exp
-            findings.append(make_finding(
-                "dispatch/kernel-fallback", label,
-                f"the card runs this group on the counted per-tick path: "
-                f"{reason}"))
+        expectation, reason = exp
+        findings.append(make_finding(
+            "dispatch/kernel-fallback", label,
+            f"the card runs this group on the counted per-tick path: "
+            f"{reason}"))
     if state is None:
         state = initial_state(cfg, sweep)[2]
     f64 = float64_leaves(sweep=sweep, state=state)

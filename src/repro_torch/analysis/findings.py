@@ -124,12 +124,6 @@ rule("dispatch/kernel-fallback", ERROR,
      "over the shared-memory budget down the per-tick loop; a plan that "
      "claims the chunk kernel then runs ~165 launches a tick instead of "
      "one a chunk, and its timings are void.")
-rule("dispatch/armed-unbuilt", ERROR,
-     "telemetry or faults armed on a CC specialization the armed kernel "
-     "is not built for",
-     "`ops.check_armed_specialization` raises on the card for such a "
-     "group, so the plan cannot run there at all; fix the configuration "
-     "or run it with device='cpu'.")
 rule("dispatch/f64-operand", ERROR,
      "float64 tensor among a group's sweep leaves or initial state",
      "the engine and the kernels are pinned bit for bit in float32; a "
@@ -183,9 +177,9 @@ rule("src/cu-double", ERROR,
 rule("kernel/unbuilt-specialization", ERROR,
      "(algo, variant, aggregate, factors, ARMED) is not a built "
      "specialization",
-     "the library instantiates the 48 unarmed CC specializations and, "
-     "armed, only `netsim_chunk.ARMED_SPECIALIZATIONS`; any other launch "
-     "is refused by the library's dispatch.")
+     "the library runs the 48 CC specializations unarmed and under each "
+     "ARMED (`kernel_lint.built_specializations`); any other launch is "
+     "refused by the library's dispatch.")
 rule("kernel/smem-budget", ERROR,
      "a point's shared memory exceeds the ceiling or the card's limit",
      "one CTA holds one point's whole state in shared memory; over "
@@ -293,7 +287,8 @@ REFERENCE_RULES: dict[str, str] = {
         "was the TPU kernel's shape, not this one's",
     "kernel/nested-control":
         "none: the chunk kernel loops over a chunk's ticks by design; its "
-        "specialization is template parameters, checked by "
+        "specialization is template parameters (the armed kernel's CC "
+        "selections are launch dims), checked by "
         "kernel/unbuilt-specialization",
     "kernel/vmem-budget": "kernel/smem-budget",
     "budget/drift": "budget/drift",

@@ -12,8 +12,8 @@ runs (`netsim_chunk.prepare`, `pack_state`, `engine.chunk_inputs`,
 `netsim_chunk.launch_arguments`):
 
 * the group's ``(algo, variant, aggregate, factors, ARMED)`` is a built
-  specialization: one of the 48 unarmed ones, or armed one of
-  `netsim_chunk.ARMED_SPECIALIZATIONS` (``kernel/unbuilt-specialization``);
+  specialization: one of the 48 CC specializations, unarmed or under any
+  ARMED (``kernel/unbuilt-specialization``);
 * a point's shared memory, ``smem_bytes(**shape_of(cfg))``, is under a
   configurable ceiling and under the card's ``SMEM_LIMIT``
   (``kernel/smem-budget``);
@@ -42,7 +42,7 @@ from repro_torch.analysis.findings import Finding, make_finding
 from repro_torch.core.cc.types import Algo, Variant
 from repro_torch.kernels import netsim_chunk as nc
 
-__all__ = ["DEFAULT_SMEM_CEILING_BYTES", "UNARMED_SPECIALIZATIONS",
+__all__ = ["DEFAULT_SMEM_CEILING_BYTES", "CC_SPECIALIZATIONS",
            "built_specializations", "specialization_of", "LaunchSetup",
            "launch_setup", "operand_contract", "lint_operands",
            "lint_kernel", "lint_library"]
@@ -53,21 +53,20 @@ __all__ = ["DEFAULT_SMEM_CEILING_BYTES", "UNARMED_SPECIALIZATIONS",
 # this long before the launch itself would be refused at SMEM_LIMIT.
 DEFAULT_SMEM_CEILING_BYTES = nc.SMEM_LIMIT // 2
 
-# The library's unarmed instantiations: every algorithm and variant, with
-# and without job-aggregated statistics and Static factors (48).
-UNARMED_SPECIALIZATIONS = frozenset(
+# The CC specializations: every algorithm and variant, with and without
+# job-aggregated statistics and Static factors (48).  The library
+# instantiates each unarmed; armed, one kernel per algorithm takes them
+# all as launch dims.
+CC_SPECIALIZATIONS = frozenset(
     (int(a), int(v), agg, fac) for a in Algo for v in Variant
     for agg in (False, True) for fac in (False, True))
 
 
 def built_specializations() -> frozenset:
     """Every (algo, variant, aggregate, factors, ARMED) the library
-    builds: the unarmed 48 at ARMED 0, `ARMED_SPECIALIZATIONS` at each of
-    ARMED 1, 2 and 3."""
-    armed = (nc.ARM_TEL, nc.ARM_FAULTS, nc.ARM_TEL | nc.ARM_FAULTS)
-    return frozenset(
-        {s + (0,) for s in UNARMED_SPECIALIZATIONS}
-        | {s + (a,) for s in nc.ARMED_SPECIALIZATIONS for a in armed})
+    runs: the 48 CC specializations at each ARMED, 0 (unarmed) to 3."""
+    armed = (0, nc.ARM_TEL, nc.ARM_FAULTS, nc.ARM_TEL | nc.ARM_FAULTS)
+    return frozenset(s + (a,) for s in CC_SPECIALIZATIONS for a in armed)
 
 
 def specialization_of(cfg, sweep) -> tuple:

@@ -64,7 +64,8 @@ __all__ = ["lint_paths", "lint_sources", "DEFAULT_SCAN_DIRS", "LOOP_ROOTS",
 
 # Packages whose sources the default lint run scans, under src/.
 DEFAULT_SCAN_DIRS = ("repro_torch/core", "repro_torch/netsim",
-                     "repro_torch/kernels", "repro_torch/figures")
+                     "repro_torch/kernels", "repro_torch/figures",
+                     "repro_torch/examples")
 # The CUDA sources the lexical rule scans, under src/.
 CU_DIR = "repro_torch/kernels/csrc"
 

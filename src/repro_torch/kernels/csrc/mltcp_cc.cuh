@@ -41,6 +41,10 @@ struct Consts {
 
 constexpr int ALGO_RENO = 0, ALGO_CUBIC = 1, ALGO_DCQCN = 2;
 constexpr int VAR_OFF = 0, VAR_WI = 1, VAR_MD = 2, VAR_BOTH = 3;
+// The VARIANT of a specialization whose variant, job aggregation and
+// Static factors are the launch's (`Dyn`) rather than template arguments:
+// the armed chunk kernel's.
+constexpr int VAR_LAUNCH = -1;
 
 // torch's CUDA min/max/clamp: NaN in, NaN out
 __device__ __forceinline__ float clamp_min_f(float v, float lo) {
@@ -93,12 +97,31 @@ struct Signals {
   float factor;       // Static factor (read when FACTORS)
 };
 
-// A sweep point's protocol scalars, the DynamicParams field order, and the
-// launch's F family (F_IDS of mltcp_step.py: 0 the linear F, 1..6 F1..F6).
+// A sweep point's protocol scalars, the DynamicParams field order, the
+// launch's F family (F_IDS of mltcp_step.py: 0 the linear F, 1..6 F1..F6)
+// and the launch's CC selections, read where VARIANT is VAR_LAUNCH.
 struct Dyn {
   float slope, intercept, g, gamma, init_gap;
   int f_id;
+  int variant;
+  bool aggregate, factors;
 };
+
+// The variant, job aggregation and Static factors a specialization runs:
+// its template arguments, or, where VARIANT is VAR_LAUNCH, the launch's
+// (uniform across it).  They only select operands, so the arithmetic and
+// its order are the same either way; in every other specialization they
+// are constants and fold away.
+struct Selects {
+  int variant;
+  bool agg, fac;
+};
+template <int VARIANT, bool AGG, bool FACTORS>
+__device__ __forceinline__ Selects selects(int variant, bool aggregate,
+                                           bool factors) {
+  if (VARIANT == VAR_LAUNCH) return Selects{variant, aggregate, factors};
+  return Selects{VARIANT, AGG, FACTORS};
+}
 
 // F(x) of the F family `f_id` (uniform across the launch): the linear
 // slope*x + intercept, or the paper's F1..F6 as
@@ -125,6 +148,8 @@ template <int ALGO, int VARIANT, bool AGG, bool FACTORS>
 __device__ __forceinline__ bool cc_update(Flow& s, const Signals& x,
                                           const Dyn& d, float now,
                                           const Consts& c) {
+  const Selects sel =
+      selects<VARIANT, AGG, FACTORS>(d.variant, d.aggregate, d.factors);
   const float acks = x.acks;
   const bool has_ack = acks > 0.0f;
   const float bs_in = s.bytes_sent, prev_ack = s.prev_ack;
@@ -136,7 +161,7 @@ __device__ __forceinline__ bool cc_update(Flow& s, const Signals& x,
   const float max_gap = maximum_f(mg_in, curr_gap);
   const bool new_iter = curr_gap > d.g * ig_in;
   const float iter_gap_upd = (1.0f - d.gamma) * ig_in + d.gamma * max_gap;
-  const float numer = AGG ? x.job_numer : bytes_sent;
+  const float numer = sel.agg ? x.job_numer : bytes_sent;
   const float ratio_mid =
       clamp_max_f(numer * (1.0f / clamp_min_f(x.total_bytes, 1.0f)), 1.0f);
   const bool boundary = has_ack && new_iter;
@@ -149,12 +174,14 @@ __device__ __forceinline__ bool cc_update(Flow& s, const Signals& x,
 
   // ---------------- F(bytes_ratio), variant routing ----------------
   float adaptive = 1.0f;
-  if (VARIANT != VAR_OFF)
+  if (sel.variant != VAR_OFF)
     adaptive = f_value(d.f_id, ratio, d.slope, d.intercept);
   float f_vals = adaptive;
-  if (FACTORS) f_vals = x.factor >= 0.0f ? x.factor : adaptive;
-  const float f_wi = (VARIANT == VAR_WI || VARIANT == VAR_BOTH) ? f_vals : 1.0f;
-  const float f_md = (VARIANT == VAR_MD || VARIANT == VAR_BOTH) ? f_vals : 1.0f;
+  if (sel.fac) f_vals = x.factor >= 0.0f ? x.factor : adaptive;
+  const float f_wi =
+      (sel.variant == VAR_WI || sel.variant == VAR_BOTH) ? f_vals : 1.0f;
+  const float f_md =
+      (sel.variant == VAR_MD || sel.variant == VAR_BOTH) ? f_vals : 1.0f;
 
   if (ALGO == ALGO_RENO || ALGO == ALGO_CUBIC) {
     const float cwnd = s.cwnd, cooldown = s.cooldown, w_max = s.w_max;

@@ -32,14 +32,19 @@
 // so state a thread writes in one phase and reads in a later one is its
 // own.  The engine-level options (ECN vs RED, Cassini, the CUBIC epoch
 // reset) and the F family are runtime branches uniform across the CTA;
-// the CC specializations stay template parameters.
+// the unarmed kernel's CC specializations (algorithm, variant, job
+// aggregation, Static factors) are template parameters.
 //
 // Telemetry and faults (netsim/telemetry.py, netsim/faults.py) are the
 // template parameter ARMED (bit 0 telemetry, bit 1 faults); ARMED == 0 is
 // the unarmed kernel, whose code every armed hook leaves untouched (each
 // sits under `if constexpr`).  Which probes, detectors and fault channels
 // an armed launch runs are runtime flags uniform across the CTA.  The
-// fault row of each tick comes from the host with the chunk's other
+// armed kernel is built once per (algorithm, ARMED): its variant, job
+// aggregation and Static factors are the launch's dims too (VARIANT is
+// mltcp_cc.cuh's VAR_LAUNCH), which only select operands, so every CC
+// specialization runs armed with the same arithmetic in the same order.
+// The fault row of each tick comes from the host with the chunk's other
 // inputs (engine.chunk_inputs ranks the tick against the schedule): the
 // churn mask, the blackhole mask and the flapped capacity (cap * scale)
 // * dt, and the row index for the re-interleave detector.  The probes
@@ -112,12 +117,15 @@ enum Operand {
 };
 // DIMS: the int array's order.  D_F_ID is the F family (mltcp_cc.cuh's
 // f_value), uniform across the launch.  D_ARMED is the specialization's
-// ARMED;
-// the armed launch's flags and sizes follow: fault channels, the
+// ARMED; the armed launch's flags and sizes follow: fault channels, the
 // detectors, the ring (stride, slots, width), the tail's first tick, the
 // sketch's bins, the schedule's rows, and each built-in probe's column
 // offset in the ring's rows (-1: not armed), in telemetry.BUILTIN_PROBES
-// order.
+// order.  Last the run's CC specialization, which the armed kernel reads
+// (the unarmed one has it as template arguments) and the C entries hold
+// equal to their arguments: four ints, appended, so that every field
+// after them keeps its 16-byte alignment and the unarmed kernels compile
+// as they did without them.
 enum Dim {
   D_K, D_M, D_N, D_J, D_S, D_D, D_P, D_MAX_ITERS, D_TICKS, D_U_STRIDE,
   D_ECN, D_CASSINI, D_CUBIC_RESET, D_N_CHUNKS, D_CHUNK, D_F_ID,
@@ -127,6 +135,7 @@ enum Dim {
   D_OFF_FLOW_CWND, D_OFF_FLOW_RATE, D_OFF_FLOW_RATIO, D_OFF_LINK_QUEUE,
   D_OFF_LINK_MARK_RATE, D_OFF_JOB_INCOMM, D_OFF_JOB_PHASE, D_OFF_JOB_ITER,
   D_OFF_JOB_F, D_OFF_INTERLEAVE_OVERLAP,
+  D_ALGO, D_VARIANT, D_AGGREGATE, D_FACTORS,
   N_DIM
 };
 // SCALARS: the float array's order (python floats rounded once): the
@@ -254,6 +263,9 @@ __device__ void run_point(const Args& a, int k, int tid, int nt,
   const int L = M + 1, LN = L * N;
   const Layout lay(M, N, J, S, D, P);
   int* const ismem = reinterpret_cast<int*>(smem);
+  // the CC selections: the template's, or (the armed kernel) the launch's
+  const Selects sel = selects<VARIANT, AGG, FACTORS>(
+      a.dim[D_VARIANT], a.dim[D_AGGREGATE] != 0, a.dim[D_FACTORS] != 0);
 
   float* const sf = smem + lay.fflow;
   int* const si = ismem + lay.iflow;
@@ -328,7 +340,7 @@ __device__ void run_point(const Args& a, int k, int tid, int nt,
     const float* gfac = static_cast<const float*>(a.op[O_FACTORS]);
     for (int n = tid; n < N; n += nt) {
       sx[X_TOTAL * N + n] = gt[n];
-      sx[X_FACTOR * N + n] = FACTORS ? gfac[(long long)k * N + n] : 0.0f;
+      sx[X_FACTOR * N + n] = sel.fac ? gfac[(long long)k * N + n] : 0.0f;
     }
     const int* gsi = static_cast<const int*>(a.op[O_STATIC_INTS]);
     for (int i = tid; i < 2 * N + J * S + J + LN; i += nt)
@@ -357,7 +369,7 @@ __device__ void run_point(const Args& a, int k, int tid, int nt,
   }
   const float* const q = g_params + (long long)k * N_PARAM;
   const Dyn dyn{q[Q_SLOPE], q[Q_INTERCEPT], q[Q_G], q[Q_GAMMA], q[Q_INIT_GAP],
-                a.dim[D_F_ID]};
+                a.dim[D_F_ID], sel.variant, sel.agg, sel.fac};
   const float qmin = q[Q_RED_QMIN], qmax = q[Q_RED_QMAX];
   const float pmax = q[Q_RED_PMAX], eps = q[Q_CASSINI_EPS];
   const float span = qmax - qmin, rest = 1.0f - pmax;
@@ -624,7 +636,7 @@ __device__ void run_point(const Args& a, int k, int tid, int nt,
           clamp_min_f(sf[F_TO_DELIVER * N + n] - delivered, 0.0f);
       sf[F_TO_DELIVER * N + n] = to_deliver;
       sxi[X_DONE * N + n] = to_deliver <= half_mss ? 1 : 0;
-      if (AGG) {
+      if (sel.agg) {
         const float acks = sx[X_FB_DEL * N + n] / mss;
         sx[X_NUMER * N + n] = sf[F_BYTES_SENT * N + n] + acks * mss;
       }
@@ -694,7 +706,7 @@ __device__ void run_point(const Args& a, int k, int tid, int nt,
       float jb = acc_jb[j] + (mem[0] >= 0 ? del[mem[0]] : 0.0f);
       for (int s = 1; s < S; ++s) jb = jb + (mem[s] >= 0 ? del[mem[s]] : 0.0f);
       acc_jb[j] = jb;
-      if (AGG) {
+      if (sel.agg) {
         const float* nx = sx + X_NUMER * N;
         float nu = mem[0] >= 0 ? nx[mem[0]] : 0.0f;
         for (int s = 1; s < S; ++s) nu = nu + (mem[s] >= 0 ? nx[mem[s]] : 0.0f);
@@ -730,7 +742,7 @@ __device__ void run_point(const Args& a, int k, int tid, int nt,
       x.loss = (flags & 1) != 0;
       x.cnp = (flags & 2) != 0;
       x.total_bytes = sx[X_TOTAL * N + n];
-      x.job_numer = AGG ? s_jnumer[f2j[n]] : 0.0f;
+      x.job_numer = sel.agg ? s_jnumer[f2j[n]] : 0.0f;
       x.factor = sx[X_FACTOR * N + n];
       const bool boundary =
           cc_update<ALGO, VARIANT, AGG, FACTORS>(s, x, dyn, tc, c);
@@ -743,9 +755,9 @@ __device__ void run_point(const Args& a, int k, int tid, int nt,
         if (jobf) {
           // F of the post-update detection state (core.f_values)
           float f = 1.0f;
-          if (VARIANT != VAR_OFF)
+          if (sel.variant != VAR_OFF)
             f = f_value(dyn.f_id, s.ratio, dyn.slope, dyn.intercept);
-          if (FACTORS) f = x.factor >= 0.0f ? x.factor : f;
+          if (sel.fac) f = x.factor >= 0.0f ? x.factor : f;
           x_fjob[n] = f * spj_inv[n];
         }
         if (take) {
@@ -943,6 +955,15 @@ inline void fill_args(Args& a, void* const* operands, const int* dims,
   a.c.fast_recovery_stages = fast_recovery_stages;
 }
 
+// Whether the dims carry the launch's CC specialization (the armed kernel
+// reads it there); a launch whose two disagree is refused.
+inline bool specialization_agrees(const int* dims, int algo, int variant,
+                                  int aggregate, int use_factors) {
+  return dims[D_ALGO] == algo && dims[D_VARIANT] == variant &&
+         dims[D_AGGREGATE] == (aggregate != 0 ? 1 : 0) &&
+         dims[D_FACTORS] == (use_factors != 0 ? 1 : 0);
+}
+
 inline long long smem_bytes(const int* dims) {
   const Layout lay(dims[D_M], dims[D_N], dims[D_J], dims[D_S], dims[D_D],
                    dims[D_P]);
@@ -952,10 +973,10 @@ inline long long smem_bytes(const int* dims) {
 
 // Host-side dispatch over the chunk kernel's specializations: the CC
 // specializations of mltcp::dispatch unarmed (ARMED = 0), and for each
-// ARMED in 1..3 the ones the telemetry and fault plans run (Reno, CUBIC,
-// DCQCN; OFF and WI; job-aggregated statistics; no Static factors,
-// netsim_chunk.py::ARMED_SPECIALIZATIONS).  Returns -1 for one it does
-// not instantiate.
+// ARMED in 1..3 one per algorithm, whose variant, job aggregation and
+// Static factors are the launch's (VAR_LAUNCH; the AGG and FACTORS
+// arguments are then unread).  Returns -1 for an unknown algorithm,
+// variant or ARMED.
 template <class F>
 struct Unarmed {
   template <int ALGO, int VARIANT, bool AGG, bool FACTORS, class... A>
@@ -963,33 +984,27 @@ struct Unarmed {
     return F::template run<ALGO, VARIANT, AGG, FACTORS, 0>(a...);
   }
 };
-template <class F, int ALGO, int ARMED, class... A>
-int dispatch_armed_variant(int variant, A&&... a) {
-  if (variant == VAR_OFF)
-    return F::template run<ALGO, VAR_OFF, true, false, ARMED>(a...);
-  if (variant == VAR_WI)
-    return F::template run<ALGO, VAR_WI, true, false, ARMED>(a...);
-  return -1;
-}
 template <class F, int ARMED, class... A>
 int dispatch_armed_algo(int algo, int variant, A&&... a) {
+  if (variant < VAR_OFF || variant > VAR_BOTH) return -1;
   switch (algo) {
     case ALGO_RENO:
-      return dispatch_armed_variant<F, ALGO_RENO, ARMED>(variant, a...);
+      return F::template run<ALGO_RENO, VAR_LAUNCH, false, false, ARMED>(a...);
     case ALGO_CUBIC:
-      return dispatch_armed_variant<F, ALGO_CUBIC, ARMED>(variant, a...);
+      return F::template run<ALGO_CUBIC, VAR_LAUNCH, false, false, ARMED>(
+          a...);
     case ALGO_DCQCN:
-      return dispatch_armed_variant<F, ALGO_DCQCN, ARMED>(variant, a...);
+      return F::template run<ALGO_DCQCN, VAR_LAUNCH, false, false, ARMED>(
+          a...);
   }
   return -1;
 }
 template <class F, class... A>
 int dispatch_chunk(int armed, int algo, int variant, bool agg, bool fac,
                    A&&... a) {
-  if (armed == 0)
-    return mltcp::dispatch<Unarmed<F>>(algo, variant, agg, fac, a...);
-  if (!agg || fac) return -1;
   switch (armed) {
+    case 0:
+      return mltcp::dispatch<Unarmed<F>>(algo, variant, agg, fac, a...);
     case ARM_TEL:
       return dispatch_armed_algo<F, ARM_TEL>(algo, variant, a...);
     case ARM_FAULTS:
@@ -1162,13 +1177,16 @@ extern "C" int netsim_chunk_sketch_check(const float* x, long long n,
 // DIMS (the specialization's ARMED among them), `scalars` the SCALARS and
 // `consts` the CC constants (CONST_FIELDS of mltcp_step.py).  Returns 0, a
 // CUDA error code, or -1 for a specialization the library does not
-// instantiate.
+// instantiate or dims whose CC specialization is not the arguments'.
 extern "C" int netsim_chunk_launch(int algo, int variant, int aggregate,
                                    int use_factors, void* const* operands,
                                    const int* dims, const float* scalars,
                                    const float* consts,
                                    int fast_recovery_stages, int threads,
                                    void* stream) {
+  if (!netsim_chunk::specialization_agrees(dims, algo, variant, aggregate,
+                                           use_factors))
+    return -1;
   netsim_chunk::Args a;
   netsim_chunk::fill_args(a, operands, dims, scalars, consts,
                           fast_recovery_stages);
@@ -1222,6 +1240,9 @@ extern "C" int netsim_chunk_host(int algo, int variant, int aggregate,
                                  const int* dims, const float* scalars,
                                  const float* consts,
                                  int fast_recovery_stages, int threads) {
+  if (!netsim_chunk::specialization_agrees(dims, algo, variant, aggregate,
+                                           use_factors))
+    return -1;
   netsim_chunk::Args a;
   netsim_chunk::fill_args(a, operands, dims, scalars, consts,
                           fast_recovery_stages);

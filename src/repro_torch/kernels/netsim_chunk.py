@@ -40,11 +40,12 @@ order (tests/test_torch_chunk.py parses the source to hold them equal).
 Telemetry and faults (``cfg.telemetry``, ``cfg.faults``) run in the armed
 kernel (the template's ARMED, `armed_bits`): the ten built-in probes and
 the three detectors of `netsim.telemetry`, the four fault channels of
-`netsim.faults`; `ARMED_SPECIALIZATIONS` lists the CC specializations it
-is built for (an armed run on another raises on the card,
-`ops.check_armed_specialization`).  The telemetry state packs into the ``tel_*`` operands and
-the probes' rings into one ``[K, cap, W]`` buffer (`series_layout`);
-an unarmed run passes none of them.
+`netsim.faults`, on every CC specialization: the library builds it once
+per (algorithm, ARMED), and the run's variant, job aggregation and Static
+factors reach it as launch dims (`SPECIALIZATION_DIMS`).  The telemetry
+state packs into the ``tel_*`` operands and the probes' rings into one
+``[K, cap, W]`` buffer (`telemetry_layout`); an unarmed run passes none
+of them.
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.cc.types import Algo, Variant
+from repro_torch.core.cc.types import Algo
 from repro_torch.kernels import build
 from repro_torch.kernels import mltcp_step as ms
 from repro_torch.netsim import telemetry as telem
@@ -124,12 +125,16 @@ OPERANDS = (
 # the ring's column offset of each built-in probe, telemetry.BUILTIN_PROBES
 # order
 PROBE_DIMS = tuple(f"D_OFF_{name.upper()}" for name in telem.BUILTIN_PROBES)
+# the run's CC specialization (algo, variant, aggregate, factors): the
+# launch's arguments, which the armed kernel reads from the dims
+SPECIALIZATION_DIMS = ("D_ALGO", "D_VARIANT", "D_AGGREGATE", "D_FACTORS")
 DIMS = ("D_K", "D_M", "D_N", "D_J", "D_S", "D_D", "D_P", "D_MAX_ITERS",
         "D_TICKS", "D_U_STRIDE", "D_ECN", "D_CASSINI", "D_CUBIC_RESET",
         "D_N_CHUNKS", "D_CHUNK", "D_F_ID",
         "D_ARMED", "D_CHURN", "D_BLACKHOLE", "D_FLAPS", "D_JOB_ACTIVE",
         "D_INTERLEAVE", "D_SKETCH", "D_REINTERLEAVE", "D_STRIDE", "D_CAP",
-        "D_SERIES_W", "D_TAIL_START", "D_BINS", "D_EVENTS") + PROBE_DIMS
+        "D_SERIES_W", "D_TAIL_START", "D_BINS", "D_EVENTS") + PROBE_DIMS \
+    + SPECIALIZATION_DIMS
 SCALARS = ("S_DT", "S_MSS", "S_HALF_MSS", "S_BUFFER", "S_TPC", "S_SPAN",
            "S_ALPHA", "S_THRESHOLD", "S_SKETCH_LO", "S_SKETCH_HI",
            "S_LOG_LO", "S_INV_W")
@@ -139,14 +144,8 @@ FAULT_INPUTS = (("O_FAULT_IDX", "fault_idx", torch.int32),
                 ("O_CHURN", "churn", torch.bool),
                 ("O_BLACKHOLE", "blackhole", torch.bool),
                 ("O_CAP_DT", "cap_dt", torch.float32))
-# ARMED's bits (the kernel's ARM_TEL, ARM_FAULTS), and the CC
-# specializations (algo, variant, aggregate, factors) each armed kernel is
-# built for: the telemetry and fault plans' (every algorithm, OFF and WI,
-# job-aggregated statistics, no Static factors)
+# ARMED's bits (the kernel's ARM_TEL, ARM_FAULTS)
 ARM_TEL, ARM_FAULTS = 1, 2
-ARMED_SPECIALIZATIONS = frozenset(
-    (int(a), int(v), True, False) for a in Algo
-    for v in (Variant.OFF, Variant.WI))
 # the trace buffers the kernel's epilogue writes (`engine.CHUNK_FIELDS`
 # order, each [K, n_chunks, ...]), with a chunk's probe's per-point shape
 TRACE_OPERANDS = ("O_TRACE_UTIL", "O_TRACE_DROPS", "O_TRACE_MARKS",
@@ -425,7 +424,6 @@ class RunOperands(NamedTuple):
     dims: dict                # DIMS but the chunk's (ticks, stride, column)
     scalars: tuple            # SCALARS before the chunk's (S_TPC, S_SPAN)
     cc: object                # CCParams
-    aggregate: bool
     threads: int
     job_active: Optional[Tensor] = None  # [K, J] bool, read when armed
     layout: Optional[TelemetryLayout] = None
@@ -469,6 +467,9 @@ def prepare(cfg, statics, sweep, wl) -> RunOperands:
                 D_CUBIC_RESET=int(cfg.cubic_epoch_reset_on_comm_start),
                 D_F_ID=ms.f_id(cfg.protocol.f_spec))
     dims.update(_armed_dims(cfg, sweep))
+    dims.update(zip(SPECIALIZATION_DIMS, (
+        int(cc.algo), int(cc.variant), int(cfg.protocol.aggregate_by_job),
+        int(wl.static_factors is not None))))
     layout = telemetry_layout(cfg)
     tel_scalars = (0.0,) * 6
     if cfg.telemetry is not None:
@@ -487,8 +488,7 @@ def prepare(cfg, statics, sweep, wl) -> RunOperands:
         cassini=cassini, static_ints=ints.contiguous(),
         static_floats=floats.contiguous(), dims=dims,
         scalars=(cfg.dt, cc.mss, 0.5 * cc.mss, cfg.buffer_bytes),
-        cc=cc, aggregate=bool(cfg.protocol.aggregate_by_job),
-        threads=threads_for(M, N, J),
+        cc=cc, threads=threads_for(M, N, J),
         job_active=(None if sweep.job_active is None
                     else sweep.job_active.contiguous()),
         layout=layout, tel_scalars=tel_scalars)
@@ -497,7 +497,8 @@ def prepare(cfg, statics, sweep, wl) -> RunOperands:
 def _armed_dims(cfg, sweep) -> dict:
     """The armed kernel's DIMS of a run (all 0, offsets -1, unarmed)."""
     spec, fs = cfg.telemetry, cfg.faults
-    dims = {name: 0 for name in DIMS[DIMS.index("D_ARMED"):]}
+    dims = {name: 0 for name in DIMS[DIMS.index("D_ARMED"):
+                                     DIMS.index(SPECIALIZATION_DIMS[0])]}
     dims.update({name: -1 for name in PROBE_DIMS})
     dims["D_ARMED"] = armed_bits(cfg)
     if fs is not None:
@@ -636,9 +637,9 @@ def launch_arguments(run: RunOperands, cs: ChunkState, inputs,
 
 def specialization(run: RunOperands) -> tuple:
     """(algo, variant, aggregate, factors): the kernel's CC template
-    arguments (its ARMED travels in the dims, ``D_ARMED``)."""
-    return (int(run.cc.algo), int(run.cc.variant), int(run.aggregate),
-            int(run.factors is not None))
+    arguments, as the dims carry them (its ARMED travels in the dims,
+    ``D_ARMED``)."""
+    return tuple(run.dims[name] for name in SPECIALIZATION_DIMS)
 
 
 # ---------------------------------------------------------------------------
@@ -672,7 +673,11 @@ def bind_draws(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
-LIBRARY = build.KernelLibrary("netsim_chunk", _bind)
+# build.NVCC_FLAGS with the compiler's optimizations spread over every
+# core (``-split-compile=0``): the library's 57 kernels build in ~60 s in
+# place of ~180 s on the card's 8 cores, with the same SASS
+NVCC_FLAGS = build.NVCC_FLAGS + ("-split-compile=0",)
+LIBRARY = build.KernelLibrary("netsim_chunk", _bind, flags=NVCC_FLAGS)
 
 
 def launch(run: RunOperands, cs: ChunkState, inputs, traces: tuple,

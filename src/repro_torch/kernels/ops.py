@@ -23,7 +23,7 @@ callable) run `core.cc_tick` instead — loudly, via
 `mltcp_step.mltcp_tick`.
 
 `netsim_chunk` decides, once per run, whether a simulator run goes through
-the chunk kernel: on the card it does, but for two structural cases that
+the chunk kernel: on the card it does, but for the structural cases that
 keep the per-tick path there (`engine._tick` per tick, its CC update
 through `mltcp_cc_tick`) — loudly, via ``CHUNK_FALLBACK_COUNT`` and one
 warning per reason: a configuration that `fallback_reason` sends to
@@ -31,10 +31,8 @@ warning per reason: a configuration that `fallback_reason` sends to
 `telemetry.register_probe` (a Python callable the kernel cannot run), and
 a point whose state does not fit the kernel's shared-memory budget
 (`netsim_chunk.budget_reason`).  Built-in probes, detectors and fault
-tables armed on a CC specialization the armed kernel is not built for
-(`netsim_chunk.ARMED_SPECIALIZATIONS`) raise on the card, naming the
-specialization.  On the CPU the per-tick path is the plain version and
-nothing is counted.
+tables run in the armed chunk kernel on every CC specialization.  On the
+CPU the per-tick path is the plain version and nothing is counted.
 """
 from __future__ import annotations
 
@@ -192,39 +190,17 @@ def custom_probe_reason(cfg) -> Optional[str]:
     return None
 
 
-def check_armed_specialization(cfg, sweep) -> None:
-    """Raises ValueError where telemetry or faults are armed on a CC
-    specialization the armed chunk kernel is not built for."""
-    if not nc.armed_bits(cfg):
-        return
-    cc = cfg.protocol.cc
-    spec = (int(cc.algo), int(cc.variant),
-            bool(cfg.protocol.aggregate_by_job),
-            sweep.static_job_factors is not None)
-    if spec not in nc.ARMED_SPECIALIZATIONS:
-        raise ValueError(
-            f"netsim_chunk: telemetry/faults armed on "
-            f"algo={nc.Algo(spec[0]).name} "
-            f"variant={nc.Variant(spec[1]).name} aggregate_by_job={spec[2]} "
-            f"static factors={spec[3]}: the armed chunk kernel is not built "
-            f"for this CC specialization (it is for every algorithm, OFF "
-            f"and WI, job-aggregated statistics, no Static factors); run "
-            f"it with device='cpu'")
-
-
 def chunk_fallback_reason(cfg, sweep) -> Optional[str]:
     """Why a simulator configuration cannot run the chunk kernel (None: it
     can): the CC kernel's own structural fallback, an armed configuration
     the armed kernel cannot run (`custom_probe_reason`), or the
-    shared-memory budget.  Raises for an armed specialization the kernel
-    is not built for (`check_armed_specialization`)."""
+    shared-memory budget."""
     reason = fallback_reason(cfg.protocol, sweep.static_job_factors)
     if reason is not None:
         return reason
     reason = custom_probe_reason(cfg)
     if reason is not None:
         return reason
-    check_armed_specialization(cfg, sweep)
     return nc.budget_reason(cfg)
 
 

@@ -90,7 +90,9 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32,
     }
 
 
-def main(argv=None):
+def main(argv=None) -> dict:
+    """Serve from the command line's options, print the generated ids and
+    the timings; returns `serve`'s result."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCH_IDS, default="recurrentgemma-2b")
     ap.add_argument("--batch", type=int, default=4)
@@ -109,6 +111,7 @@ def main(argv=None):
     print("generated ids:\n", out["generated"].cpu())
     print(f"prefill {out['prefill_s'] * 1e3:.1f} ms; decode "
           f"{out['decode_tok_per_s']:.1f} tok/s on {out['device']}")
+    return out
 
 
 if __name__ == "__main__":

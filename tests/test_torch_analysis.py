@@ -265,15 +265,20 @@ def test_kernel_fallback_fires_with_its_reason():
     assert not ok and facts["expectation"] == "chunk"
 
 
-def test_armed_unbuilt_is_a_finding_not_an_exception():
+def test_armed_md_lints_clean_on_the_chunk_kernel():
+    """Telemetry armed on MD: the dispatch and the launch contract are
+    clean, the card takes the chunk kernel, and the specialization is one
+    the library runs."""
     cfg = _cfg(variant=2, telemetry=tnet.TelemetrySpec(probes=("flow_cwnd",),
                                                        stride=5))
     sweep = tnet.make_sweep(cfg, device="cpu")
-    findings, facts = dispatch_lint.lint_dispatch(cfg, sweep, label="au")
-    assert _rules(findings) == {"dispatch/armed-unbuilt"}
-    assert facts["expectation"] == "unbuilt"
-    kf, _ = kernel_lint.lint_kernel(cfg, sweep, label="au")
-    assert "kernel/unbuilt-specialization" in _rules(kf)
+    findings, facts = dispatch_lint.lint_dispatch(cfg, sweep, label="md")
+    assert findings == [] and facts["expectation"] == "chunk"
+    spec = kernel_lint.specialization_of(cfg, sweep)
+    assert spec[1] == 2 and spec[4] == nc.ARM_TEL
+    assert spec in kernel_lint.built_specializations()
+    kf, kfacts = kernel_lint.lint_kernel(cfg, sweep, label="md")
+    assert kf == [] and kfacts["specialization"] == list(spec)
 
 
 def test_f64_operand_fires_on_a_float64_leaf():
@@ -297,9 +302,8 @@ def _setup(cfg=None):
 
 
 def test_launch_contract_clean_and_built_specializations():
-    assert len(kernel_lint.UNARMED_SPECIALIZATIONS) == 48
-    assert len(kernel_lint.built_specializations()) == 48 + 3 * len(
-        nc.ARMED_SPECIALIZATIONS)
+    assert len(kernel_lint.CC_SPECIALIZATIONS) == 48
+    assert len(kernel_lint.built_specializations()) == 4 * 48
     cfg, sweep, setup = _setup()
     findings, facts = kernel_lint.lint_kernel(cfg, sweep, label="ok",
                                               setup=setup)

@@ -2,7 +2,8 @@
 
 A fresh interpreter whose import hook refuses ``jax``, ``jaxlib``,
 ``repro`` and the reference's ``benchmarks`` imports every ``repro_torch``
-module and ``chip_smoke``, then
+module (the four examples of ``repro_torch.examples`` among them) and
+``chip_smoke``, then
 runs a 200-tick simulation, the smoke-preset serve of recurrentgemma-2b, a
 2-step smoke-preset training run and one cluster profile on the CPU.
 """
@@ -29,6 +30,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+examples = {f"repro_torch.examples.{n}" for n in (
+    "quickstart", "serve_lm", "simulate_cluster", "interleave_demo")}
+assert examples <= set(names), examples - set(names)
 import chip_smoke
 from repro_torch import core, netsim
 dt = 2e-5

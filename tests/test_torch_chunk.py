@@ -15,9 +15,10 @@ packing, shared-memory budget, dispatch and build, and its logic.
   chunk's inputs into the kernel's flat operands, and back, is exact.
 * The armed kernel (telemetry and faults, the template's ARMED) equals the
   per-tick path bit for bit on every leaf, the telemetry state's
-  included, for each algorithm, with telemetry, faults or both armed; a
-  spec it cannot run (a custom probe, an uninstantiated specialization)
-  takes the per-tick path, counted.
+  included, for each algorithm and every variant, with per-flow or
+  job-aggregated statistics and with Static factors, telemetry, faults or
+  both armed, and takes every such run on the card; a spec it cannot run
+  (a custom probe) takes the per-tick path, counted.
 * The enums of ``csrc/netsim_chunk.cu`` and ``csrc/mltcp_cc.cuh`` are the
   wrapper's name lists, in order.
 * The budget admits every fabric the figure suites build and sends an
@@ -179,7 +180,9 @@ def _armed(algo=0, variant=1, spj=2, n_jobs=3, tel=True, flt=True,
 
 
 # name -> (config, sweep overrides) of the armed kernel: each algorithm,
-# OFF and WI, telemetry and faults together and apart, padded jobs
+# every variant, per-flow statistics, Static factors beside the adaptive
+# sentinel (-1), telemetry and faults together and apart, padded jobs
+PER_FLOW = dict(proto=dict(aggregate_by_job=False))
 ARMED_CASES = {
     "reno_wi_both": _armed(),
     "reno_off_both": _armed(variant=0),
@@ -189,6 +192,18 @@ ARMED_CASES = {
         tel=True, flt=False, detectors=("interleave", "iter_sketch"),
         job_active=[[True, True, False], [True, False, True]]),
     "dcqcn_off_faults": _armed(algo=2, variant=0, tel=False, **RED_ECN),
+    "reno_md_both": _armed(variant=2),
+    "cubic_both_both": _armed(algo=1, variant=3, n_jobs=2),
+    "dcqcn_md_ecn_faults": _armed(algo=2, variant=2, spj=1, tel=False,
+                                  **RED_ECN),
+    "reno_wi_per_flow_telemetry": _armed(
+        flt=False, detectors=("interleave", "iter_sketch"), **PER_FLOW),
+    "dcqcn_wi_static_both": _armed(
+        algo=2, spj=1, static_job_factors=np.asarray([1.3, -1.0, 0.7]),
+        **RED_ECN),
+    "reno_both_per_flow_static": _armed(
+        variant=3, static_job_factors=np.asarray([0.6, 1.4, -1.0]),
+        **PER_FLOW),
 }
 
 
@@ -640,30 +655,34 @@ def test_custom_probe_takes_the_counted_per_tick_path(monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["md", "per_flow_stats", "static_factors"])
-def test_armed_unbuilt_specialization_raises_on_the_card(monkeypatch, case):
-    """Built-in telemetry (or faults) armed on a CC specialization the
-    armed kernel is not built for raises on a sweep the card would run,
-    naming the specialization, and never takes the per-tick path; on the
-    CPU it runs the plain version."""
-    cfg = {"md": lambda: _cfg(variant=2, sim_time=4 * DT, n_chunks=2),
-           "per_flow_stats": lambda: _cfg(
-               proto=dict(aggregate_by_job=False), sim_time=4 * DT,
-               n_chunks=2),
+def test_armed_specialization_takes_the_chunk_kernel(host_lib, monkeypatch,
+                                                     case):
+    """Built-in telemetry armed on MD, per-flow statistics or Static
+    factors has no fallback reason, and a sweep the card would run takes
+    the chunk kernel (here its body built for the CPU) once a chunk, with
+    nothing counted as a fallback, and equals the per-tick run on every
+    leaf, the telemetry state's included."""
+    cfg = {"md": lambda: _cfg(variant=2),
+           "per_flow_stats": lambda: _cfg(**PER_FLOW),
            "static_factors": lambda: _cfg(
-               sim_time=4 * DT, n_chunks=2,
                static_job_factors=np.asarray([0.6, -1.0]))}[case]()
     cfg = dataclasses.replace(cfg, telemetry=telemetry.TelemetrySpec())
-    sweep = netsim.make_sweep(cfg, device=DEV)
-    want = engine.run_ticks(cfg, sweep)                  # the CPU: plain
+    sweep = netsim.make_sweep(cfg, device=DEV, seed=[3, 5])
+    assert ops.chunk_fallback_reason(cfg, sweep) is None
+    want = engine.run_ticks(cfg, sweep, per_tick=True)
     assert int(want.telemetry.n_samples.min()) > 0
+    launch, launches = host_launch(host_lib, 3), []
+
+    def counted(*args):
+        launches.append(args[-1])
+        launch(*args)
     monkeypatch.setattr(ops, "on_card", lambda t: True)
+    monkeypatch.setattr(nc, "launch", counted)
     before = ops.CHUNK_FALLBACK_COUNT
-    with pytest.raises(ValueError, match="not built for this CC "
-                                         "specialization"):
-        ops.chunk_fallback_reason(cfg, sweep)
-    with pytest.raises(ValueError, match="armed chunk kernel"):
-        engine.run_ticks(cfg, sweep)
+    got = engine.run_ticks(cfg, sweep)
     assert ops.CHUNK_FALLBACK_COUNT == before
+    assert launches == list(range(cfg.n_chunks))
+    _assert_bitwise(got, want)
 
 
 def test_run_ticks_equals_the_per_tick_loop_on_cpu():

@@ -166,7 +166,7 @@ def test_cuda_cc_kernel_f_family_equals_plain_version_bitwise(f_spec):
 
 
 def _cfg(algo=0, variant=1, n_jobs=2, spj=2, topo=None, jobs=None,
-         sim_time=0.02, f_spec="linear", **kw):
+         sim_time=0.02, f_spec="linear", aggregate_by_job=True, **kw):
     return netsim.SimConfig(
         topo=topo or netsim.dumbbell(n_jobs, sockets_per_job=spj),
         jobs=jobs or netsim.JobSpec.simple([0.0025] * n_jobs,
@@ -174,7 +174,7 @@ def _cfg(algo=0, variant=1, n_jobs=2, spj=2, topo=None, jobs=None,
         protocol=core.MLTCPConfig(
             cc=core.CCParams(algo=algo, variant=variant, tick_dt=DT,
                              rtt=100e-6), slope=1.75, intercept=0.25,
-            f_spec=f_spec),
+            f_spec=f_spec, aggregate_by_job=aggregate_by_job),
         sim_time=sim_time, dt=DT, seed=3, n_chunks=10, **kw)
 
 
@@ -270,6 +270,39 @@ def test_cuda_armed_chunk_kernel_equals_per_tick_path_bitwise(algo):
     _assert_bitwise(got, want)
     assert int(want.iter_counts.sum()) > 0
     assert int(want.telemetry.n_samples.min()) > 0
+
+
+# the CC selections the armed kernel takes as launch dims, beyond WI with
+# job statistics: MD, BOTH, per-flow statistics, Static factors beside the
+# adaptive sentinel (-1)
+ARMED_SELECTIONS = {
+    "md": dict(variant=2),
+    "both": dict(variant=3),
+    "per_flow_stats": dict(aggregate_by_job=False),
+    "static_factors": dict(static_job_factors=np.asarray([1.3, -1.0, 0.7])),
+}
+
+
+@pytest.mark.parametrize("selection", sorted(ARMED_SELECTIONS))
+@pytest.mark.parametrize("algo", [0, 1, 2])
+def test_cuda_armed_kernel_on_every_specialization_bitwise(algo, selection):
+    """Telemetry and faults armed on MD, BOTH, per-flow statistics or
+    Static factors: the armed kernel (one per algorithm and ARMED, the
+    selections as launch dims) equals the per-tick path on every leaf and
+    spills nothing."""
+    cfg, overrides = _armed_cfg(algo, **ARMED_SELECTIONS[selection],
+                                **(RED_ECN if algo == 2 else {}))
+    sweep = netsim.make_sweep(cfg, device="cuda", seed=[3, 5], **overrides)
+    before = nc.LAUNCH_COUNT
+    got = engine.run_ticks(cfg, sweep)
+    assert nc.LAUNCH_COUNT - before == cfg.n_chunks
+    want = engine.run_ticks(cfg, sweep, per_tick=True)
+    _assert_bitwise(got, want)
+    assert int(want.iter_counts.sum()) > 0
+    assert int(want.telemetry.n_samples.min()) > 0
+    from repro_torch.analysis import kernel_lint
+    attrs = nc.kernel_attributes(*kernel_lint.specialization_of(cfg, sweep))
+    assert attrs["local_bytes"] == 0, attrs
 
 
 # the fig 5 plan's and the churn gauntlet's specializations at their

@@ -13,8 +13,8 @@ reference's, and the reference's own properties on the port.
   sketch's quantiles are within a bin of ``np.quantile``; a padded group
   trims each point's series; an unknown probe is rejected and a custom
   one captured; the accessors.
-* Tier B: a 0.3 s Reno WI run with every built-in probe and both
-  detectors through the port (the chunk kernel's body built for the CPU,
+* Tier B: a 0.3 s Reno WI run (and MD, BOTH, per-flow statistics, Static
+  factors) with every built-in probe and both detectors through the port (the chunk kernel's body built for the CPU,
   `_torch_host_chunk`: the per-tick path costs ~3 ms a tick on the CPU) and
   the reference: sample ticks, iteration counts, the histogram and the
   last bad tick exactly; the series within ``SERIES_RTOL`` of the largest
@@ -56,7 +56,7 @@ SERIES_RTOL = 1e-5
 
 
 def _cfg(side, n_jobs=2, sim_time=0.02, algo=0, variant=1, compute=0.002,
-         comm=2e6, seed=3, **kw):
+         comm=2e6, seed=3, proto=None, **kw):
     core, net = SIDES[side]
     red = (dict(red_qmin=50e3, red_qmax=400e3, red_pmax=0.2) if algo == 2
            else {})
@@ -65,7 +65,7 @@ def _cfg(side, n_jobs=2, sim_time=0.02, algo=0, variant=1, compute=0.002,
         jobs=net.JobSpec.simple([compute] * n_jobs, [comm] * n_jobs),
         protocol=core.MLTCPConfig(cc=core.CCParams(
             algo=algo, variant=variant, tick_dt=DT, rtt=100e-6),
-            slope=1.75, intercept=0.25),
+            slope=1.75, intercept=0.25, **(proto or {})),
         sim_time=sim_time, dt=DT, seed=seed, **{**red, **kw})
 
 
@@ -372,8 +372,12 @@ def _port_run(host_lib, cfg):
     return engine.point_of(raw, 0)
 
 
-def test_armed_trajectory_matches_reference(host_lib):
-    kw = dict(sim_time=0.3, compute=0.0075, comm=25e6)
+def _armed_trajectory_matches_reference(host_lib, **cc_kw):
+    """A 0.3 s run with every built-in probe and both detectors armed (the
+    CC specialization from ``cc_kw``) through the port and the reference:
+    the sample ticks, iteration counts and detector integers exactly, each
+    series within ``SERIES_RTOL`` of its largest magnitude."""
+    kw = dict(sim_time=0.3, compute=0.0075, comm=25e6, **cc_kw)
     rspec = rnet.TelemetrySpec(probes=ALL_PROBES, stride=50)
     rcfg = _cfg("ref", telemetry=rspec, **kw)
     want = rnet.simulate(rcfg)
@@ -396,6 +400,28 @@ def test_armed_trajectory_matches_reference(host_lib):
         g = gt.series[name].numpy().astype(np.float64)
         scale = max(float(np.abs(w).max()), 1e-30)
         assert float(np.abs(g - w).max()) <= SERIES_RTOL * scale, name
+
+
+def test_armed_trajectory_matches_reference(host_lib):
+    _armed_trajectory_matches_reference(host_lib)
+
+
+# the CC specializations the armed kernel takes as launch dims, beside
+# Reno WI with job statistics: MD, BOTH, per-flow statistics, and Static
+# factors beside the adaptive sentinel
+ARMED_SELECTIONS = {
+    "md": dict(variant=2),
+    "both": dict(variant=3),
+    "per_flow_stats": dict(proto=dict(aggregate_by_job=False)),
+    "static_factors": dict(static_job_factors=np.asarray([0.6, -1.0])),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ARMED_SELECTIONS))
+def test_armed_trajectory_matches_reference_on_specialization(host_lib,
+                                                              case):
+    _armed_trajectory_matches_reference(host_lib,
+                                        **ARMED_SELECTIONS[case])
 
 
 def test_reinterleave_detector_matches_reference(host_lib):
