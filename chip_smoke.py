@@ -19,7 +19,13 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   algorithm and ARMED; every telemetry probe and detector, all four fault
   channels) on every leaf, the telemetry state's included, on each CC
   specialization (every algorithm under WI, MD and BOTH, per-flow
-  statistics, Static factors), drives the simulator's main path
+  statistics, Static factors), holds the per-tick path replayed as a CUDA
+  graph of a chunk (``netsim.tick_graph``, the path those comparisons run)
+  bit for bit against its eager loop on every leaf (each algorithm and
+  variant, Static factors, F3, the fig 5 telemetry spec, the churn faults,
+  a fallback favoritism; a registered probe keeps the eager loop, counted)
+  and times both with the graph's capture and nodes, drives the
+  simulator's main path
   through the chunk kernel at full width (the paper's Fig. 7-9 convergence
   setup: two GPT-2 jobs on a 50 Gbps dumbbell, Reno OFF and WI, a two-seed
   sweep each, the suite's 1.5 s of simulated time), checks the figure
@@ -57,14 +63,15 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   ``repro_torch.figures`` (the port of ``benchmarks/``) run in-process as
   ``python -m repro_torch.figures`` runs it, at REPRO_SMOKE depth (1.5 s,
   seed 1; the churn gauntlet its own 4.5 s at seeds 1-3), each counted:
-  every group on the chunk kernel (kernel_sweep's per-tick oracle turns
-  counted apart), its ``_health`` without fallback, mispredict, group
-  error or budget mismatch, its derived keys those the reference recorded
-  (``results/benchmarks.json``), its values at seed 1 beside the
-  reference's within the earlier phases' tolerances, its own assertions
-  held, and ``churn.run()`` raising the Reno re-interleave assertion the
-  reference raises at seeds 1-3 while ``churn.run(algos=("cubic",
-  "dcqcn"))`` holds;
+  every group on the chunk kernel (kernel_sweep's per-tick oracle, a CUDA
+  graph of a chunk at the suite's own 1.5 s, counted apart and held bit
+  for bit to the fused mode's points), its ``_health`` without fallback,
+  mispredict, group error or budget mismatch, its derived keys those the
+  reference recorded (``results/benchmarks.json``), its values at seed 1
+  beside the reference's within the earlier phases' tolerances, its own
+  assertions held, and ``churn.run()`` raising the Reno re-interleave
+  assertion the reference raises at seeds 1-3 while
+  ``churn.run(algos=("cubic", "dcqcn"))`` holds;
 * telemetry and faults: the fig 5 timeline plan (benchmarks/timeline.py:
   Reno, CUBIC, DCQCN x OFF/WI x seeds 1-3 with the suite's probes and
   detectors) and the churn gauntlet (benchmarks/churn.py: three jobs on a
@@ -140,7 +147,8 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   SDPA's time.
 
 ``--only dryrun`` builds the two LM kernels and runs that phase alone;
-``--only suites`` builds the two simulator kernels and runs ``suites``.
+``--only suites`` and ``--only per_tick_graph`` build the two simulator
+kernels and run that phase.
 ``--probe KERNEL`` (``flash_attention`` or ``rg_lru``; ``--probe-flash``
 is ``--probe flash_attention``) is the short first call after a change to
 that kernel: it builds the kernels (``ptxas -v``), holds the checkout's
@@ -175,8 +183,8 @@ RTT = 100e-6
 WORK_SCALE = 0.25                  # benchmarks/common.py (not REPRO_FULL)
 # Depth of the main path: the suite's REPRO_SMOKE depth, 1.5 s (75,000
 # ticks), through the chunk kernel; widths, jobs and protocol settings are
-# the suite's.  The per-tick path (~2-3 ms a tick on the card's host) is
-# timed beside it at PER_TICK_SIM_TIME.
+# the suite's.  The per-tick path (a CUDA graph of a chunk, 5 ticks at
+# this depth) is timed beside it at PER_TICK_SIM_TIME.
 MAIN_SIM_TIME = 1.5
 PER_TICK_SIM_TIME = 0.04
 # fig7-reno's figure numbers at 1.5 s through the per-tick path, as
@@ -187,18 +195,23 @@ PER_TICK_FIG7 = dict(OFF_interleave=0.7506, WI_interleave=0.2101,
 SPEC_SIM_TIME = 0.15
 AGREE_SIM_TIME = 0.06
 # depth and workload scale of each chunk-vs-per-tick case (the per-tick
-# side sets its cost: ~3-8 ms a tick on the card's host)
-CHUNK_CASE_SIM_TIME = 0.03
+# side, a CUDA graph of a chunk, sets its cost)
+CHUNK_CASE_SIM_TIME = 0.06
 CHUNK_CASE_SCALE = 0.25
-# depth and workload scale of the armed kernel's cases (telemetry and
-# faults armed: the per-tick side costs more a tick), half the others'
-# work an iteration so that a case still completes iterations
-ARMED_CASE_SIM_TIME = 0.02
-ARMED_CASE_SCALE = 0.125
+# depth of the armed kernel's cases (telemetry and faults armed), at the
+# same workload scale
+ARMED_CASE_SIM_TIME = 0.03
 # the paper's F families (core/aggressiveness.py), which the CC kernels
 # compute from the launch's F id, and the depth of their chunk cases
 F_FAMILIES = ("F1", "F2", "F3", "F4", "F5", "F6")
-F_CASE_SIM_TIME = 0.03
+F_CASE_SIM_TIME = 0.04
+# depth and chunks of the graphed per-tick path's cases against its eager
+# loop (the eager side, ~2-4 ms a tick on the card's host, sets their
+# cost), and the chunks of the main path's size (187 ticks) its timing
+# runs graphed and eager
+GRAPH_CASE_SIM_TIME = 0.025
+GRAPH_CASE_CHUNKS = 10
+GRAPH_TIMING_CHUNKS = (20, 2)
 SEEDS = (1, 2)
 # paper §4.1 (slope, intercept) and RED/ECN thresholds, benchmarks/common.py
 PARAMS = {"reno": (1.75, 0.25), "cubic": (1.0, 0.5), "dcqcn": (1.067, 0.267)}
@@ -556,48 +569,80 @@ def n_chunks_run(cfg) -> int:
     return cfg.n_ticks // max(1, cfg.n_ticks // cfg.n_chunks)
 
 
+def read_counts(kern) -> dict:
+    """Every launch, fallback and graph count, as they stand."""
+    ms, nc, ops, tg = kern["ms"], kern["nc"], kern["ops"], kern["tg"]
+    return dict(netsim_chunk=nc.LAUNCH_COUNT, mltcp_step=ms.LAUNCH_COUNT,
+                fallbacks=ops.FALLBACK_COUNT,
+                chunk_fallbacks=ops.CHUNK_FALLBACK_COUNT,
+                graph_captures=tg.CAPTURE_COUNT,
+                graph_replays=tg.REPLAY_COUNT, eager_runs=tg.EAGER_COUNT)
+
+
 def counted(kern, fn):
-    """``fn()`` with every launch and fallback count set to 0 just before
-    and read just after, timed on the host clock around a synchronized
-    run; returns (fn's result, seconds, counts)."""
+    """``fn()`` with every launch, fallback and graph count set to 0 just
+    before and read just after, timed on the host clock around a
+    synchronized run; returns (fn's result, seconds, counts)."""
     import torch
 
-    ms, nc, ops = kern["ms"], kern["nc"], kern["ops"]
+    ms, nc, ops, tg = kern["ms"], kern["nc"], kern["ops"], kern["tg"]
     torch.cuda.synchronize()
     ms.LAUNCH_COUNT = nc.LAUNCH_COUNT = 0
     ops.FALLBACK_COUNT = ops.CHUNK_FALLBACK_COUNT = 0
+    tg.CAPTURE_COUNT = tg.REPLAY_COUNT = tg.EAGER_COUNT = 0
     t0 = time.time()
     out = fn()
     torch.cuda.synchronize()
     seconds = time.time() - t0
-    counts = dict(netsim_chunk=nc.LAUNCH_COUNT, mltcp_step=ms.LAUNCH_COUNT,
-                  fallbacks=ops.FALLBACK_COUNT,
-                  chunk_fallbacks=ops.CHUNK_FALLBACK_COUNT)
-    return out, seconds, counts
+    return out, seconds, read_counts(kern)
 
 
-def run_counted(kern, cfg, sweep=None, per_tick=False):
+def run_counted(kern, cfg, sweep=None, per_tick=False, eager=False):
     """One sweep, `counted`; returns (raw, seconds, counts).
-    ``per_tick`` runs the per-tick path (the chunk kernel's plain version)
-    instead of the main path."""
+    ``per_tick`` runs the per-tick path (the chunk kernel's plain version,
+    one CUDA graph replay a chunk) instead of the main path, ``eager`` its
+    eager loop (the graph's plain version)."""
     from repro_torch import netsim
     from repro_torch.netsim import engine
 
     if sweep is None:
         sweep = netsim.make_sweep(cfg, device=DEVICE, seed=list(SEEDS))
-    if per_tick:
-        return counted(kern, lambda: engine.run_ticks(cfg, sweep,
-                                                      per_tick=True))
+    if per_tick or eager:
+        return counted(kern, lambda: engine.run_ticks(
+            cfg, sweep, per_tick=per_tick, eager=eager))
     return counted(kern, lambda: netsim.simulate_sweep(cfg, sweep,
                                                        device=DEVICE))
 
 
+# the graph counts of a run that takes no per-tick path
+NO_GRAPH = dict(graph_captures=0, graph_replays=0, eager_runs=0)
+
+
+def expected_counts(cfg, path="chunk", cc="mltcp_step") -> dict:
+    """The counts of one run of ``cfg``: on the main path ("chunk") one
+    chunk launch per chunk and nothing else; on the per-tick path
+    ("graph") one capture, one replay per chunk and one CC launch (or
+    ``cc="fallbacks"``: one call of `core.cc_tick`) per tick and per
+    warm-up tick; on its eager loop ("eager") one CC launch per tick."""
+    from repro_torch.netsim import tick_graph
+
+    want = dict(netsim_chunk=0, mltcp_step=0, fallbacks=0,
+                chunk_fallbacks=0, **NO_GRAPH)
+    if path == "chunk":
+        want["netsim_chunk"] = n_chunks_run(cfg)
+    elif path == "graph":
+        want.update(graph_captures=1, graph_replays=n_chunks_run(cfg))
+        want[cc] = ticks_run(cfg) + tick_graph.WARM_UP_TICKS
+    else:
+        want[cc] = ticks_run(cfg)
+    return want
+
+
 def check_counts(what: str, cfg, counts: dict, per_tick=False) -> None:
     """The main path: one chunk launch per chunk, no per-tick CC launch,
-    no fallback; the per-tick path: one CC launch per tick, no chunk."""
-    want = dict(netsim_chunk=0 if per_tick else n_chunks_run(cfg),
-                mltcp_step=ticks_run(cfg) if per_tick else 0,
-                fallbacks=0, chunk_fallbacks=0)
+    no fallback; the per-tick path: one graph captured and replayed once
+    a chunk, one CC launch per tick (and per warm-up tick), no chunk."""
+    want = expected_counts(cfg, "graph" if per_tick else "chunk")
     if counts != want:
         raise AssertionError(f"{what}: launches and fallbacks {counts}, "
                              f"expected {want}")
@@ -783,7 +828,7 @@ def armed_cases(core, netsim, workload, sim_time: float) -> list:
     def fully_armed(name, algo, variant, n_jobs, proto_kw=None, **kw):
         cfg = fig7_cfg(core, netsim, workload, algo, variant, sim_time,
                        topo=netsim.dumbbell(n_jobs, sockets_per_job=2),
-                       models=("gpt2",) * n_jobs, scale=ARMED_CASE_SCALE,
+                       models=("gpt2",) * n_jobs, scale=CHUNK_CASE_SCALE,
                        proto_kw=proto_kw, telemetry=spec, faults=faults,
                        **kw)
         t = sim_time
@@ -816,7 +861,7 @@ def armed_cases(core, netsim, workload, sim_time: float) -> list:
             cfg = fig7_cfg(core, netsim, workload, algo, VARIANT[variant],
                            sim_time, topo=netsim.dumbbell(
                                2, sockets_per_job=sockets),
-                           scale=ARMED_CASE_SCALE,
+                           scale=CHUNK_CASE_SCALE,
                            telemetry=suites.fig5_spec(FIG5_SIM_TIME))
             out.append((f"{algo}_{variant.lower()}_fig5", cfg,
                         dict(seed=list(SEEDS))))
@@ -825,7 +870,7 @@ def armed_cases(core, netsim, workload, sim_time: float) -> list:
                                churn.N_JOBS, sockets_per_job=sockets,
                                cap_gbps=churn.CAP_GBPS),
                            models=("gpt2",) * churn.N_JOBS,
-                           scale=ARMED_CASE_SCALE,
+                           scale=CHUNK_CASE_SCALE,
                            telemetry=churn.telemetry_spec(),
                            faults=churn_faults)
             scheds = [netsim.fault_schedule(
@@ -840,9 +885,10 @@ def armed_cases(core, netsim, workload, sim_time: float) -> list:
 
 def phase_chunk_vs_per_tick(kern, core, netsim, workload) -> dict:
     """The chunk kernel against the per-tick path (its plain version, with
-    the per-tick CC kernel) on the card: every leaf of RawSimOutput,
-    final_state and telemetry included, bit for bit; the unarmed kernel on
-    the engine options, the armed one on `armed_cases`."""
+    the per-tick CC kernel, replayed as a CUDA graph a chunk) on the card:
+    every leaf of RawSimOutput, final_state and telemetry included, bit for
+    bit; the unarmed kernel on the engine options, the armed one on
+    `armed_cases`."""
     out = {}
     sim_time = CHUNK_CASE_SIM_TIME
     cases = (chunk_cases(core, netsim, workload, sim_time)
@@ -873,6 +919,176 @@ def phase_chunk_vs_per_tick(kern, core, netsim, workload) -> dict:
     emit("chunk_vs_per_tick", sim_time=sim_time,
          f_sim_time=F_CASE_SIM_TIME, armed_sim_time=ARMED_CASE_SIM_TIME,
          cases=out)
+    return out
+
+
+def graph_cases(core, netsim, workload, sim_time: float) -> list:
+    """(name, config, sweep overrides, route) of the graphed per-tick path
+    against its eager loop, at the fig 7 width and a quarter of the
+    suite's work an iteration: Reno OFF, WI and MD, CUBIC WI, DCQCN WI with
+    ECN, Static factors, F3 (on CUBIC MD, where it completes iterations
+    this early), the fig 5 plan's telemetry spec (the overlap
+    detector included), the churn gauntlet's faults and detectors, and a
+    favoritism the CC kernel does not take (``core.cc_tick`` each tick,
+    graphed: route "graph-fallback"); and a registered probe, which keeps
+    the eager loop (route "eager"), run through the main path's entry."""
+    import numpy as np
+
+    from repro_torch.analysis import plans as suites
+    from repro_torch.figures import churn
+
+    def cfg(algo, variant, **kw):
+        return fig7_cfg(core, netsim, workload, algo, variant, sim_time,
+                        scale=CHUNK_CASE_SCALE, n_chunks=GRAPH_CASE_CHUNKS,
+                        **kw)
+    seeds = dict(seed=list(SEEDS))
+    churn_cfg = cfg("reno", 1, topo=netsim.dumbbell(
+        churn.N_JOBS, sockets_per_job=2, cap_gbps=churn.CAP_GBPS),
+        models=("gpt2",) * churn.N_JOBS, telemetry=churn.telemetry_spec(),
+        faults=churn.SPEC)
+    scheds = [netsim.fault_schedule(churn_cfg, churn._events(churn_cfg, lb),
+                                    spec=churn.SPEC)
+              for lb in churn.SCHEDULES]
+    return [
+        ("reno_off", cfg("reno", 0), seeds, "graph"),
+        ("reno_wi", cfg("reno", 1), seeds, "graph"),
+        ("reno_md", cfg("reno", 2), seeds, "graph"),
+        ("cubic_wi", cfg("cubic", 1), seeds, "graph"),
+        ("dcqcn_wi_ecn", cfg("dcqcn", 1), seeds, "graph"),
+        ("reno_wi_static_factors",
+         cfg("reno", 1, static_job_factors=np.asarray([0.6, -1.0])), seeds,
+         "graph"),
+        ("cubic_md_F3", cfg("cubic", 2, proto_kw=dict(f_spec="F3")), seeds,
+         "graph"),
+        ("cubic_wi_fig5_telemetry",
+         cfg("cubic", 1, telemetry=suites.fig5_spec(FIG5_SIM_TIME)), seeds,
+         "graph"),
+        ("reno_wi_churn_faults", churn_cfg, dict(
+            seed=list(SEEDS), **{f: np.stack([sc.values[f] for sc in scheds])
+                                 for f in scheds[0].values}), "graph"),
+        ("reno_wi_earliest_iter_start",
+         cfg("reno", 1, proto_kw=dict(favoritism="earliest_iter_start")),
+         seeds, "graph-fallback"),
+        ("reno_wi_registered_probe",
+         cfg("reno", 1, telemetry=netsim.TelemetrySpec(
+             probes=("flow_cwnd", GRAPH_PROBE), stride=7)), seeds, "eager"),
+    ]
+
+
+# a probe added with `telemetry.register_probe` for the eager case: a
+# Python callable, so the configuration keeps the eager loop
+GRAPH_PROBE = "chip_smoke_cwnd_over_rate"
+
+
+def graph_timing(kern, netsim, cfg, sweep) -> dict:
+    """One config at the main path's chunk size on the per-tick path: its
+    graph built by hand (`tick_graph.TickGraph`, as `run_ticks` builds it)
+    for the capture's seconds, its nodes and the µs of one replay (CUDA
+    events); then the graphed and eager runs in turns (eager, graphed,
+    graphed, eager) over ``GRAPH_TIMING_CHUNKS`` chunks, each counted."""
+    import dataclasses
+
+    from repro_torch.netsim import engine, tick_graph
+
+    tpc = max(1, cfg.n_ticks // cfg.n_chunks)
+    statics = engine._build_statics(cfg, sweep.slope.device)
+    st = engine._init_state(cfg, statics, sweep)
+    wl = engine._workload_view(cfg, statics, sweep)
+    graph = tick_graph.TickGraph(cfg, statics, sweep, wl, st)
+    graph.step(engine.chunk_inputs(cfg, statics, sweep, graph, tpc))
+    replay_ms = event_ms(graph._graph.replay, 20)
+    runs = {}
+    for path, chunks in zip(("graph", "eager"), GRAPH_TIMING_CHUNKS):
+        runs[path] = dataclasses.replace(cfg, sim_time=chunks * tpc * cfg.dt,
+                                         n_chunks=chunks)
+    turns = []
+    for path in ("eager", "graph", "graph", "eager"):
+        c = runs[path]
+        _, seconds, counts = run_counted(kern, c, sweep,
+                                         per_tick=path == "graph",
+                                         eager=path == "eager")
+        want = expected_counts(c, path)
+        if counts != want:
+            raise AssertionError(f"graph timing {path}: {counts}, expected "
+                                 f"{want}")
+        turns.append(dict(path=path, ticks=ticks_run(c), seconds=seconds,
+                          us_per_tick=1e6 * seconds / ticks_run(c)))
+    med = {path: statistics.median(t["us_per_tick"] for t in turns
+                                   if t["path"] == path)
+           for path in ("graph", "eager")}
+    return dict(k=int(sweep.slope.shape[0]), n=cfg.topo.n_flows,
+                j=cfg.jobs.n_jobs, ticks_per_chunk=tpc,
+                capture_s=graph.capture_s, instantiate_s=graph.instantiate_s,
+                graph_nodes=graph.nodes, recorded=graph.recorded,
+                nodes_per_tick=(None if graph.nodes is None
+                                else graph.nodes / tpc),
+                replay_ms=replay_ms, replay_us_per_tick=1e3 * replay_ms / tpc,
+                turns=turns, graphed_us_per_tick=med["graph"],
+                eager_us_per_tick=med["eager"],
+                eager_over_graphed=med["eager"] / med["graph"])
+
+
+def phase_per_tick_graph(kern, core, netsim, workload) -> dict:
+    """The per-tick path replayed as a CUDA graph of a chunk against its
+    eager loop on the card, on every leaf of RawSimOutput bit for bit
+    (`graph_cases`), each run counted: the graphed one captures once,
+    replays once a chunk and launches the CC kernel once a tick (and once
+    a warm-up tick; the fallback case calls `core.cc_tick` instead), no
+    chunk kernel; the registered probe's configuration takes the eager loop
+    from the main path's entry with both reasons counted.  Then capture
+    seconds, graph nodes, µs per replay and µs per tick graphed and eager
+    (`graph_timing`) at fig7-reno (K = 2) and at kernel_sweep's group (its
+    suite's REPRO_SMOKE seeds, 2 and 3 jobs padded: K = 2)."""
+    from repro_torch.analysis import plans as suites
+    from repro_torch.netsim import experiment, telemetry
+
+    telemetry.register_probe(GRAPH_PROBE, "flow",
+                             lambda s: s.cwnd / (1.0 + s.rate),
+                             overwrite=True)
+    cases = {}
+    try:
+        for name, cfg, overrides, route in graph_cases(
+                core, netsim, workload, GRAPH_CASE_SIM_TIME):
+            sweep = netsim.make_sweep(cfg, device=DEVICE, **overrides)
+            want, eager_s, ecounts = run_counted(kern, cfg, sweep, eager=True)
+            cc = "fallbacks" if route == "graph-fallback" else "mltcp_step"
+            if ecounts != expected_counts(cfg, "eager", cc):
+                raise AssertionError(f"{name} eager: {ecounts}")
+            if route == "eager":
+                got, seconds, counts = run_counted(kern, cfg, sweep)
+                expect = dict(expected_counts(cfg, "eager"),
+                              chunk_fallbacks=1, eager_runs=1)
+            else:
+                got, seconds, counts = run_counted(kern, cfg, sweep,
+                                                   per_tick=True)
+                expect = expected_counts(cfg, "graph", cc)
+            if counts != expect:
+                raise AssertionError(f"{name}: {counts}, expected {expect}")
+            err, n_leaves = compare_trees(
+                got, want, "graphed per-tick path != eager loop")
+            if int(want.iter_counts.sum()) == 0:
+                raise AssertionError(f"{name}: no iteration completed")
+            cases[name] = dict(
+                route=route, k=int(sweep.slope.shape[0]),
+                ticks=ticks_run(cfg), chunks=n_chunks_run(cfg),
+                leaves=n_leaves, bitwise=True, max_abs_err=err,
+                iterations=int(want.iter_counts.sum()), launches=counts,
+                us_per_tick=1e6 * seconds / ticks_run(cfg),
+                eager_us_per_tick=1e6 * eager_s / ticks_run(cfg))
+    finally:
+        del telemetry.PROBES[GRAPH_PROBE]
+    fig7 = fig7_cfg(core, netsim, workload, "reno", 1, MAIN_SIM_TIME)
+    timing = {"fig7_reno": graph_timing(
+        kern, netsim, fig7, netsim.make_sweep(fig7, device=DEVICE,
+                                              seed=list(SEEDS)))}
+    _, cfgs, overrides, groups = experiment.resolve_plan(
+        suites.kernel_sweep_plan(FIGURE_SIM_TIME, (1,)))
+    (group,) = groups
+    timing["kernel_sweep"] = graph_timing(
+        kern, netsim, group.cfg,
+        experiment.group_sweep(cfgs, overrides, group, device=DEVICE))
+    out = dict(sim_time=GRAPH_CASE_SIM_TIME, cases=cases, timing=timing)
+    emit("per_tick_graph", **out)
     return out
 
 
@@ -1179,22 +1395,23 @@ def phase_chunk_timing(kern, core, netsim, workload) -> dict:
 def phase_profile(kern, core, netsim, workload) -> dict:
     """Profiler windows over both paths of the main path's WI sweep: the
     chunk path at its chunk size (40 chunks of 187 ticks) and 300 ticks of
-    the per-tick path.  Each: the card's busy time per tick, its share of
-    the (profiled) wall time, the device-side launches per tick and the
-    kernel's own device time per launch.  The profiler adds host cost, so
-    the busy share is a lower bound."""
+    the per-tick path (two chunks of 150), graphed and eager.  Each: the
+    card's busy time per tick, its share of the (profiled) wall time, the
+    device-side launches per tick and the kernel's own device time per
+    launch.  The profiler adds host cost, so the busy share is a lower
+    bound."""
     import torch
     from torch.profiler import ProfilerActivity
 
     from repro_torch.netsim import engine
 
-    def window(cfg, per_tick, key):
+    def window(cfg, per_tick, key, eager=False):
         sweep = netsim.make_sweep(cfg, device=DEVICE, seed=list(SEEDS))
-        engine.run_ticks(cfg, sweep, per_tick=per_tick)
+        engine.run_ticks(cfg, sweep, per_tick=per_tick, eager=eager)
         torch.cuda.synchronize()
         with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
-            engine.run_ticks(cfg, sweep, per_tick=per_tick)
+            engine.run_ticks(cfg, sweep, per_tick=per_tick, eager=eager)
             torch.cuda.synchronize()
             wall_s = time.time() - t0
         ticks = ticks_run(cfg)
@@ -1218,9 +1435,12 @@ def phase_profile(kern, core, netsim, workload) -> dict:
 
     chunk_cfg = fig7_cfg(core, netsim, workload, "reno", 1,
                          MAIN_SIM_TIME * 40 / 400, n_chunks=40)
-    tick_cfg = fig7_cfg(core, netsim, workload, "reno", 1, 300 * DT)
+    tick_cfg = fig7_cfg(core, netsim, workload, "reno", 1, 300 * DT,
+                        n_chunks=2)
     out = dict(chunk=window(chunk_cfg, False, "netsim_chunk_kernel"),
-               per_tick=window(tick_cfg, True, "mltcp_step_kernel"))
+               per_tick=window(tick_cfg, True, "mltcp_step_kernel"),
+               per_tick_eager=window(tick_cfg, False, "mltcp_step_kernel",
+                                     eager=True))
     emit("profile", **out)
     return out
 
@@ -1283,7 +1503,7 @@ def check_plan(pr, counts: dict, max_groups: int, idle=()) -> dict:
     cfg = pr.results[0].cfg
     active = reference_plan_script().active_jobs
     want = dict(netsim_chunk=pr.n_compile_groups * n_chunks_run(cfg),
-                mltcp_step=0, fallbacks=0, chunk_fallbacks=0)
+                mltcp_step=0, fallbacks=0, chunk_fallbacks=0, **NO_GRAPH)
     if not 1 <= pr.n_compile_groups <= max_groups or counts != want:
         raise AssertionError(f"plan {pr.plan.name}: {pr.n_compile_groups} "
                              f"groups, counts {counts}, expected {want}")
@@ -1639,8 +1859,8 @@ def f1_equals_linear(kern, netsim, plan) -> dict:
 def kernel_sweep_turns(kern, netsim, suites) -> dict:
     """The kernel_sweep plan's group (Reno WI, 2 and 3 jobs x seeds 1-3,
     padded into one) on the chunk kernel at FIGURE_SIM_TIME and on the
-    per-tick path (its plain version: the reference suite's "oracle"
-    mode) at PER_TICK_SIM_TIME, in turns (per-tick, chunk, chunk,
+    per-tick path (its plain version, graphed: the reference suite's
+    "oracle" mode) at PER_TICK_SIM_TIME, in turns (per-tick, chunk, chunk,
     per-tick): µs per tick of each and their ratio."""
     from repro_torch.netsim import experiment
 
@@ -2190,13 +2410,48 @@ def churn_values(derived: dict, ref: dict) -> dict:
     return dict(tolerance=tol, values=len(rows), outside=outside)
 
 
+def oracle_equals_fused(oracle, fused) -> dict:
+    """kernel_sweep's two modes at the same depth: every point's iteration
+    counts and iteration times (and the rest of its SimResult's arrays)
+    bit for bit, the chunk kernel being bitwise with the per-tick path."""
+    import numpy as np
+
+    if len(oracle.results) != len(fused.results):
+        raise AssertionError("kernel_sweep: the modes ran different points")
+    iterations = 0
+    for i, (a, b) in enumerate(zip(oracle.results, fused.results)):
+        if a.cfg.jobs.n_jobs != b.cfg.jobs.n_jobs:
+            raise AssertionError(f"kernel_sweep: point {i} has "
+                                 f"{a.cfg.jobs.n_jobs} jobs beside "
+                                 f"{b.cfg.jobs.n_jobs}")
+        arrays = [(f"iter_times[{j}]", x, y)
+                  for j, (x, y) in enumerate(zip(a.iter_times, b.iter_times))]
+        arrays += [(f, getattr(a, f), getattr(b, f))
+                   for f in ("trace_t", "trace_util", "trace_incomm",
+                             "trace_drops", "trace_jobtput")]
+        for what, x, y in arrays:
+            if (x.shape != y.shape or x.dtype != y.dtype
+                    or x.tobytes() != y.tobytes()):
+                raise AssertionError(f"kernel_sweep point {i}: the "
+                                     f"oracle's {what} differs from the "
+                                     f"fused mode's")
+        if (a.drops_per_s, a.marks_per_s) != (b.drops_per_s, b.marks_per_s):
+            raise AssertionError(f"kernel_sweep point {i}: drops or marks "
+                                 f"differ")
+        iterations += sum(len(x) for x in a.iter_times)
+    return dict(points=len(oracle.results), iterations=iterations,
+                ticks=ticks_run(oracle.results[0].cfg), bitwise=True)
+
+
 def phase_suites(kern, core, netsim, workload) -> dict:
     """Every suite of `repro_torch.figures` (the port of ``benchmarks/``)
     run in-process as ``python -m repro_torch.figures`` runs it
     (`common.timed`, `common.merge_results` into a temporary file), at
     REPRO_SMOKE depth, each counted on its own: every group of every
     suite on the chunk kernel (one launch a chunk, no per-tick launch but
-    kernel_sweep's oracle turns, no fallback); the suite's ``_health``
+    kernel_sweep's oracle, no fallback; the oracle graphed at the suite's
+    own depth, each of its points bit for bit equal to the fused mode's:
+    `oracle_equals_fused`); the suite's ``_health``
     with no fallback, mispredict, group error or budget mismatch; its
     derived keys equal to the reference's recorded entry
     (results/benchmarks.json); its values at seed 1 against the
@@ -2233,11 +2488,16 @@ def phase_suites(kern, core, netsim, workload) -> dict:
         r, seconds, counts = counted(kern, lambda: common.timed(name, fn))
         return r, seconds, counts, list(ran)
 
-    def check_route(name, counts, prs, oracle_ticks=0):
+    def check_route(name, counts, prs, oracle=None):
         want = dict(netsim_chunk=sum(pr.n_compile_groups
                                      * n_chunks_run(pr.results[0].cfg)
                                      for pr in prs),
-                    mltcp_step=oracle_ticks, fallbacks=0, chunk_fallbacks=0)
+                    mltcp_step=0, fallbacks=0, chunk_fallbacks=0, **NO_GRAPH)
+        if oracle is not None:
+            # the oracle's warm-up and timed runs on the graphed path
+            graphed = expected_counts(oracle, "graph")
+            for k in ("mltcp_step", "graph_captures", "graph_replays"):
+                want[k] = 2 * graphed[k]
         if counts != want:
             raise AssertionError(f"suite {name}: launches and fallbacks "
                                  f"{counts}, expected {want}")
@@ -2248,9 +2508,18 @@ def phase_suites(kern, core, netsim, workload) -> dict:
         if bad:
             raise AssertionError(f"suite {name}: _health {bad}")
 
+    oracles = []
+    per_tick = kernel_sweep._per_tick
+
+    def recording_oracle(plan, **kw):
+        pr = per_tick(plan, **kw)
+        oracles.append(pr)
+        return pr
+
     out, summary = {}, {}
     timelines_dir = timeline.TIMELINES_DIR
     common.run_plan = recording
+    kernel_sweep._per_tick = recording_oracle
     timeline.TIMELINES_DIR = os.path.join(tmp, "timelines")
     try:
         with environment(**SUITE_SMOKE), \
@@ -2263,12 +2532,11 @@ def phase_suites(kern, core, netsim, workload) -> dict:
                                              "_health": r.health}},
                                      results_path)
                 print(r.csv_line(), flush=True)
-                oracle = 0
+                oracle = None
                 if name == "kernel_sweep":
-                    plan = kernel_sweep._plan(False, (2, 3))
-                    cfg = plan.build(plan.points()[0])
-                    oracle = 2 * ticks_run(cfg)     # warm-up + timed
-                    if r.derived["interpret"] or r.derived["kernel_fallbacks"]:
+                    oracle = oracles[-1].results[0].cfg
+                    if (r.derived["interpret"] or r.derived["kernel_fallbacks"]
+                            or oracle.sim_time != prs[-1].results[0].cfg.sim_time):
                         raise AssertionError(f"kernel_sweep: {r.derived}")
                 want = check_route(name, counts, prs, oracle)
                 check_health(name, r.health)
@@ -2293,6 +2561,9 @@ def phase_suites(kern, core, netsim, workload) -> dict:
                                  for plan, cells, metrics
                                  in suite_cells(name, r.derived)}
                 row["derived"] = r.derived
+                if name == "kernel_sweep":
+                    row["oracle_equals_fused"] = oracle_equals_fused(
+                        oracles[-1], prs[-1])
                 out[name] = row
                 summary[name] = dict(seconds=seconds,
                                      us_per_tick=row["us_per_tick"],
@@ -2317,12 +2588,7 @@ def phase_suites(kern, core, netsim, workload) -> dict:
                 (pr,) = ran
                 # the counts `counted` set to 0 before the run that raised
                 all_launches = check_route(
-                    "churn_gauntlet (all algorithms)", dict(
-                        netsim_chunk=kern["nc"].LAUNCH_COUNT,
-                        mltcp_step=kern["ms"].LAUNCH_COUNT,
-                        fallbacks=kern["ops"].FALLBACK_COUNT,
-                        chunk_fallbacks=kern["ops"].CHUNK_FALLBACK_COUNT),
-                    ran)
+                    "churn_gauntlet (all algorithms)", read_counts(kern), ran)
                 claims = churn_claims(rp.churn_cells(netsim, pr))
                 ref_claims = churn_claims(ref["plans"]["churn"]["cells"])
                 unshared = {cell: bad for cell, c in claims.items()
@@ -2362,6 +2628,7 @@ def phase_suites(kern, core, netsim, workload) -> dict:
             merged = sorted(json.load(f))
     finally:
         common.run_plan = run_plan
+        kernel_sweep._per_tick = per_tick
         timeline.TIMELINES_DIR = timelines_dir
         shutil.rmtree(tmp, ignore_errors=True)
     if merged != sorted(name for name, _ in SUITES):
@@ -4473,7 +4740,8 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
                  timing: dict, prof: dict, plans: dict, figures: dict,
                  lm: dict, served: dict, armed: dict, tel: dict, flt: dict,
                  trained: dict, families: dict, clustered: dict,
-                 dry: dict, armed_plans: dict, examples: dict) -> list:
+                 dry: dict, armed_plans: dict, examples: dict,
+                 graphed: dict) -> list:
     main_row = next(r for r in kern["main_shape"] if r["algo"] == 0)
     serve_attrs = lm["flash"]["attributes"]["float32_d256"]
     rg_attrs = lm["rg_lru"]["attributes"][
@@ -4494,6 +4762,14 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
         "launches": main["per_tick_cc_launches"],
         "per_tick_path_launches": main["per_tick_path_launches"],
         "path": "per-tick",
+        # the per-tick path replayed as a CUDA graph of a chunk, against
+        # its eager loop, at fig7-reno and at kernel_sweep's group
+        "graphed": {name: {k: t[k] for k in (
+            "k", "ticks_per_chunk", "capture_s", "instantiate_s",
+            "graph_nodes", "recorded", "replay_us_per_tick",
+            "graphed_us_per_tick", "eager_us_per_tick")}
+            for name, t in graphed["timing"].items()},
+        "graphed_cases_bitwise": sorted(graphed["cases"]),
         "max_abs_err": max(errs),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -4656,7 +4932,7 @@ def check_kernel_table(table: list) -> None:
 
 
 PROBES = ("flash_attention", "rg_lru")
-ONLY = ("dryrun", "suites")
+ONLY = ("dryrun", "suites", "per_tick_graph")
 
 
 def write_results(path, t_start: float) -> None:
@@ -4678,8 +4954,8 @@ def main(argv=None) -> int:
                     help="the same as --probe flash_attention SOURCE ...")
     ap.add_argument("--only", choices=ONLY,
                     help="build the kernels this phase runs (dryrun: the LM "
-                         "kernels; suites: the simulator's) and run only "
-                         "this phase")
+                         "kernels; suites, per_tick_graph: the simulator's) "
+                         "and run only this phase")
     args = ap.parse_args(argv)
     probe = args.probe
     if args.probe_flash is not None:
@@ -4702,11 +4978,12 @@ def main(argv=None) -> int:
     from repro_torch.kernels import netsim_chunk as nc
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rg_lru as rl
+    from repro_torch.netsim import tick_graph
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
-    sim_kernels = dict(ms=ms, nc=nc, ops=ops)
+    sim_kernels = dict(ms=ms, nc=nc, ops=ops, tg=tick_graph)
     if probe:
         if probe[0] == "flash_attention":
             probe_flash(fa, ref, probe[1:])
@@ -4719,14 +4996,17 @@ def main(argv=None) -> int:
         phase_dryrun(fa, rl)
         write_results(args.out, t_start)
         return 0
-    if args.only == "suites":
+    if args.only in ("suites", "per_tick_graph"):
         phase_device([ms.LIBRARY, nc.LIBRARY])
-        phase_suites(sim_kernels, core, netsim, workload)
+        phase = (phase_suites if args.only == "suites"
+                 else phase_per_tick_graph)
+        phase(sim_kernels, core, netsim, workload)
         write_results(args.out, t_start)
         return 0
     dev = phase_device([ms.LIBRARY, nc.LIBRARY, fa.LIBRARY, rl.LIBRARY])
     kern = phase_kernel(ms, core)
     chunks = phase_chunk_vs_per_tick(sim_kernels, core, netsim, workload)
+    graphed = phase_per_tick_graph(sim_kernels, core, netsim, workload)
     main_path = phase_main_path(sim_kernels, core, netsim, workload)
     phase_small_agreement(core, netsim)
     states = phase_engine_states(sim_kernels, core, netsim, workload)
@@ -4750,7 +5030,7 @@ def main(argv=None) -> int:
     table = kernel_table(kern, main_path, states, chunks, timing, prof,
                          plans, figures, lm, served, armed, tel, flt,
                          trained, families, clustered, dry, armed_plans,
-                         examples)
+                         examples, graphed)
     check_kernel_table(table)
     RESULTS["kernels"] = table
     write_results(args.out, t_start)

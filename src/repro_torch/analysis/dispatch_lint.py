@@ -11,7 +11,10 @@ this layer asks the same functions that decision asks, in the same order
 re-states their logic:
 
 * ``dispatch/kernel-fallback``: the card would take the counted per-tick
-  path, with the reason;
+  path, with the reason, and which of its two routes: the CUDA graph of
+  a chunk (`netsim.tick_graph`), or the eager loop where
+  `tick_graph.eager_reason` keeps it (a user's Python callable in the
+  tick), with that reason;
 * ``dispatch/f64-operand``: a float64 tensor among the group's sweep
   leaves or its initial state (the counterpart of ``ir/f64-promotion``).
 
@@ -27,8 +30,8 @@ import torch
 
 from repro_torch.analysis.findings import Finding, make_finding
 
-__all__ = ["kernel_expectation", "float64_leaves", "initial_state",
-           "lint_dispatch"]
+__all__ = ["kernel_expectation", "per_tick_route", "float64_leaves",
+           "initial_state", "lint_dispatch"]
 
 
 def kernel_expectation(cfg, sweep) -> Union[str, tuple[str, str]]:
@@ -38,6 +41,16 @@ def kernel_expectation(cfg, sweep) -> Union[str, tuple[str, str]]:
 
     reason = ops.chunk_fallback_reason(cfg, sweep)
     return "chunk" if reason is None else ("per-tick", reason)
+
+
+def per_tick_route(cfg) -> Union[str, tuple[str, str]]:
+    """How the card runs a per-tick group: ``"graphed"`` (one CUDA graph
+    replay a chunk) or ``("eager", reason)`` (op by op, counted in
+    `tick_graph.EAGER_COUNT`)."""
+    from repro_torch.netsim import tick_graph
+
+    reason = tick_graph.eager_reason(cfg)
+    return "graphed" if reason is None else ("eager", reason)
 
 
 def _tensor_leaves(tree, path: str):
@@ -79,19 +92,26 @@ def lint_dispatch(cfg, sweep, *, label: str, state=None
     (built here on the CPU when None).
 
     Returns (findings, facts); facts = {"expectation": "chunk" |
-    "per-tick", "reason": str or None, "f64_operands": int}.
+    "per-tick", "reason": str or None, "per_tick_route": None | "graphed"
+    | "eager", "eager_reason": str or None, "f64_operands": int}.
     """
     findings: list[Finding] = []
-    reason: Optional[str] = None
+    reason = route = eager_reason = None
     exp = kernel_expectation(cfg, sweep)
     if exp == "chunk":
         expectation = "chunk"
     else:
         expectation, reason = exp
+        route = per_tick_route(cfg)
+        if route == "graphed":
+            how = "graphed (one CUDA graph replay a chunk)"
+        else:
+            route, eager_reason = route
+            how = f"eager, op by op ({eager_reason})"
         findings.append(make_finding(
             "dispatch/kernel-fallback", label,
-            f"the card runs this group on the counted per-tick path: "
-            f"{reason}"))
+            f"the card runs this group on the counted per-tick path, "
+            f"{how}: {reason}"))
     if state is None:
         state = initial_state(cfg, sweep)[2]
     f64 = float64_leaves(sweep=sweep, state=state)
@@ -100,4 +120,5 @@ def lint_dispatch(cfg, sweep, *, label: str, state=None
             "dispatch/f64-operand", label,
             f"{path} is float64 (the pipeline is pinned float32)"))
     return findings, {"expectation": expectation, "reason": reason,
+                      "per_tick_route": route, "eager_reason": eager_reason,
                       "f64_operands": len(f64)}

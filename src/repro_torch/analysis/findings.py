@@ -121,9 +121,11 @@ rule("dispatch/kernel-fallback", ERROR,
      "`kernels.ops.netsim_chunk` sends a non-default favoritism without "
      "Static factors, a callable F (the kernels compute the linear F and "
      "F1..F6), a custom telemetry probe or a point "
-     "over the shared-memory budget down the per-tick loop; a plan that "
-     "claims the chunk kernel then runs ~165 launches a tick instead of "
-     "one a chunk, and its timings are void.")
+     "over the shared-memory budget down the per-tick loop (replayed as "
+     "a CUDA graph of a chunk, or eager where a Python callable runs in "
+     "the tick, as the finding says); a plan that claims the chunk "
+     "kernel then runs ~165 launches a tick instead of one a chunk, and "
+     "its timings are void.")
 rule("dispatch/f64-operand", ERROR,
      "float64 tensor among a group's sweep leaves or initial state",
      "the engine and the kernels are pinned bit for bit in float32; a "
@@ -241,8 +243,10 @@ REFERENCE_RULES: dict[str, str] = {
     "ir/kernel-fallback": "dispatch/kernel-fallback",
     "ir/kernel-unexpected":
         "none: the port has no kernel-off configuration to keep clean "
-        "(SimConfig has no use_pallas_kernel; the plain per-tick path is "
-        "asked for only by engine.run_ticks(per_tick=True))",
+        "(SimConfig has no use_pallas_kernel; the plain per-tick path, "
+        "graphed on the card, is asked for only by "
+        "engine.run_ticks(per_tick=True), and its eager loop by "
+        "engine.run_ticks(eager=True))",
     "ir/f64-promotion": "dispatch/f64-operand",
     "ir/host-callback": "src/host-sync-in-loop",
     "ir/nested-control":

@@ -75,6 +75,7 @@ LOOP_ROOTS = (
     "repro_torch.netsim.engine:chunk_inputs",
     "repro_torch.netsim.engine:run_chunk_reference",
     "repro_torch.kernels.netsim_chunk:ChunkRun.step",
+    "repro_torch.netsim.tick_graph:TickGraph.step",
 )
 
 _PRAGMA = re.compile(

@@ -13,12 +13,12 @@ modes are:
   one group.  It is not a plan run, so it adds nothing to the suite's
   health.
 
-The per-tick path takes ~2.8 ms a tick on the card, so a 1.5 s run would
-take minutes: the oracle runs the same plan over a cut simulated time,
-``ORACLE_SIM_TIME`` (0.04 s), and its µs per tick are counted over its own
-ticks.  Each mode runs a warm-up, then the timed run.  ``interpret`` is
-true where the runs did not take the card (the CPU, where both modes run
-the plain version).
+On the card the per-tick path runs as a CUDA graph of one chunk
+(`netsim.tick_graph`), the port's counterpart of the reference's compiled
+oracle, so both modes run the same plan at the suite's own simulated time
+(``SIM_TIME``), as the reference's do.  Each mode runs a warm-up, then the
+timed run.  ``interpret`` is true where the runs did not take the card
+(the CPU, where both modes run the plain version).
 """
 from __future__ import annotations
 
@@ -29,19 +29,12 @@ from repro_torch import netsim
 from repro_torch.figures import common
 from repro_torch.netsim import counters, engine, experiment, metrics
 
-# the oracle's simulated time (the fused mode runs the suite's SIM_TIME)
-ORACLE_SIM_TIME = 0.04
-
-
 def _plan(use_kernel: bool, job_counts) -> netsim.Plan:
-    sim_time = None if use_kernel else ORACLE_SIM_TIME
-
     def build(pt):
         n = pt["n_jobs"]
         return common.build_cfg(netsim.dumbbell(n, sockets_per_job=2),
                                 common.gpt2(n),
-                                common.protocol("reno", "WI"),
-                                sim_time=sim_time)
+                                common.protocol("reno", "WI"))
     return common.plan(build, name=f"kernel-sweep-{use_kernel}",
                        n_jobs=tuple(job_counts),
                        seed=common.seed_axis())

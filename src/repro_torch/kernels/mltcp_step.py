@@ -30,7 +30,11 @@ launch, not by memory.
 The kernel is compiled with ``--fmad=false`` and IEEE division and uses
 the same cube root formula (`repro_torch.core.cc.cubic.cbrt`), so on the
 card the two agree bit for bit.  `mltcp_tick` launches the kernel for CUDA
-tensors and uses the plain version only for CPU tensors.
+tensors and uses the plain version only for CPU tensors; on ``meta``
+tensors it plans the launch (``PLANNED_LAUNCHES``) and returns empty
+outputs of the kernel's shapes.  The launch goes on the current stream
+and calls nothing a CUDA graph capture refuses, so `netsim.tick_graph`
+captures it as it is.
 """
 from __future__ import annotations
 
@@ -67,6 +71,8 @@ F_SPECS = {i: spec for spec, i in F_IDS.items()}
 
 # Launches of the CUDA kernel (never of the plain version).
 LAUNCH_COUNT = 0
+# Launches planned on meta tensors (a tick traced without a card)
+PLANNED_LAUNCHES = 0
 
 BLOCK = 256
 # the float constants, in the order of the kernel's `Consts` struct
@@ -266,14 +272,15 @@ def _check(name: str, t: Tensor, shape, dtype, device) -> None:
 def mltcp_tick(p: dict, dyn: Tensor, arrays: dict, now: Tensor,
                static_factors: Tensor | None = None) -> dict:
     """Run the fused tick: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  Same signature as `mltcp_tick_reference`.
+    version for CPU tensors, a planned launch (empty outputs) for meta
+    tensors.  Same signature as `mltcp_tick_reference`.
 
     Checks every operand's device, dtype, shape and contiguity and raises
     on anything the kernel does not take.  On the card it allocates the
     outputs, launches on the current stream without synchronizing, raises
     if the launch was refused, and counts the launch in `LAUNCH_COUNT`.
     """
-    global LAUNCH_COUNT
+    global LAUNCH_COUNT, PLANNED_LAUNCHES
     ref = arrays["cwnd"]
     device = ref.device
     if ref.ndim != 2:
@@ -291,6 +298,11 @@ def mltcp_tick(p: dict, dyn: Tensor, arrays: dict, now: Tensor,
                device)
     if device.type == "cpu":
         return mltcp_tick_reference(p, dyn, arrays, now, static_factors)
+    if device.type == "meta":
+        PLANNED_LAUNCHES += 1
+        return {name: torch.empty((k, n), device=device, dtype=(
+            torch.int32 if name == "stage" else torch.float32))
+            for name in OUT_ORDER}
     if device.type != "cuda":
         raise ValueError(f"mltcp_tick: no kernel for device {device}")
 

@@ -32,7 +32,9 @@ warning per reason: a configuration that `fallback_reason` sends to
 a point whose state does not fit the kernel's shared-memory budget
 (`netsim_chunk.budget_reason`).  Built-in probes, detectors and fault
 tables run in the armed chunk kernel on every CC specialization.  On the
-CPU the per-tick path is the plain version and nothing is counted.
+card that per-tick path is replayed as a CUDA graph of a chunk
+(`netsim.tick_graph`).  On the CPU the per-tick path is the plain version
+and nothing is counted.
 """
 from __future__ import annotations
 

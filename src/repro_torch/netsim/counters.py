@@ -25,8 +25,8 @@ from __future__ import annotations
 import contextlib
 import sys
 
-__all__ = ["traces", "fallbacks", "launches", "reset_fallback_warnings",
-           "watch", "CounterWatch"]
+__all__ = ["traces", "fallbacks", "launches", "captures", "replays",
+           "eager_runs", "reset_fallback_warnings", "watch", "CounterWatch"]
 
 
 def traces() -> int:
@@ -56,13 +56,33 @@ def launches() -> int:
     return _counter("repro_torch.kernels.netsim_chunk", "LAUNCH_COUNT")
 
 
+def captures() -> int:
+    """Per-tick chunks captured as a CUDA graph (one per graphed run)."""
+    return _counter("repro_torch.netsim.tick_graph", "CAPTURE_COUNT")
+
+
+def replays() -> int:
+    """Replays of the per-tick path's CUDA graphs (one per chunk)."""
+    return _counter("repro_torch.netsim.tick_graph", "REPLAY_COUNT")
+
+
+def eager_runs() -> int:
+    """Per-tick runs on the card kept on the eager loop by a Python
+    callable in the tick (`tick_graph.eager_reason`)."""
+    return _counter("repro_torch.netsim.tick_graph", "EAGER_COUNT")
+
+
 def reset_fallback_warnings() -> None:
-    """Re-arm ops.py's once-per-reason fallback warnings (no-op when the
-    kernels were never imported).  `run_plan` calls this per plan so each
-    plan warns at most once per fallback reason."""
+    """Re-arm ops.py's once-per-reason fallback warnings and the per-tick
+    path's eager-loop ones (no-op when the modules were never imported).
+    `run_plan` calls this per plan so each plan warns at most once per
+    fallback reason."""
     mod = sys.modules.get("repro_torch.kernels.ops")
     if mod is not None:
         mod.reset_fallback_warnings()
+    mod = sys.modules.get("repro_torch.netsim.tick_graph")
+    if mod is not None:
+        mod.reset_warnings()
 
 
 class CounterWatch:

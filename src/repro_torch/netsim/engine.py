@@ -64,6 +64,7 @@ from repro_torch.kernels import ops as kernel_ops
 from repro_torch.netsim import faults as faults_mod
 from repro_torch.netsim import random as rng
 from repro_torch.netsim import telemetry as telem
+from repro_torch.netsim import tick_graph
 from repro_torch.netsim.topology import HashableConfig, Topology
 
 Tensor = torch.Tensor
@@ -470,6 +471,8 @@ class TickStatics(NamedTuple):
     last_phase: Tensor    # [J] int32: n_phases - 1
     start_offset: Tensor  # [J]
     mss: Tensor           # 0-dim float32 divisor (a true division on the card)
+    # the interleave detector's job pairs (a < b), when telemetry arms it
+    pairs: Optional[tuple[Tensor, Tensor]] = None
 
 
 def _build_statics(cfg: SimConfig, device) -> TickStatics:
@@ -512,6 +515,9 @@ def _build_statics(cfg: SimConfig, device) -> TickStatics:
         start_offset=dev(jobs.start_offset, torch.float32),
         mss=torch.tensor(cfg.protocol.cc.mss, dtype=torch.float32,
                          device=device),
+        pairs=(telem.job_pairs(jobs.n_jobs, device)
+               if cfg.telemetry is not None
+               and cfg.telemetry.needs_interleave() else None),
     )
 
 
@@ -926,7 +932,8 @@ def _tick(cfg: SimConfig, statics: TickStatics, sweep: SweepParams,
             iter_done=iter_done, iter_time=iter_time, f_job=f_job,
             job_active=telem_active, fault_idx=inp.fault_idx,
             fault_ticks=sweep.fault_tick)
-        tstate = telem.tick_update(cfg, spec, st.telemetry, sig)
+        tstate = telem.tick_update(cfg, spec, st.telemetry, sig,
+                                   pairs=statics.pairs)
 
     return EngineState(
         proto=proto, backlog=backlog, transit=transit,
@@ -1043,15 +1050,18 @@ RUN_COUNT = 0
 
 
 def run_ticks(cfg: SimConfig, sweep: SweepParams,
-              per_tick: bool = False) -> RawSimOutput:
+              per_tick: bool = False, eager: bool = False) -> RawSimOutput:
     """The chunked run loop: ``n_chunks`` chunks of ticks, recording the
     chunk traces after each (the reference's scan of scans).  On the card
     each chunk is one launch of the chunk kernel (`ChunkRun`, from
     `kernels.ops.netsim_chunk`); with ``per_tick``, on the CPU, and for the
     configurations the kernel does not take (counted there), each chunk
-    runs `run_chunk_reference`.  Nothing in the loop reads back to the
-    host, so the host draws the next chunk's inputs while the card runs
-    the last."""
+    runs `run_chunk_reference`: on the card as one replay of its CUDA
+    graph (`tick_graph.TickGraph`), but where `tick_graph.eager_reason`
+    keeps the eager loop (counted there) or ``eager`` asks for it (the
+    graph's plain version, for the card's comparisons).  Nothing in the
+    loop reads back to the host, so the host draws the next chunk's inputs
+    while the card runs the last."""
     global RUN_COUNT
     RUN_COUNT += 1
     dev = sweep.slope.device
@@ -1060,9 +1070,11 @@ def run_ticks(cfg: SimConfig, sweep: SweepParams,
     wl = _workload_view(cfg, statics, sweep)
     ticks_per_chunk = max(1, cfg.n_ticks // cfg.n_chunks)
     n_chunks = cfg.n_ticks // ticks_per_chunk
-    chunks = (None if per_tick
+    chunks = (None if per_tick or eager
               else kernel_ops.netsim_chunk(cfg, statics, sweep, wl, st,
                                            n_chunks))
+    graph = (None if chunks is not None or eager
+             else tick_graph.runner(cfg, statics, sweep, wl, st))
     if chunks is not None:
         # the card's main path: the state stays packed between chunks and
         # the kernel writes the traces
@@ -1073,10 +1085,18 @@ def run_ticks(cfg: SimConfig, sweep: SweepParams,
     else:
         traces = []
         for _ in range(n_chunks):
-            inputs = chunk_inputs(cfg, statics, sweep, st, ticks_per_chunk)
-            st, probes = run_chunk_reference(cfg, statics, sweep, wl, st,
-                                             inputs)
-            traces.append(probes)
+            if graph is not None:
+                # the state stays in the graph's static buffers
+                traces.append(graph.step(chunk_inputs(
+                    cfg, statics, sweep, graph, ticks_per_chunk)))
+            else:
+                inputs = chunk_inputs(cfg, statics, sweep, st,
+                                      ticks_per_chunk)
+                st, probes = run_chunk_reference(cfg, statics, sweep, wl,
+                                                 st, inputs)
+                traces.append(probes)
+        if graph is not None:
+            st = graph.state()
         stacked = [torch.stack(col_, dim=1) for col_ in zip(*traces)]
     return RawSimOutput(iter_times=st.iter_times, iter_counts=st.iter_idx,
                         **dict(zip(CHUNK_FIELDS, stacked)), final_state=st,

@@ -356,9 +356,10 @@ def init_state(cfg, spec: TelemetrySpec, k: int, device) -> TelemetryState:
                           n_samples=full((), 0, torch.int32), **kw)
 
 
-def _pairs(j: int, device) -> tuple[Tensor, Tensor]:
+def job_pairs(j: int, device) -> tuple[Tensor, Tensor]:
     """The job pairs (a < b) in row-major order: the fold order of the
-    overlap sum."""
+    overlap sum.  The engine builds them once a run (`TickStatics.pairs`),
+    so that a tick copies nothing from the host."""
     ia, ib = np.triu_indices(j, 1)
     return (torch.as_tensor(ia, device=device),
             torch.as_tensor(ib, device=device))
@@ -378,16 +379,17 @@ def _ring_write(buf: Tensor, sel: Tensor, val: Tensor) -> Tensor:
 
 
 def tick_update(cfg, spec: TelemetrySpec, st: TelemetryState,
-                sig: TickSignals) -> TelemetryState:
+                sig: TickSignals, pairs=None) -> TelemetryState:
     """One telemetry step of K points: detectors first (so the
     ``interleave_overlap`` probe sees this tick's value), then decimated
-    ring-buffer capture."""
+    ring-buffer capture.  ``pairs`` are `job_pairs` on the signals'
+    device (built here when None)."""
     kw: dict = {}
     k, j = sig.in_comm.shape
     dev = sig.in_comm.device
 
     if spec.needs_interleave():
-        ia, ib = _pairs(j, dev)
+        ia, ib = job_pairs(j, dev) if pairs is None else pairs
         a, b = sig.in_comm[:, ia], sig.in_comm[:, ib]
         if sig.job_active is not None:
             w = (sig.job_active[:, ia] & sig.job_active[:, ib]).to(
@@ -469,9 +471,16 @@ def tick_update(cfg, spec: TelemetrySpec, st: TelemetryState,
 # Built-in chunk probes — the trace_* channels
 # ---------------------------------------------------------------------------
 
+def _divisor(value: float, st) -> Tensor:
+    """A 0-dim float32 divisor on the state's device, filled there (no copy
+    from the host, so a CUDA graph can capture it), so that the division is
+    a true one on the card."""
+    return torch.full((), value, dtype=torch.float32,
+                      device=st.acc_util.device)
+
+
 def _span(cfg, st, tpc: int) -> Tensor:
-    return torch.tensor(tpc * cfg.dt, dtype=torch.float32,
-                        device=st.acc_util.device)
+    return _divisor(tpc * cfg.dt, st)
 
 
 # name -> capture(cfg, statics, st, ticks_per_chunk); insertion order is the
@@ -479,7 +488,7 @@ def _span(cfg, st, tpc: int) -> Tensor:
 # epilogue computes the same expressions (engine.run_ticks' traces).
 CHUNK_PROBES: dict[str, Callable] = {
     "trace_util": lambda cfg, statics, st, tpc:
-        st.acc_util / torch.tensor(float(tpc), device=st.acc_util.device),
+        st.acc_util / _divisor(float(tpc), st),
     "trace_drops": lambda cfg, statics, st, tpc: st.acc_drops,
     "trace_marks": lambda cfg, statics, st, tpc: st.acc_marks,
     "trace_incomm": lambda cfg, statics, st, tpc: st.in_comm,

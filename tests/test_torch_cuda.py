@@ -14,8 +14,9 @@ alone; the paper's F1..F6 in both CC kernels; and the armed chunk kernel
 (telemetry and faults, and the fig 5 and churn plans' specializations at
 their widths) against the per-tick
 path, its sketch bins against torch's, and a plan with
-telemetry and a fault-schedule axis on the kernel.  Without a card every
-test skips, with its reason.
+telemetry and a fault-schedule axis on the kernel; and the per-tick path
+replayed as a CUDA graph of a chunk (`netsim.tick_graph`) against its eager
+loop, counted.  Without a card every test skips, with its reason.
 """
 import dataclasses
 
@@ -406,6 +407,80 @@ def test_cuda_plan_with_telemetry_and_faults_runs_on_the_kernel():
     for r in pr:
         assert r.telemetry.fault_events
         assert r.telemetry.series["job_iter"].shape[1] == 2
+
+
+# ---------------------------------------------------------------------------
+# the per-tick path as a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _graph_armed_case():
+    cfg, overrides = _armed_cfg(0)
+    return cfg, dict(seed=[3, 5], **overrides)
+
+
+def _earliest_start_case():
+    cfg = _cfg()
+    proto = dataclasses.replace(cfg.protocol, favoritism="earliest_iter_start")
+    return dataclasses.replace(cfg, protocol=proto), dict(seed=[3, 5])
+
+
+# name -> (config, sweep overrides) of the graphed per-tick path against its
+# eager loop: Reno WI, DCQCN with ECN, CUBIC MD with Static factors, every
+# probe, detector and fault channel armed, and a favoritism the CC kernel
+# does not take (core.cc_tick each tick, graphed)
+GRAPH_CASES = {
+    "reno_wi": lambda: (_cfg(), dict(seed=[3, 5])),
+    "dcqcn_wi_ecn": lambda: (_cfg(algo=2, spj=1, **RED_ECN),
+                             dict(seed=[3, 5])),
+    "cubic_md_static_factors": lambda: (
+        _cfg(algo=1, variant=2, n_jobs=3),
+        dict(seed=[3, 5], static_job_factors=[[1.3, -1.0, 0.7],
+                                              [-1.0, -1.0, -1.0]])),
+    "reno_wi_armed": _graph_armed_case,
+    "reno_wi_earliest_iter_start": _earliest_start_case,
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_cuda_graphed_per_tick_path_equals_eager_loop_bitwise(case):
+    """The per-tick path replayed as a CUDA graph of a chunk equals its
+    eager loop on every leaf; the run captures once, replays once a chunk
+    and counts one CC launch (or `core.cc_tick` call) per tick and per
+    warm-up tick."""
+    from repro_torch.kernels import ops
+    from repro_torch.netsim import tick_graph
+
+    cfg, overrides = GRAPH_CASES[case]()
+    sweep = netsim.make_sweep(cfg, device="cuda", **overrides)
+    want = engine.run_ticks(cfg, sweep, eager=True)
+    before = (ms.LAUNCH_COUNT, ops.FALLBACK_COUNT, tick_graph.CAPTURE_COUNT,
+              tick_graph.REPLAY_COUNT, nc.LAUNCH_COUNT)
+    got = engine.run_ticks(cfg, sweep, per_tick=True)
+    after = (ms.LAUNCH_COUNT, ops.FALLBACK_COUNT, tick_graph.CAPTURE_COUNT,
+             tick_graph.REPLAY_COUNT, nc.LAUNCH_COUNT)
+    _assert_bitwise(got, want)
+    assert int(want.iter_counts.sum()) > 0
+    ticks = cfg.n_ticks + tick_graph.WARM_UP_TICKS
+    cc = (0, ticks) if case.endswith("iter_start") else (ticks, 0)
+    assert tuple(b - a for a, b in zip(before, after)) == (
+        *cc, 1, cfg.n_chunks, 0)
+
+
+def test_cuda_registered_probe_keeps_the_eager_loop(monkeypatch):
+    """A probe added with `register_probe` keeps the per-tick path eager on
+    the card, with its reason counted; nothing is captured."""
+    from repro_torch.netsim import tick_graph
+
+    monkeypatch.setitem(telemetry.PROBES, "twice_cwnd", telemetry.Probe(
+        kind="flow", capture=lambda s: 2.0 * s.cwnd))
+    cfg = _cfg(telemetry=telemetry.TelemetrySpec(probes=("twice_cwnd",),
+                                                 stride=5))
+    sweep = netsim.make_sweep(cfg, device="cuda", seed=[3, 5])
+    before = (tick_graph.EAGER_COUNT, tick_graph.CAPTURE_COUNT)
+    got = engine.run_ticks(cfg, sweep)
+    assert (tick_graph.EAGER_COUNT - before[0],
+            tick_graph.CAPTURE_COUNT - before[1]) == (1, 0)
+    _assert_bitwise(got, engine.run_ticks(cfg, sweep, eager=True))
 
 
 # ---------------------------------------------------------------------------
