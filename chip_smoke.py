@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py [--out results.json]
-    python3 chip_smoke.py --only dryrun|suites [--out results.json]
+    python3 chip_smoke.py --only PHASE [PHASE ...] [--out results.json]
     python3 chip_smoke.py --probe KERNEL [OLD/KERNEL.cu ...]
 
 It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
@@ -34,15 +34,17 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
 * experiment plans: it runs the paper's fig 10 plans (Reno and DCQCN:
   OFF/WI x 2-6 jobs, two padded groups of K=5 each) and fig 12 plan
   (straggle probability x base/MLQCN/Cassini on DCQCN with ECN) through
-  ``netsim.run_plan`` and the chunk kernel at the suites' 1.5 s, counts
-  each plan's launches on its own, reports every cell beside the JAX
-  reference's numbers for the same plans
+  ``netsim.run_plan`` and the chunk kernel at the suites' 1.5 s and seeds
+  1-32, counts each plan's launches on its own, reports every cell at
+  seeds 1-3 beside the JAX reference's numbers for the same seeds
   (``results/reference_plans.json``, written by
-  ``scripts/reference_plans.py``), holds a padded-jobs point bit for bit
-  against the same point run alone, serves the fig 12 plan a second time
-  from the plan cache with no launch, and times one group as K grows
-  from 2 to 264; fig 10 Reno runs at seeds 1-3, beside the reference's
-  three seeds;
+  ``scripts/reference_plans.py``) and holds every cell at seeds 1-32 to
+  the reference's distribution over the same seeds
+  (``results/reference_seeds.json``, ``--seeds 32``: a Mann-Whitney U per
+  metric, Fisher's exact test on the "never" counts, Holm at 0.01 over
+  the phase), holds a padded-jobs point bit for bit against the same
+  point run alone, serves the fig 12 plan a second time from the plan
+  cache with no launch, and times one group as K grows from 2 to 512;
 * the other figure plans (``figures``): figs 7-9 (every algorithm, OFF
   and WI), Table 2 (four snapshots on the two-tier fabric, each job
   alone), fig 13 (Static against MLQCN), fig 14 (the triangle, Cassini
@@ -50,11 +52,14 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   one WI group of K = 48), fig 17 (WI against MD) and kernel_sweep,
   the suites' own plans (``repro_torch.figures`` through
   ``analysis/plans.py``), through
-  ``run_plan`` and the chunk kernel at 1.5 s and seeds 1-3, each counted:
-  groups as the plan lint predicted and as the suites assert, each cell
-  beside the reference's, the paper's claims held wherever the reference
-  holds them at the same seed, F1 bit for bit equal to linear(1.75,
-  0.25), and kernel_sweep's chunk and per-tick paths in turns; the CC
+  ``run_plan`` and the chunk kernel at 1.5 s and seeds 1-32, each
+  counted: groups as the plan lint predicted and as the suites assert,
+  at seeds 1-3 each cell beside the reference's and the paper's claims
+  held wherever the reference holds them at the same seed, at seeds 1-32
+  every cell and claim held to the reference's distribution as in the
+  plans phase (claims by Fisher's exact test on the seeds where they
+  hold), F1 bit for bit equal to linear(1.75, 0.25), and kernel_sweep's
+  chunk and per-tick paths in turns; the CC
   tick's and the chunk kernel's parity cases include F1..F6, and the
   chunk kernel's the plans' own shapes (fig 14's triangle under its
   Cassini schedule, Table 2's one-hot job masks on its two-tier fabric,
@@ -146,9 +151,9 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   FLASH backend and the port's chunked plain route, beside its bound and
   SDPA's time.
 
-``--only dryrun`` builds the two LM kernels and runs that phase alone;
-``--only suites`` and ``--only per_tick_graph`` build the two simulator
-kernels and run that phase.
+``--only PHASE ...`` builds the kernels of the phases named and runs
+those alone, in that order: ``dryrun`` the two LM kernels; ``suites``,
+``per_tick_graph``, ``plans`` and ``figures`` the two simulator kernels.
 ``--probe KERNEL`` (``flash_attention`` or ``rg_lru``; ``--probe-flash``
 is ``--probe flash_attention``) is the short first call after a change to
 that kernel: it builds the kernels (``ptxas -v``), holds the checkout's
@@ -1450,22 +1455,28 @@ def phase_profile(kern, core, netsim, workload) -> dict:
 # ---------------------------------------------------------------------------
 
 # The suites' plans (repro_torch/figures/speedup_vs_jobs.py, stragglers.py)
-# at their REPRO_SMOKE depth and seed; fig 10 Reno at seeds 1-3 (the
-# reference's seeds in results/reference_plans.json: its spread across them
-# is what settles whether the port's cells differ from the reference's by
-# chaos).
+# at their REPRO_SMOKE depth, at seeds 1-32: the reference's distribution
+# over the same seeds (results/reference_seeds.json) is what settles
+# whether the port's cells differ from the reference's by chaos
+# (`distribution_check`).  The paired checks (`tier_b`, the claims,
+# `seed_spread`) read the columns of seeds 1-3, the reference's seeds in
+# results/reference_plans.json; the chunk kernel runs each point alone, so
+# those columns are what a run at seeds 1-3 gives.
 PLAN_SIM_TIME = 1.5
-PLAN_SEEDS = (1,)
-FIG10_RENO_SEEDS = (1, 2, 3)
+PLAN_SEEDS = tuple(range(1, 33))
+PAIRED_SEEDS = (1, 2, 3)
 VARIANT = {"OFF": 0, "WI": 1}
-# the JAX reference's numbers for the same plans, seeds 1-3
-# (scripts/reference_plans.py); the cache the second fig 12 run reads
+# the JAX reference's numbers for the same plans, seeds 1-3 and 1-32
+# (scripts/reference_plans.py, and with --seeds 32); the cache the second
+# fig 12 run reads
 REFERENCE_PLANS = os.path.join(ROOT, "results", "reference_plans.json")
+REFERENCE_SEEDS = os.path.join(ROOT, "results", "reference_seeds.json")
 PLAN_CACHE = os.path.join(ROOT, "build", "plan_cache")
 # One group at growing K: fig7-reno WI (N = 4) at 0.3 s, the point
 # repeated across seeds 1..K, in the config's 400 chunks (37 ticks each)
-# and in 80 (187 ticks, the main path's chunk size).
-K_SCALING = (2, 21, 132, 264)
+# and in 80 (187 ticks, the main path's chunk size); 512 is fig 16's WI
+# group at 32 seeds.
+K_SCALING = (2, 21, 132, 264, 512)
 K_SIM_TIME = 0.3
 K_CHUNKS = (400, 80)
 
@@ -1517,7 +1528,9 @@ def check_plan(pr, counts: dict, max_groups: int, idle=()) -> dict:
                                  f"recorded no finite iteration")
     return dict(n_compile_groups=pr.n_compile_groups,
                 groups=[dict(k=g.n_points, n_jobs=g.n_jobs,
-                             n_flows=g.n_flows, execute_s=g.execute_s)
+                             n_flows=g.n_flows, execute_s=g.execute_s,
+                             us_per_point_tick=1e6 * g.execute_s
+                             / g.n_ticks / g.n_points)
                         for g in pr.profile.groups],
                 points=len(pr), ticks=ticks_run(cfg), launches=counts,
                 n_kernel_launches=pr.n_kernel_launches,
@@ -1617,6 +1630,43 @@ def seed_spread(name: str, cells: dict, ref: dict, cell: str, metric: str,
                 port_spread=spread, reference_spread=max(want) - min(want),
                 mean_gap=mean_gap,
                 chaos=bool(not all(outside) and abs(mean_gap) <= spread))
+
+
+def reference_seeds(seeds) -> dict:
+    """results/reference_seeds.json, which must hold ``seeds``."""
+    with open(REFERENCE_SEEDS) as f:
+        dist = json.load(f)
+    if dist["seeds"] != list(seeds):
+        raise AssertionError(f"{REFERENCE_SEEDS} holds seeds {dist['seeds']}"
+                             f", not {list(seeds)}")
+    return dist
+
+
+def distribution(rows: list, seeds, named=(), outside=()) -> dict:
+    """A phase's `distribution_check` rows (Holm over all of them) as its
+    line reports them: the rows ``named`` by (plan, cell, metric), the
+    rejected ones, and each of `tier_b`'s ``outside`` values (with its
+    ``plan``) beside its metric's p and verdict."""
+    by = {(r["plan"], r["cell"], r["metric"]): r for r in rows}
+    return dict(seeds=[seeds[0], seeds[-1]],
+                alpha=reference_plan_script().ALPHA, n_rows=len(rows),
+                rejected=[r for r in rows if r["verdict"] == "reject"],
+                named=[by[key] for key in named],
+                outside=[dict(o, p=by[o["plan"], o["cell"], o["metric"]]["p"],
+                              verdict=by[o["plan"], o["cell"],
+                                         o["metric"]]["verdict"])
+                         for o in outside],
+                rows=rows)
+
+
+def check_distribution(phase: str, dist: dict) -> None:
+    """Fail the phase (after its line) on a rejected row."""
+    if dist["rejected"]:
+        raise AssertionError(
+            f"{phase}: the port's distribution over seeds "
+            f"{dist['seeds'][0]}-{dist['seeds'][1]} differs from the "
+            f"reference's (Holm at {dist['alpha']}): "
+            f"{[(r['plan'], r['cell'], r['metric'], r['p']) for r in dist['rejected']]}")
 
 
 def compare_prefix(padded, slot: int, alone) -> dict:
@@ -1726,25 +1776,30 @@ def k_row(kern, netsim, cfg, k: int) -> dict:
 
 def phase_plans(kern, core, netsim, workload) -> dict:
     """The paper's fig 10 (Reno and DCQCN) and fig 12 plans through
-    `netsim.run_plan` on the card, each counted on its own; their cells
-    against the reference's numbers (Tier B); a padded point against its
-    unpadded run, bitwise; the fig 12 plan again from the cache; and the
-    chunk kernel's time per tick as one group's K grows."""
+    `netsim.run_plan` on the card at seeds 1-32, each counted on its own;
+    their cells at seeds 1-3 against the reference's numbers at the same
+    seeds (Tier B), and at seeds 1-32 against the reference's distribution
+    (`distribution_check`, which fails the phase after its line on a
+    rejected row); a padded point against its unpadded run, bitwise; the
+    fig 12 plan again from the cache; and the chunk kernel's time per tick
+    as one group's K grows."""
     import shutil
 
     from repro_torch.analysis import plans as suites
 
+    rp = reference_plan_script()
     with open(REFERENCE_PLANS) as f:
         ref = json.load(f)
+    dist = reference_seeds(PLAN_SEEDS)
     out, plans = {}, {}
-    for algo, seeds in (("reno", FIG10_RENO_SEEDS), ("dcqcn", PLAN_SEEDS)):
+    for algo in ("reno", "dcqcn"):
         plans[f"fig10-{algo}"] = (suites.fig10_plan(algo, PLAN_SIM_TIME,
-                                                    seeds), 2, {}, seeds)
+                                                    PLAN_SEEDS), 2, {})
     shutil.rmtree(PLAN_CACHE, ignore_errors=True)
     plans["fig12"] = (suites.fig12_plan(PLAN_SIM_TIME, PLAN_SEEDS), 2,
-                      dict(cache_dir=PLAN_CACHE), PLAN_SEEDS)
+                      dict(cache_dir=PLAN_CACHE))
     results = {}
-    for name, (plan, max_groups, kw, seeds) in plans.items():
+    for name, (plan, max_groups, kw) in plans.items():
         predicted = predicted_groups(plan)
         pr, seconds, counts = counted(
             kern, lambda: netsim.run_plan(plan, device=DEVICE, **kw))
@@ -1753,20 +1808,23 @@ def phase_plans(kern, core, netsim, workload) -> dict:
         if name.startswith("fig10") and (
                 info["n_compile_groups"] != 2
                 or any((g["k"], g["n_jobs"], g["n_flows"])
-                       != (5 * len(seeds), 6, 12) for g in info["groups"])):
+                       != (5 * len(PLAN_SEEDS), 6, 12)
+                       for g in info["groups"])):
             raise AssertionError(f"{name}: groups {info['groups']}, "
-                                 f"expected two of K={5 * len(seeds)} on "
-                                 f"6 jobs x 2 flows")
+                                 f"expected two of K={5 * len(PLAN_SEEDS)} "
+                                 f"on 6 jobs x 2 flows")
         cells = plan_cells(netsim, pr)
+        paired = rp.seed_columns(cells, PLAN_SEEDS, PAIRED_SEEDS)
         results[name] = pr
         out[name] = dict(seconds=seconds,
                          us_per_tick=1e6 * seconds / info["ticks"],
                          groups_predicted=predicted, **info, cells=cells,
-                         tier_b=tier_b(name, cells, ref, seeds))
-    # ROADMAP queue 3 item 1: fig 10 Reno 6 jobs, p99, against the
-    # reference's seeds 1-3
+                         tier_b=tier_b(name, paired, ref, PAIRED_SEEDS))
+    # fig 10 Reno 6 jobs, p99, against the reference's seeds 1-3
     out["fig10_reno_6_jobs_p99"] = seed_spread(
-        "fig10-reno", out["fig10-reno"]["cells"], ref, "6", "p99_speedup",
+        "fig10-reno", rp.seed_columns(out["fig10-reno"]["cells"],
+                                      PLAN_SEEDS, PAIRED_SEEDS),
+        ref, "6", "p99_speedup",
         out["fig10-reno"]["tier_b"]["tolerance"]["p99_speedup"])
     out["padded_vs_alone"] = padded_vs_alone(kern, netsim,
                                              plans["fig10-reno"][0], 3)
@@ -1781,10 +1839,17 @@ def phase_plans(kern, core, netsim, workload) -> dict:
     out["cache"] = dict(hits=again.n_cache_hits, points=len(again),
                         launches=counts, seconds=seconds, equal=True)
     out["k_scaling"] = k_scaling(kern, core, netsim, workload)
-    out["reference_source"] = os.path.relpath(REFERENCE_PLANS, ROOT)
+    out["reference_source"] = [os.path.relpath(p, ROOT)
+                               for p in (REFERENCE_PLANS, REFERENCE_SEEDS)]
     out["outside_tolerance"] = [dict(plan=name, **o) for name in plans
                                 for o in out[name]["tier_b"]["outside"]]
+    out["distribution"] = distribution(
+        rp.distribution_check({n: out[n]["cells"] for n in plans},
+                              {n: dist["plans"][n]["cells"] for n in plans}),
+        PLAN_SEEDS, named=[("fig10-reno", "6", "p99_speedup")],
+        outside=out["outside_tolerance"])
     emit("plans", **out)
+    check_distribution("plans", out["distribution"])
     return out
 
 
@@ -1792,9 +1857,10 @@ def phase_plans(kern, core, netsim, workload) -> dict:
 # the paper's other figure plans
 # ---------------------------------------------------------------------------
 
-# the suites' REPRO_SMOKE depth, at the reference's seeds 1-3
+# the suites' REPRO_SMOKE depth, at seeds 1-32 as the fig 10 and fig 12
+# plans (PLAN_SEEDS; the paired checks read seeds 1-3)
 FIGURE_SIM_TIME = 1.5
-FIGURE_SEEDS = (1, 2, 3)
+FIGURE_SEEDS = PLAN_SEEDS
 # each figure's entry in results/benchmarks.json (the JAX reference's
 # suites, seed 1, REPRO_SMOKE)
 FIGURE_RECORDED = {"fig7-9": "fig7_9_convergence",
@@ -1868,7 +1934,7 @@ def kernel_sweep_turns(kern, netsim, suites) -> dict:
     for per_tick in (True, False, False, True):
         sim_time = PER_TICK_SIM_TIME if per_tick else FIGURE_SIM_TIME
         points, cfgs, overrides, groups = experiment.resolve_plan(
-            suites.kernel_sweep_plan(sim_time, FIGURE_SEEDS))
+            suites.kernel_sweep_plan(sim_time, PAIRED_SEEDS))
         (group,) = groups
         sweep = experiment.group_sweep(cfgs, overrides, group, device=DEVICE)
         _, seconds, counts = run_counted(kern, group.cfg, sweep,
@@ -1887,32 +1953,56 @@ def kernel_sweep_turns(kern, netsim, suites) -> dict:
                 per_tick_over_chunk=med["per_tick"] / med["chunk"])
 
 
+def excused_idle(pr, paired, anywhere) -> list:
+    """[point label, job] of the port's run that `check_plan` lets record
+    no iteration: at seeds 1-3 what the reference's run leaves idle at the
+    same seed (``paired``, reference_plans.json's ``idle_jobs``); at
+    another seed a job that the reference leaves idle in the same cell at
+    any of its seeds 1-32 (``anywhere``, reference_seeds.json's): which
+    seeds those are is chaos (Table 2's roberta beside camembert)."""
+    def cell(label):
+        return ",".join(p for p in label.split(",")
+                        if not p.startswith("seed="))
+    idle_cells = {(cell(label), j) for label, j in anywhere}
+    return [list(pair) for pair in paired] + [
+        [r.point.label(), j] for r in pr
+        if r.point["seed"] not in PAIRED_SEEDS
+        for j in range(len(r.iter_times))
+        if (cell(r.point.label()), j) in idle_cells]
+
+
 def phase_figures(kern, core, netsim, workload) -> dict:
     """The paper's other figure plans (`analysis.plans.FIGURES`: figs 7-9,
     Table 2, figs 13-17, kernel_sweep) through `netsim.run_plan` on the
-    card at the suites' 1.5 s and seeds 1-3, each counted on its own: the
+    card at the suites' 1.5 s and seeds 1-32, each counted on its own: the
     plan lint's groups, every group on the chunk kernel (one launch a chunk,
     no per-tick launch, no fallback; fig 15's F1..F6 groups among them),
-    the suites' own group assertions; each cell against the reference's
-    (Tier B); the paper's claims, failing only where the reference holds
-    one at the same seed; F1 against linear(1.75, 0.25), bit for bit; and
-    kernel_sweep's two paths in turns."""
+    the suites' own group assertions; at seeds 1-3 each cell against the
+    reference's (Tier B) and the paper's claims, failing only where the
+    reference holds one at the same seed; at seeds 1-32 every cell and
+    claim against the reference's distribution (`distribution_check`,
+    which fails the phase after its line on a rejected row); F1 against
+    linear(1.75, 0.25), bit for bit; and kernel_sweep's two paths in
+    turns."""
     from repro_torch.analysis import plans as suites
 
     t0 = time.time()
     rp = reference_plan_script()
     with open(REFERENCE_PLANS) as f:
         ref = json.load(f)
+    dist = reference_seeds(FIGURE_SEEDS)
     with open(os.path.join(ROOT, "results", "benchmarks.json")) as f:
         recorded = json.load(f)
-    out, summary = {}, {}
+    out, summary, port_claims = {}, {}, {}
     for name, build in suites.FIGURES.items():
         plan = build(FIGURE_SIM_TIME, FIGURE_SEEDS)
         predicted = predicted_groups(plan)
         pr, seconds, counts = counted(
             kern, lambda: netsim.run_plan(plan, device=DEVICE))
         lo, hi = rp.SUITE_GROUPS.get(name, (predicted, predicted))
-        idle = ref["plans"].get(name, {}).get("idle_jobs", ())
+        idle = excused_idle(
+            pr, ref["plans"].get(name, {}).get("idle_jobs", ()),
+            dist["plans"].get(name, {}).get("idle_jobs", ()))
         info = check_plan(pr, counts, hi, idle)
         check_prediction(name, predicted, pr.n_compile_groups)
         if info["n_compile_groups"] < lo:
@@ -1929,24 +2019,26 @@ def phase_figures(kern, core, netsim, workload) -> dict:
             cells = rp.figure_cells(name, netsim, workload, pr)
             feasible = (bool(suites.fig14_schedule()[1]) if name == "fig14"
                         else None)
-            claims = rp.figure_claims(name, cells, feasible)
+            port_claims[name] = rp.figure_claims(name, cells, feasible)
+            paired = rp.seed_columns(cells, FIGURE_SEEDS, PAIRED_SEEDS)
+            claims = rp.figure_claims(name, paired, feasible)
             ref_claims = rp.figure_claims(name, want["cells"],
                                           want.get("cassini_has_schedule"))
-            unheld = [(c, FIGURE_SEEDS[i])
+            unheld = [(c, PAIRED_SEEDS[i])
                       for c, i in rp.unshared_claims(claims, ref_claims)]
             if unheld:
                 raise AssertionError(f"{name}: claims the reference holds "
                                      f"fail on the port at seeds: {unheld}")
             row.update(
                 cells=cells, means=figure_means(cells),
-                reference_means=figure_means(want["cells"]),
+                reference_means=figure_means(dist["plans"][name]["cells"]),
                 recorded=recorded.get(FIGURE_RECORDED[name]),
                 claims=claims, reference_claims=ref_claims,
-                failed_in_both=[(c, FIGURE_SEEDS[i])
+                failed_in_both=[(c, PAIRED_SEEDS[i])
                                 for c, held in claims.items()
                                 for i, h in enumerate(held)
                                 if not h and not ref_claims[c][i]],
-                tier_b=tier_b(name, cells, ref, FIGURE_SEEDS,
+                tier_b=tier_b(name, paired, ref, PAIRED_SEEDS,
                               FIGURE_METRICS[name]))
             if name == "fig14":
                 row["cassini_has_schedule"] = feasible
@@ -1956,6 +2048,8 @@ def phase_figures(kern, core, netsim, workload) -> dict:
             us_per_group_tick=row["us_per_tick"] / info["n_compile_groups"],
             groups=info["n_compile_groups"], predicted=predicted,
             k=[g["k"] for g in info["groups"]],
+            us_per_point_tick=[g["us_per_point_tick"]
+                               for g in info["groups"]],
             launches=counts["netsim_chunk"])
     out["f1_equals_linear"] = f1_equals_linear(
         kern, netsim, suites.fig15_plan(FIGURE_SIM_TIME, FIGURE_SEEDS))
@@ -1964,8 +2058,18 @@ def phase_figures(kern, core, netsim, workload) -> dict:
     out["outside_tolerance"] = [dict(plan=name, **o) for name in ref["plans"]
                                 if name in out and "tier_b" in out[name]
                                 for o in out[name]["tier_b"]["outside"]]
+    out["distribution"] = distribution(
+        rp.distribution_check(
+            {n: out[n]["cells"] for n in port_claims},
+            {n: dist["plans"][n]["cells"] for n in port_claims},
+            port_claims=port_claims,
+            ref_claims={n: dist["plans"][n]["claims"] for n in port_claims}),
+        FIGURE_SEEDS, named=[("fig7-9", "cubic", "converged_at_iter"),
+                             ("fig7-9", "cubic", "mltcp_interleave")],
+        outside=out["outside_tolerance"])
     out["seconds"] = time.time() - t0
     emit("figures", **out)
+    check_distribution("figures", out["distribution"])
     return out
 
 
@@ -2226,7 +2330,8 @@ ARMED_PLANS = ("fig17", "fig13")
 
 def phase_armed_plans(kern, netsim) -> dict:
     """Fig 17's and fig 13's plans (`analysis.plans.FIGURES`) at the
-    figures phase's depth through `run_plan` on the card, unarmed and then
+    figures phase's depth and seeds 1-3 through `run_plan` on the card,
+    unarmed and then
     with the fig 5 spec armed, each counted: the plan lint's groups, one
     launch a chunk, no per-tick launch and no fallback, and every
     non-telemetry leaf of every point of the armed run bitwise equal to
@@ -2238,7 +2343,7 @@ def phase_armed_plans(kern, netsim) -> dict:
         ref = json.load(f)
     out = {}
     for name in ARMED_PLANS:
-        plan = suites.FIGURES[name](FIGURE_SIM_TIME, FIGURE_SEEDS)
+        plan = suites.FIGURES[name](FIGURE_SIM_TIME, PAIRED_SEEDS)
         idle = ref["plans"].get(name, {}).get("idle_jobs", ())
         runs, row = {}, {}
         for arm, tel in (("unarmed", None), ("armed", spec)):
@@ -2260,7 +2365,7 @@ def phase_armed_plans(kern, netsim) -> dict:
         row.update(bitwise_unarmed=True, armed_over_unarmed=(
             row["armed"]["us_per_tick"] / row["unarmed"]["us_per_tick"]))
         out[name] = row
-    emit("armed_plans", sim_time=FIGURE_SIM_TIME, seeds=FIGURE_SEEDS,
+    emit("armed_plans", sim_time=FIGURE_SIM_TIME, seeds=PAIRED_SEEDS,
          spec=dict(probes=list(spec.probes), stride=spec.stride,
                    detectors=list(spec.detectors)), **out)
     return out
@@ -4932,7 +5037,7 @@ def check_kernel_table(table: list) -> None:
 
 
 PROBES = ("flash_attention", "rg_lru")
-ONLY = ("dryrun", "suites", "per_tick_graph")
+ONLY = ("dryrun", "suites", "per_tick_graph", "plans", "figures")
 
 
 def write_results(path, t_start: float) -> None:
@@ -4952,10 +5057,10 @@ def main(argv=None) -> int:
                          "kernel beside these other sources of it")
     ap.add_argument("--probe-flash", nargs="*", metavar="SOURCE",
                     help="the same as --probe flash_attention SOURCE ...")
-    ap.add_argument("--only", choices=ONLY,
-                    help="build the kernels this phase runs (dryrun: the LM "
-                         "kernels; suites, per_tick_graph: the simulator's) "
-                         "and run only this phase")
+    ap.add_argument("--only", nargs="+", choices=ONLY,
+                    help="build the kernels these phases run (dryrun: the "
+                         "LM kernels; the others: the simulator's) and run "
+                         "only these phases, in this order")
     args = ap.parse_args(argv)
     probe = args.probe
     if args.probe_flash is not None:
@@ -4991,16 +5096,18 @@ def main(argv=None) -> int:
             probe_rg_lru(rl, ref, probe[1:])
         write_results(args.out, t_start)
         return 0
-    if args.only == "dryrun":
-        phase_device([fa.LIBRARY, rl.LIBRARY])
-        phase_dryrun(fa, rl)
-        write_results(args.out, t_start)
-        return 0
-    if args.only in ("suites", "per_tick_graph"):
-        phase_device([ms.LIBRARY, nc.LIBRARY])
-        phase = (phase_suites if args.only == "suites"
-                 else phase_per_tick_graph)
-        phase(sim_kernels, core, netsim, workload)
+    if args.only:
+        sim = dict(suites=phase_suites, per_tick_graph=phase_per_tick_graph,
+                   plans=phase_plans, figures=phase_figures)
+        phase_device(([ms.LIBRARY, nc.LIBRARY]
+                      if set(args.only) & set(sim) else [])
+                     + ([fa.LIBRARY, rl.LIBRARY]
+                        if "dryrun" in args.only else []))
+        for name in args.only:
+            if name == "dryrun":
+                phase_dryrun(fa, rl)
+            else:
+                sim[name](sim_kernels, core, netsim, workload)
         write_results(args.out, t_start)
         return 0
     dev = phase_device([ms.LIBRARY, nc.LIBRARY, fa.LIBRARY, rl.LIBRARY])

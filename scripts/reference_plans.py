@@ -34,6 +34,18 @@ seed 2, records none in 1.5 s).
 
 ``--only NAME ...`` reruns some plans and keeps the others' entries.
 
+``--seeds N`` runs the same plans at seeds 1..N instead and writes
+``results/reference_seeds.json``: the fig 10 and fig 12
+plans' cells and the figure plans' cells and claims (fig 5 and churn stay
+at seeds 1-3 in ``reference_plans.json``).  At N = 32 that is the
+reference's distribution that ``chip_smoke.py``'s ``plans`` and
+``figures`` phases hold the port's 32 seeds to (`distribution_check`):
+the runs diverge chaotically, so a seed of one package paired with the
+same seed of the other is an arbitrary pairing, and only the two samples'
+distributions can tell a fault from chance.  It prints every value of its
+seed 1-3 columns that differs from ``reference_plans.json``
+(`seed_columns_differ`).
+
 The reference fails to import under jax 0.9 at ``core/iteration.py:46``;
 the script imports it through the port's test helper
 (`tests/_torch_reference.py`), which works around that line.
@@ -42,12 +54,16 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
+import statistics
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEEDS = (1, 2, 3)
+REFERENCE_PLANS = os.path.join(ROOT, "results", "reference_plans.json")
+REFERENCE_SEEDS = os.path.join(ROOT, "results", "reference_seeds.json")
 WORK_SCALE = 0.25          # benchmarks/common.py, not REPRO_FULL
 FIG10_JOBS = (2, 3, 4, 5, 6)
 FIG12_PROBS = (0.0, 0.05, 0.10, 0.20, 0.30)
@@ -66,6 +82,10 @@ FIGURE_SUITES = {
 SUITES = {**FIGURE_SUITES, "kernel_sweep": ("kernel_sweep", "make_plan")}
 PLANS = ("fig10-reno", "fig10-dcqcn", "fig12", "fig5", "churn",
          *FIGURE_SUITES)
+# the plans reference_seeds.json holds at seeds 1..N (--seeds N), and the
+# family-wise error rate of distribution_check
+DISTRIBUTION_PLANS = ("fig10-reno", "fig10-dcqcn", "fig12", *FIGURE_SUITES)
+ALPHA = 0.01
 FIG17_CELLS = ("reno-WI", "reno-MD", "cubic-WI", "cubic-MD")
 # the suites' own assertions on their groups (least, most): fig 16
 # exactly 2 (parameters.py), Table 2 at most 4 (diversity.py), fig 13 at
@@ -331,6 +351,135 @@ def unshared_claims(claims: dict, ref_claims: dict) -> list:
             if want and not got]
 
 
+def _finite(v) -> bool:
+    return v is not None and math.isfinite(v)
+
+
+def _summary(sample) -> dict:
+    """n, mean and median of a sample (bools count as 0 and 1)."""
+    xs = [float(v) for v in sample]
+    return dict(n=len(xs), mean=statistics.mean(xs) if xs else None,
+                median=statistics.median(xs) if xs else None)
+
+
+def _row(plan, cell, metric, test, port, ref, p) -> dict:
+    a, b = _summary(port), _summary(ref)
+    return dict(plan=plan, cell=cell, metric=metric, test=test,
+                n_port=a["n"], n_reference=b["n"], port_mean=a["mean"],
+                reference_mean=b["mean"], port_median=a["median"],
+                reference_median=b["median"], p=p)
+
+
+def _fisher(port, ref) -> float:
+    """Fisher's exact test (two-sided) on how often two samples of bools
+    hold."""
+    from scipy import stats
+
+    a, b = sum(map(bool, port)), sum(map(bool, ref))
+    return float(stats.fisher_exact([[a, len(port) - a],
+                                     [b, len(ref) - b]]).pvalue)
+
+
+def holm(rows: list, alpha: float = ALPHA) -> list:
+    """Holm-Bonferroni over ``rows`` (each with its ``p``) at the
+    family-wise ``alpha``: the row of rank r (1 for the smallest p; ties in
+    the rows' order) gets the threshold alpha / (m - r + 1), and rows are
+    rejected in rank order up to the first whose p is above its threshold;
+    that row and every later one are accepted.  Sets ``rank``,
+    ``holm_threshold`` and ``verdict`` ("reject" or "accept") on each row
+    and returns the rows in their own order."""
+    order = sorted(range(len(rows)), key=lambda i: rows[i]["p"])
+    rejecting = True
+    for rank, i in enumerate(order):
+        threshold = alpha / (len(rows) - rank)
+        rejecting = rejecting and rows[i]["p"] <= threshold
+        rows[i].update(rank=rank + 1, holm_threshold=threshold,
+                       verdict="reject" if rejecting else "accept")
+    return rows
+
+
+def distribution_check(port_cells: dict, ref_cells: dict,
+                       alpha: float = ALPHA, port_claims=None,
+                       ref_claims=None) -> list:
+    """The port's values over its seeds against the reference's over its
+    own, as two samples, with no seed paired to a seed.  ``port_cells`` and
+    ``ref_cells`` are {plan: {cell: {metric: [value per seed]}}}
+    (`figure_cells`, the fig 10 and 12 cells; None or a non-finite value
+    is "never"), ``port_claims`` and ``ref_claims`` {plan: {claim: [held
+    per seed]}} (`figure_claims`).  One row per (plan, cell, metric) of
+    the port's: a two-sided Mann-Whitney U on the finite values of both
+    sides (p = 1 where a side has none, or where both are one and the same
+    constant); where either side has a "never", a second row (metric
+    "<metric>: never"), Fisher's exact test on the count of them; and one
+    row per claim (cell "claims"), Fisher's exact test on the number of
+    seeds at which it holds.  Each row reports both sides' n, mean and
+    median and its p; `holm` then decides every row at the family-wise
+    ``alpha``."""
+    from scipy import stats
+
+    rows = []
+    for plan, cells in port_cells.items():
+        for cell, metrics in cells.items():
+            for metric, values in metrics.items():
+                want = ref_cells[plan][cell][metric]
+                x = [float(v) for v in values if _finite(v)]
+                y = [float(v) for v in want if _finite(v)]
+                p = (float(stats.mannwhitneyu(
+                        x, y, alternative="two-sided").pvalue)
+                     if x and y and len(set(x + y)) > 1 else 1.0)
+                rows.append(_row(plan, cell, metric, "mann-whitney", x, y,
+                                 p))
+                if len(x) < len(values) or len(y) < len(want):
+                    never = [not _finite(v) for v in values]
+                    never_ref = [not _finite(v) for v in want]
+                    rows.append(_row(plan, cell, f"{metric}: never",
+                                     "fisher", never, never_ref,
+                                     _fisher(never, never_ref)))
+    for plan, claims in (port_claims or {}).items():
+        for claim, held in claims.items():
+            want = ref_claims[plan][claim]
+            rows.append(_row(plan, "claims", claim, "fisher", held, want,
+                             _fisher(held, want)))
+    return holm(rows, alpha)
+
+
+def seed_columns(values: dict, seeds, columns) -> dict:
+    """A plan's cells, {cell: {metric: [value per seed]}}, cut to
+    ``columns``, the seeds to keep; ``seeds`` are the seeds its lists
+    follow."""
+    idx = [list(seeds).index(s) for s in columns]
+    return {key: {m: [v[i] for i in idx] for m, v in metrics.items()}
+            for key, metrics in values.items()}
+
+
+def seed_columns_differ(doc: dict, ref_doc: dict) -> list:
+    """Every value of ``doc`` (reference_seeds.json) at a seed that
+    ``ref_doc`` (reference_plans.json) also holds that is not the same as
+    ``ref_doc``'s, over every plan in both and every cell, metric and claim
+    of ``doc``'s: (plan, cell or "claims", metric or claim, seed, the two
+    values)."""
+    seeds = [s for s in doc["seeds"] if s in ref_doc["seeds"]]
+    out = []
+    for plan, entry in doc["plans"].items():
+        want = ref_doc["plans"].get(plan)
+        if want is None:
+            continue
+        pairs = [(cell, metrics, want["cells"][cell])
+                 for cell, metrics in entry["cells"].items()]
+        if "claims" in entry:
+            pairs.append(("claims", entry["claims"], want["claims"]))
+        for cell, got, ref in pairs:
+            for metric, values in got.items():
+                for s in seeds:
+                    u = values[doc["seeds"].index(s)]
+                    w = ref[metric][ref_doc["seeds"].index(s)]
+                    if u != w and not (u != u and w != w):     # nan, nan
+                        out.append(dict(plan=plan, cell=cell, metric=metric,
+                                        seed=s, seeds_value=u,
+                                        plans_value=w))
+    return out
+
+
 def active_jobs(point, n_jobs: int) -> list:
     """The jobs a plan point runs: all but those its ``job_active`` mask
     leaves out (a one-hot `solo` axis runs one job alone)."""
@@ -374,12 +523,21 @@ def suite_assertions(pr, groups) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=os.path.join(ROOT, "results",
-                                                  "reference_plans.json"))
+    ap.add_argument("--out", help="the file to write (default "
+                    "results/reference_plans.json, with --seeds "
+                    "results/reference_seeds.json)")
     ap.add_argument("--only", nargs="+", choices=PLANS,
                     help="run only these plans, keeping the file's others")
+    ap.add_argument("--seeds", type=int, metavar="N",
+                    help="run the plans of DISTRIBUTION_PLANS at seeds "
+                         "1..N (not 1-3)")
     args = ap.parse_args(argv)
-    only = set(args.only or PLANS)
+    names = DISTRIBUTION_PLANS if args.seeds else PLANS
+    if set(args.only or ()) - set(names):
+        ap.error(f"--seeds runs only {', '.join(names)}")
+    only = set(args.only or names)
+    seeds = tuple(range(1, args.seeds + 1)) if args.seeds else SEEDS
+    path = args.out or (REFERENCE_SEEDS if args.seeds else REFERENCE_PLANS)
     os.environ["REPRO_SMOKE"] = "1"
     os.environ["REPRO_FULL"] = "0"
     sys.path[:0] = [ROOT, os.path.join(ROOT, "src"),
@@ -388,10 +546,13 @@ def main(argv=None) -> int:
 
     out = {"source": "scripts/reference_plans.py: the JAX reference's "
                      "run_plan on the CPU, REPRO_SMOKE depth",
-           "seeds": list(SEEDS), "plans": {}}
-    if args.only and os.path.exists(args.out):
-        with open(args.out) as f:
-            out["plans"] = json.load(f)["plans"]
+           "seeds": list(seeds), "plans": {}}
+    if args.only and os.path.exists(path):
+        with open(path) as f:
+            kept = json.load(f)
+        if kept["seeds"] != list(seeds):
+            ap.error(f"{path} holds seeds {kept['seeds']}, not {seeds}")
+        out["plans"] = kept["plans"]
     with reference_modules():
         import jax
 
@@ -399,7 +560,7 @@ def main(argv=None) -> int:
         from benchmarks import timeline
         from repro import netsim, workload
 
-        common.SEEDS = SEEDS
+        common.SEEDS = seeds
         out.update(jax_version=jax.__version__, sim_time=common.SIM_TIME,
                    work_scale=common.WORK_SCALE)
         for algo in ("reno", "dcqcn"):
@@ -488,9 +649,16 @@ def main(argv=None) -> int:
                 dict(groups=pr.n_compile_groups,
                      assertions=entry["assertions"],
                      claims=entry["claims"])), flush=True)
-    with open(args.out, "w") as f:
+    with open(path, "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")
+    if args.seeds:
+        with open(REFERENCE_PLANS) as f:
+            differ = seed_columns_differ(out, json.load(f))
+        print(f"{len(differ)} values of seeds 1-3 differ from "
+              f"{os.path.relpath(REFERENCE_PLANS, ROOT)}", flush=True)
+        for d in differ:
+            print(json.dumps(d), flush=True)
     return 0
 
 

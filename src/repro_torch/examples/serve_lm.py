@@ -2,8 +2,10 @@
 (and recurrent-state) caches.
 
 The port of ``examples/serve_lm.py``: the serving launcher
-(`launch.serve.main`), whose options it takes.  On the card the prefill
-runs the flash-attention and RG-LRU kernels where the model has them.
+(`launch.serve.main`), whose options it takes; with none it serves
+qwen3-1.7b, as the reference's script does.  On the card the prefill
+runs the flash-attention and RG-LRU kernels where the model has them
+(recurrentgemma-2b has both):
 
     PYTHONPATH=src python -m repro_torch.examples.serve_lm \\
         --arch recurrentgemma-2b

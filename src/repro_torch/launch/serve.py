@@ -94,7 +94,7 @@ def main(argv=None) -> dict:
     """Serve from the command line's options, print the generated ids and
     the timings; returns `serve`'s result."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", choices=ARCH_IDS, default="recurrentgemma-2b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-1.7b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new", type=int, default=16)

@@ -182,6 +182,6 @@ def test_serve_lm_is_the_launcher(capsys):
     assert lines[0] == "generated ids:" and len(lines) == 2 + ids.shape[0]
     assert re.fullmatch(r"prefill [\d.]+ ms; decode [\d.]+ tok/s on cpu",
                         lines[-1])
-    want = serve("recurrentgemma-2b", batch=2, prompt_len=8, new_tokens=3,
+    want = serve("qwen3-1.7b", batch=2, prompt_len=8, new_tokens=3,
                  preset="smoke", device="cpu")["generated"]
     assert tuple(ids.shape) == (2, 3) and torch.equal(ids, want)

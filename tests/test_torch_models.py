@@ -40,7 +40,15 @@ intermediates in float32, eager torch rounds after every op), so they
 differ by about as much as bf16 does from float32.  Each logit and cache
 array is held within `BF16_REL_TOL` of its largest value in the
 reference's result: measured 2.7e-2 (logits) and 2.5e-2 (caches) for
-recurrentgemma-2b, 5.1e-3 and 6.3e-3 for internvl2-1b.
+recurrentgemma-2b, 5.1e-3 and 6.3e-3 for internvl2-1b, 6.0e-3 and 4.3e-3
+for deepseek-moe-16b, 7.2e-3 and 8.2e-3 for seamless-m4t-medium.
+xlstm-125m reads 1.9e-1 (logits) and up to 1.8e-1 (caches): each
+package's bf16 prefill is as far from the float32 prefill of the same
+weights (logits 1.49e-1 for the reference, 1.43e-1 for the port; the
+first block's cell state C already 8.7e-2 and 6.4e-2), through the
+mLSTM's and sLSTM's exponential gates and their cumulative sums, which
+each package rounds at its own points, so neither is at fault; that case
+is a strict xfail (`scripts/bf16_prefill_gap.py` measures all three).
 """
 import dataclasses
 import functools
@@ -77,11 +85,20 @@ CASES = {
 }
 AUX_RTOL = 1e-6
 BF16_REL_TOL = 5e-2
-# the prefill cases: every config in float32, the two serving configs of
-# the dry run's card cells in bf16 too
+# the prefill cases: every config in float32; in bf16 too the two serving
+# configs of the dry run's card cells and the MoE, xLSTM and
+# encoder-decoder families
+XLSTM_BF16_GAP = pytest.mark.xfail(strict=True, reason=(
+    "xLSTM's bf16 prefill: the two packages differ by 1.9e-1 of the largest "
+    "logit, each 1.4e-1-1.5e-1 from the float32 prefill; both round the "
+    "exponential gates at their own points"))
 PREFILL_CASES = ([pytest.param(arch, "float32", id=arch) for arch in CASES]
-                 + [pytest.param(arch, "bfloat16", id=f"{arch}-bfloat16")
-                    for arch in ("recurrentgemma-2b", "internvl2-1b")])
+                 + [pytest.param(arch, "bfloat16", id=f"{arch}-bfloat16",
+                                 marks=XLSTM_BF16_GAP if arch == "xlstm-125m"
+                                 else ())
+                    for arch in ("recurrentgemma-2b", "internvl2-1b",
+                                 "deepseek-moe-16b", "xlstm-125m",
+                                 "seamless-m4t-medium")])
 
 
 @functools.lru_cache(maxsize=None)
