@@ -149,10 +149,21 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   rounding, and its time at or above the roofline bound; and flash at
   qwen3-1.7b's prefill_32k shape in bf16, held row by row against SDPA's
   FLASH backend and the port's chunked plain route, beside its bound and
-  SDPA's time.
+  SDPA's time;
+* the device mesh (``mesh``): each device's share of three full-size
+  cells (qwen3-1.7b train_4k, recurrentgemma-2b prefill_32k,
+  llama4-maverick train_4k with FSDP) as rank 0 of a fake 16 x 16
+  process group, its shards on the card: each counted first on meta
+  shards, each warm step's launches equal to the planned ones and its
+  time at or above the per-device bound, its peak beside the counted
+  one, and each kernel held to its plain version at the local shapes the
+  cell gave it; on a machine with four cards, a real NCCL (2, 2) train
+  step against the one-card step of the same weights, and NCCL's
+  collective bytes equal to the fake group's count.
 
 ``--only PHASE ...`` builds the kernels of the phases named and runs
-those alone, in that order: ``dryrun`` the two LM kernels; ``suites``,
+those alone, in that order: ``dryrun`` and ``mesh`` the two LM kernels;
+``suites``,
 ``per_tick_graph``, ``plans`` and ``figures`` the two simulator kernels.
 ``--probe KERNEL`` (``flash_attention`` or ``rg_lru``; ``--probe-flash``
 is ``--probe flash_attention``) is the short first call after a change to
@@ -4811,6 +4822,407 @@ def phase_dryrun(fa, rl) -> dict:
     return res
 
 
+# The mesh phase: each device's share of three cells on the 16 x 16 mesh
+# (rank 0 of a fake process group of 256, its local shards on the card;
+# the fake group's collectives move nothing, so the step's values are not
+# the mesh's and only times, launches and memory are read), counted on the
+# same group on meta first.  Random weights from seed 0, full published
+# width and depth (one device's counted peak is within the card for each:
+# llama4-maverick's, the largest, 58.3 GB).
+MESH_CELLS = (("qwen3-1.7b", "train_4k"), ("recurrentgemma-2b", "prefill_32k"),
+              ("llama4-maverick-400b-a17b", "train_4k"))
+MESH_WARM = 3                   # warm steps a cell, their median read
+# (b): a real NCCL (2, 2) train step of qwen3-1.7b at full width (its
+# depth cut to MESH_NCCL_LAYERS) against the one-card step of the same
+# weights, float32, within MESH_NCCL_TOL of each tensor's largest |value|
+MESH_NCCL_ARCH = "qwen3-1.7b"
+MESH_NCCL_LAYERS = 4
+MESH_NCCL_ROWS, MESH_NCCL_SEQ = 8, 512
+MESH_NCCL_TOL = 1e-5
+MESH_NCCL_DIR = os.path.join(ROOT, "build", "mesh_nccl")
+
+
+class _KernelShapes:
+    """Records each flash and RG-LRU wrapper call's local operand shapes
+    while active (the wrappers stay the module's functions)."""
+
+    def __init__(self, fa, rl):
+        self.fa, self.rl = fa, rl
+        self.flash, self.scan = set(), set()
+
+    def __enter__(self):
+        fa_call, rl_call = self.fa.flash_attention, self.rl.rg_lru
+        self._saved = (fa_call, rl_call)
+
+        def flash(q, k, v, *, causal=True, window=0, softcap=None):
+            self.flash.add((tuple(q.shape), tuple(k.shape),
+                            str(q.dtype).removeprefix("torch."), causal,
+                            window, softcap))
+            return fa_call(q, k, v, causal=causal, window=window,
+                           softcap=softcap)
+
+        def scan(a, b, h0=None):
+            self.scan.add((tuple(a.shape), str(a.dtype).removeprefix(
+                "torch."), h0 is not None))
+            return rl_call(a, b, h0)
+
+        self.fa.flash_attention, self.rl.rg_lru = flash, scan
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention, self.rl.rg_lru = self._saved
+
+
+def mesh_kernel_checks(fa, rl, ref, flash_shapes, scan_shapes) -> list:
+    """Each kernel at the local shapes a mesh cell gave it, against its
+    plain version on the same random operands: flash within FLASH_TOL,
+    RG-LRU bit for bit.  These launches are not the path's."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    checks = []
+    for qs, ks, dtype, causal, window, cap in sorted(flash_shapes, key=str):
+        if qs[2] == 0:
+            continue
+        dt = _tdtype(dtype)
+        q = torch.randn(qs, generator=gen, device=DEVICE).to(dt)
+        k = torch.randn(ks, generator=gen, device=DEVICE).to(dt)
+        v = torch.randn(ks, generator=gen, device=DEVICE).to(dt)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=cap).float()
+        want = ref.ref_attention(q, k, v, causal=causal, window=window,
+                                 softcap=cap).float()
+        tol = FLASH_TOL[dtype]
+        err = float((got - want).abs().max())
+        checks.append(dict(kernel="flash_attention", q=list(qs), k=list(ks),
+                           dtype=dtype, causal=causal, window=window,
+                           max_abs_err=err, tol=tol,
+                           ok=bool(torch.allclose(got, want, atol=tol,
+                                                  rtol=tol))))
+        del q, k, v, got, want
+    for shape, dtype, with_h0 in sorted(scan_shapes, key=str):
+        dt = _tdtype(dtype)
+        a = (torch.rand(shape, generator=gen, device=DEVICE) * 0.79
+             + 0.2).to(dt)
+        x = torch.randn(shape, generator=gen, device=DEVICE).to(dt)
+        h0 = (torch.randn((shape[0], shape[2]), generator=gen,
+                          device=DEVICE).to(dt) if with_h0 else None)
+        got = rl.rg_lru(a, x, h0)
+        want = ref.ref_rg_lru(a, x, h0)
+        bits = torch.int16 if dtype == "bfloat16" else torch.int32
+        checks.append(dict(kernel="rg_lru", shape=list(shape), dtype=dtype,
+                           h0=with_h0, max_abs_err=float(
+                               (got.float() - want.float()).abs().max()),
+                           ok=bool(torch.equal(got.view(bits),
+                                               want.view(bits)))))
+        del a, x, h0, got, want
+    torch.cuda.empty_cache()
+    return checks
+
+
+def mesh_cell(fa, rl, ref, arch: str, shape: str, meta, card) -> dict:
+    """One cell's per-device share: counted on ``meta`` (the fake group's
+    meta mesh), then built on ``card`` (the same group's CUDA mesh, rank 0's
+    shards drawn from seed 0) and run cold, then MESH_WARM times, each
+    warm step timed with CUDA events with the launch counts set to 0
+    before it and read after.  Fails (``failed``) where a warm step's
+    launches differ from the planned ones, its time is under the
+    per-device bound, or a kernel disagrees with its plain version at the
+    local shapes the cell gave it."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.roofline.hw import H100
+
+    cfg = get_config(arch)
+    kind = SHAPES[shape].kind
+    rules = dr.default_rules_for(arch, kind, meta)
+    with dr.production_knobs(arch, kind):
+        count = dr._count(cfg, shape, mesh=meta, rules=rules)
+        dtype = dr.build_dtype(cfg, shape)
+        terms = {"compute": count["flops"] / H100.peak_flops(dtype),
+                 "memory": count["bytes"] / H100.hbm_bw}
+        bound_ms = 1e3 * max(terms.values())
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t0 = time.time()
+        cell = dr.build_cell(cfg, shape, device=DEVICE, mesh=card,
+                             rules=rules, microbatches=1, seed=0)
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+        card_args = torch.cuda.memory_allocated() - base
+        with _KernelShapes(fa, rl) as seen, dr.on_mesh(card):
+            t0 = time.time()
+            out = cell.step(*cell.args)      # cold
+            torch.cuda.synchronize()
+            cold_s = time.time() - t0
+        del out
+        steps = []
+        for _ in range(MESH_WARM):
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            fa.LAUNCH_COUNT = rl.LAUNCH_COUNT = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with dr.on_mesh(card):
+                start.record()
+                out = cell.step(*cell.args)
+                end.record()
+            end.synchronize()
+            launches = dict(flash_attention=fa.LAUNCH_COUNT,
+                            rg_lru=rl.LAUNCH_COUNT)
+            peak = torch.cuda.max_memory_allocated() - base
+            del out
+            steps.append(dict(ms=start.elapsed_time(end), peak_bytes=peak,
+                              launches=launches))
+        del cell
+        gc.collect()
+        torch.cuda.empty_cache()
+    checks = mesh_kernel_checks(fa, rl, ref, seen.flash, seen.scan)
+    colls = count["collectives"]
+    row = dict(
+        arch=arch, shape=shape, mesh="16x16", rank=0,
+        layers=cfg.n_layers, dtype=str(dtype).removeprefix("torch."),
+        rows_per_device=SHAPES[shape].global_batch // 16,
+        ms=statistics.median(s["ms"] for s in steps), steps=steps,
+        cold_s=cold_s, build_s=build_s,
+        bound_ms=bound_ms, bound_by=("operations" if terms["compute"]
+                                     >= terms["memory"] else "bytes"),
+        flops_per_device=count["flops"],
+        bytes_accessed_per_device=count["bytes"],
+        t_collective_s=colls["total_bytes"] / H100.ici_link_bw,
+        collectives=colls,
+        counted_peak_bytes=count["peak_bytes"],
+        counted_argument_bytes=count["argument_bytes"],
+        card_argument_bytes=card_args,
+        card_peak_bytes=max(s["peak_bytes"] for s in steps),
+        planned=count["planned_launches"],
+        flash_local_shapes=sorted([list(x[0]), list(x[1])]
+                                  for x in seen.flash),
+        rg_lru_local_shapes=sorted(list(x[0]) for x in seen.scan),
+        kernel_checks=checks, count_s=count["count_s"])
+    row["time_over_bound"] = row["ms"] / row["bound_ms"]
+    row["peak_over_count"] = row["card_peak_bytes"] / row["counted_peak_bytes"]
+    failed = []
+    for s in steps:
+        if s["launches"] != count["planned_launches"]:
+            failed.append(f"launched {s['launches']}, planned "
+                          f"{count['planned_launches']}")
+    if row["ms"] < row["bound_ms"]:
+        failed.append(f"{row['ms']} ms under the per-device bound "
+                      f"{row['bound_ms']} ms")
+    failed += [f"{c['kernel']} at {c.get('q', c.get('shape'))} disagrees "
+               f"with its plain version ({c['max_abs_err']})"
+               for c in checks if not c["ok"]]
+    if not count["planned_launches"]["flash_attention"]:
+        failed.append("no flash launch planned")
+    row["failed"] = [f"{arch} x {shape}: {f}" for f in failed]
+    return row
+
+
+def _nccl_worker(rank: int, world: int, port: int, out_dir: str,
+                 device: str, shape: tuple) -> None:
+    """One rank of the (b) run: the one-card step of MESH_NCCL_ARCH (full
+    width, ``shape`` = (layers, rows, sequence), float32, seed 0) on its
+    card, then the same weights placed on a (2, 2) mesh and the same step
+    sharded, under the collective counter; rank 0 writes both to
+    ``out_dir``.  NCCL on cards (``device`` "cuda"), gloo on the CPU."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.roofline.collectives import CollectiveCounter
+    from repro_torch.train import TrainHyper
+    from repro_torch.train.train_step import loss_fn
+
+    layers, rows, seq = shape
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        cfg = dataclasses.replace(get_config(MESH_NCCL_ARCH),
+                                  n_layers=layers)
+        hyper = TrainHyper(param_dtype="float32", use_kernel=True)
+        dev = torch.device("cuda", rank) if on_card else torch.device("cpu")
+
+        def grads_of(model, batch):
+            params = dict(model.named_parameters())
+            loss, _ = loss_fn(cfg, model, batch, hyper)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            return loss, dict(zip(params, grads))
+
+        def full(t):
+            t = t.detach()
+            return (t.full_tensor() if isinstance(t, DTensor) else t
+                    ).float().cpu()
+
+        cell = dr.build_cell(cfg, "train_4k", rows=rows, device=dev,
+                             seq_len=seq, microbatches=1, seed=0)
+        state, batch = cell.args
+        state.model.float()     # the cell's hyper is bf16
+        loss1, grads1 = grads_of(state.model, batch)
+        one = dict(loss=full(loss1), grads={n: full(g)
+                                            for n, g in grads1.items()})
+        del loss1, grads1
+        mesh = meshes.make_debug_mesh(2, 2, device)
+        placed = dr.shard_cell(cfg, "train_4k", cell, mesh, None, dev)
+        with CollectiveCounter() as counter, dr.on_mesh(mesh):
+            loss2, grads2 = grads_of(placed.args[0].model, placed.args[1])
+            if on_card:
+                torch.cuda.synchronize()
+        two = dict(loss=full(loss2), grads={n: full(g)
+                                            for n, g in grads2.items()})
+        if rank == 0:
+            torch.save(dict(one=one, two=two, collectives=counter.result()),
+                       os.path.join(out_dir, "rank0.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_nccl() -> dict:
+    """(b): where the machine has four cards, a real NCCL train step on
+    `make_debug_mesh(2, 2)` (four processes, one a card) against the
+    one-card step of the same weights, and NCCL's collective bytes (the
+    counter on rank 0) against the count of the same step on a fake
+    group of four on this card: they must be equal."""
+    import dataclasses
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.roofline.collectives import CollectiveCounter
+    from repro_torch.train import TrainHyper
+    from repro_torch.train.train_step import loss_fn
+
+    n = torch.cuda.device_count()
+    if n < 4:
+        print(f"mesh_nccl: not run, {n} card(s)", flush=True)
+        return dict(run=False, cards=n)
+    shutil.rmtree(MESH_NCCL_DIR, ignore_errors=True)
+    os.makedirs(MESH_NCCL_DIR)
+    t0 = time.time()
+    shape = (MESH_NCCL_LAYERS, MESH_NCCL_ROWS, MESH_NCCL_SEQ)
+    mp.start_processes(_nccl_worker, args=(4, _free_port(), MESH_NCCL_DIR,
+                                           DEVICE, shape),
+                       nprocs=4, join=True, start_method="spawn")
+    got = torch.load(os.path.join(MESH_NCCL_DIR, "rank0.pt"),
+                     weights_only=False)
+    # the same step counted on a fake group of four, on this card
+    cfg = dataclasses.replace(get_config(MESH_NCCL_ARCH),
+                              n_layers=MESH_NCCL_LAYERS)
+    hyper = TrainHyper(param_dtype="float32", use_kernel=True)
+    fake = meshes.make_debug_mesh(2, 2, DEVICE)
+    cell = dr.build_cell(cfg, "train_4k", rows=MESH_NCCL_ROWS, device=DEVICE,
+                         seq_len=MESH_NCCL_SEQ, microbatches=1, seed=0,
+                         mesh=fake)
+    state, batch = cell.args
+    state.model.float()
+    params = dict(state.model.named_parameters())
+    with CollectiveCounter() as counter, dr.on_mesh(fake):
+        loss, _ = loss_fn(cfg, state.model, batch, hyper)
+        torch.autograd.grad(loss, list(params.values()))
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    del cell, state, batch, params, loss
+    counted = counter.result()
+
+    def rel(a, b):
+        scale = float(b.abs().max()) or 1.0
+        return float((a - b).abs().max()) / scale
+
+    one, two = got["one"], got["two"]
+    gaps = {name: rel(two["grads"][name], g)
+            for name, g in one["grads"].items()}
+    row = dict(run=True, cards=n, arch=MESH_NCCL_ARCH,
+               layers=MESH_NCCL_LAYERS, rows=MESH_NCCL_ROWS,
+               seq=MESH_NCCL_SEQ, tol=MESH_NCCL_TOL,
+               loss_one_card=float(one["loss"]),
+               loss_mesh=float(two["loss"]),
+               loss_rel_gap=rel(two["loss"], one["loss"]),
+               worst_grad=max(gaps, key=gaps.get),
+               worst_grad_rel_gap=max(gaps.values()),
+               nccl_collectives=got["collectives"],
+               fake_collectives=counted, seconds=time.time() - t0)
+    failed = []
+    if row["loss_rel_gap"] > MESH_NCCL_TOL:
+        failed.append(f"loss {row['loss_rel_gap']} over {MESH_NCCL_TOL}")
+    if row["worst_grad_rel_gap"] > MESH_NCCL_TOL:
+        failed.append(f"gradient {row['worst_grad']} "
+                      f"{row['worst_grad_rel_gap']} over {MESH_NCCL_TOL}")
+    if got["collectives"]["bytes_by_kind"] != counted["bytes_by_kind"]:
+        failed.append(f"NCCL's collective bytes "
+                      f"{got['collectives']['bytes_by_kind']} != the fake "
+                      f"group's {counted['bytes_by_kind']}")
+    row["failed"] = [f"mesh_nccl: {f}" for f in failed]
+    return row
+
+
+def phase_mesh(fa, rl, ref) -> dict:
+    """The device mesh: (a) each device's share of MESH_CELLS on the card
+    (`mesh_cell`), (b) where there are four cards, a real NCCL (2, 2) step
+    (`mesh_nccl`).  The phase emits its line before it raises."""
+    import torch
+
+    from repro_torch.launch import mesh as meshes
+
+    t0 = time.time()
+    meta = meshes.make_production_mesh(False, "meta")
+    card = meshes.make_production_mesh(False, DEVICE)
+    cells = [mesh_cell(fa, rl, ref, arch, shape, meta, card)
+             for arch, shape in MESH_CELLS]
+    failed = [f for row in cells for f in row["failed"]]
+    nccl = mesh_nccl()
+    failed += nccl.get("failed", [])
+    res = dict(note="fake process group of 256, rank 0: the collectives "
+                    "move no data, so the step's values are not the "
+                    "mesh's; only times, launches and memory are read",
+               cells=cells, nccl=nccl, device=torch.cuda.get_device_name(0),
+               seconds=time.time() - t0)
+    emit("mesh", **res)
+    for row in cells:
+        print(f"mesh: {row['arch']} x {row['shape']} ({row['layers']} "
+              f"layers, rank 0 of 16x16): {row['ms']:.1f} ms a step "
+              f"(bound {row['bound_ms']:.1f} ms, {row['bound_by']}), "
+              f"t_collective {row['t_collective_s']:.3f} s, peak "
+              f"{row['card_peak_bytes'] / 1e9:.2f} GB (counted "
+              f"{row['counted_peak_bytes'] / 1e9:.2f}), launches "
+              f"{row['steps'][0]['launches']} (planned {row['planned']})",
+              flush=True)
+    if failed:
+        raise AssertionError("mesh: " + "; ".join(failed))
+    return res
+
+
 def armed_attributes(nc, netsim, core, workload) -> dict:
     """Registers, spills and static shared memory of each armed
     instantiation (one per algorithm and ARMED; the CC selections are its
@@ -4846,7 +5258,7 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
                  lm: dict, served: dict, armed: dict, tel: dict, flt: dict,
                  trained: dict, families: dict, clustered: dict,
                  dry: dict, armed_plans: dict, examples: dict,
-                 graphed: dict) -> list:
+                 graphed: dict, meshed: dict) -> list:
     main_row = next(r for r in kern["main_shape"] if r["algo"] == 0)
     serve_attrs = lm["flash"]["attributes"]["float32_d256"]
     rg_attrs = lm["rg_lru"]["attributes"][
@@ -4982,6 +5394,14 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
         "dryrun_cell_launches": {f"{r['arch']}/{r['shape']}":
                                  r["steps"][0]["launches"]["flash_attention"]
                                  for r in dry["card_cells"]},
+        # the mesh cells: rank 0's local heads of the 16x16 mesh, launches
+        # of a warm step (as planned) and the local shapes
+        "mesh_cell_launches": {f"{r['arch']}/{r['shape']}":
+                               r["steps"][0]["launches"]["flash_attention"]
+                               for r in meshed["cells"]},
+        "mesh_local_shapes": {f"{r['arch']}/{r['shape']}":
+                              r["flash_local_shapes"]
+                              for r in meshed["cells"]},
         "backward": trained["grad_checks"]["flash"],
         "shape": lm["flash"]["shape"],
     }, {
@@ -5010,6 +5430,12 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
         "dryrun_cell_launches": {f"{r['arch']}/{r['shape']}":
                                  r["steps"][0]["launches"]["rg_lru"]
                                  for r in dry["card_cells"]},
+        "mesh_cell_launches": {f"{r['arch']}/{r['shape']}":
+                               r["steps"][0]["launches"]["rg_lru"]
+                               for r in meshed["cells"]},
+        "mesh_local_shapes": {f"{r['arch']}/{r['shape']}":
+                              r["rg_lru_local_shapes"]
+                              for r in meshed["cells"]},
         "registers": rg_attrs["registers"],
         "static_smem_bytes": rg_attrs["static_smem_bytes"],
         "dynamic_smem_bytes": rg_attrs["dynamic_smem_bytes"],
@@ -5037,7 +5463,7 @@ def check_kernel_table(table: list) -> None:
 
 
 PROBES = ("flash_attention", "rg_lru")
-ONLY = ("dryrun", "suites", "per_tick_graph", "plans", "figures")
+ONLY = ("dryrun", "mesh", "suites", "per_tick_graph", "plans", "figures")
 
 
 def write_results(path, t_start: float) -> None:
@@ -5058,9 +5484,9 @@ def main(argv=None) -> int:
     ap.add_argument("--probe-flash", nargs="*", metavar="SOURCE",
                     help="the same as --probe flash_attention SOURCE ...")
     ap.add_argument("--only", nargs="+", choices=ONLY,
-                    help="build the kernels these phases run (dryrun: the "
-                         "LM kernels; the others: the simulator's) and run "
-                         "only these phases, in this order")
+                    help="build the kernels these phases run (dryrun, mesh: "
+                         "the LM kernels; the others: the simulator's) and "
+                         "run only these phases, in this order")
     args = ap.parse_args(argv)
     probe = args.probe
     if args.probe_flash is not None:
@@ -5102,10 +5528,12 @@ def main(argv=None) -> int:
         phase_device(([ms.LIBRARY, nc.LIBRARY]
                       if set(args.only) & set(sim) else [])
                      + ([fa.LIBRARY, rl.LIBRARY]
-                        if "dryrun" in args.only else []))
+                        if {"dryrun", "mesh"} & set(args.only) else []))
         for name in args.only:
             if name == "dryrun":
                 phase_dryrun(fa, rl)
+            elif name == "mesh":
+                phase_mesh(fa, rl, ref)
             else:
                 sim[name](sim_kernels, core, netsim, workload)
         write_results(args.out, t_start)
@@ -5134,10 +5562,11 @@ def main(argv=None) -> int:
     clustered = phase_cluster(sim_kernels)
     examples = phase_examples(sim_kernels, fa, rl)
     dry = phase_dryrun(fa, rl)
+    meshed = phase_mesh(fa, rl, ref)
     table = kernel_table(kern, main_path, states, chunks, timing, prof,
                          plans, figures, lm, served, armed, tel, flt,
                          trained, families, clustered, dry, armed_plans,
-                         examples, graphed)
+                         examples, graphed, meshed)
     check_kernel_table(table)
     RESULTS["kernels"] = table
     write_results(args.out, t_start)

@@ -42,6 +42,7 @@ import warnings
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import Shard
 
 from repro_torch.core import iteration
 from repro_torch.core import mltcp as core
@@ -49,6 +50,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mltcp_step as ms
 from repro_torch.kernels import netsim_chunk as nc
 from repro_torch.kernels import rg_lru as rl
+from repro_torch.launch import layout
 from repro_torch.netsim import telemetry as telem
 
 Tensor = torch.Tensor
@@ -67,13 +69,72 @@ _CHUNK_FALLBACK_WARNED: set = set()
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
                     window: int = 0, softcap: Optional[float] = None
                     ) -> Tensor:
-    """Attention through the flash kernel. q: [B,T,H,D]; k/v: [B,S,K,D]."""
+    """Attention through the flash kernel. q: [B,T,H,D]; k/v: [B,S,K,D].
+    On DTensors each device runs the kernel on its own heads
+    (`_flash_on_shards`)."""
+    if layout.is_sharded(q, k, v):
+        return _flash_on_shards(q, k, v, causal, window, softcap)
     return fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal=causal, window=window, softcap=softcap)
 
 
+def _flash_on_shards(q, k, v, causal, window, softcap):
+    """The flash kernel on each device's local shards.  The kernel takes
+    whole heads and whole sequences, so the operands are first
+    redistributed (`layout.sharded_call`): the batch keeps its data-axis
+    shards, and the model axis splits the query heads, in chunks of
+    ceil(H / m) as DTensor splits them (the first devices hold the most;
+    a device may hold none).  The KV heads split alike where they and the
+    query heads divide evenly (each device's group intact); otherwise they
+    are replicated on the model axis and each device takes, for each of
+    its query heads, the KV head it reads (its group becomes one)."""
+    m = layout.model_split(q)
+    h, kv = q.shape[2], k.shape[2]
+    even = m > 1 and h % m == 0 and kv % m == 0
+    q_at = layout.kernel_placements(q, (0,), 2 if m > 1 else None)
+    kv_at = layout.kernel_placements(q, (0,), 2 if even else None)
+    pick = None
+    if m > 1 and not even:
+        chunk = -(-h // m)
+        lo = layout.model_rank(q) * chunk
+        group = h // kv
+        pick = [(lo + j) // group for j in range(max(0, min(chunk, h - lo)))]
+
+    def local_flash(ql, kl, vl):
+        if pick is not None:
+            idx = torch.tensor(pick, dtype=torch.long, device=kl.device)
+            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        if ql.shape[2] == 0:
+            # a device that holds no query head: its empty result still
+            # joined to K/V, so that its backward issues the collectives
+            # that the other devices' backward does
+            return ql + 0 * (kl.sum() + vl.sum())
+        return fa.flash_attention(ql.contiguous(), kl.contiguous(),
+                                  vl.contiguous(), causal=causal,
+                                  window=window, softcap=softcap)
+
+    return layout.sharded_call(local_flash, (q, k, v), (q_at, kv_at, kv_at),
+                               q_at, q.shape)
+
+
 def rg_lru(a: Tensor, b: Tensor, h0: Optional[Tensor] = None) -> Tensor:
-    """h_t = a_t * h_{t-1} + b_t through the scan kernel. a/b: [B,T,D]."""
+    """h_t = a_t * h_{t-1} + b_t through the scan kernel. a/b: [B,T,D].
+    On DTensors each device scans its own channels: the batch keeps its
+    data-axis shards and the channels shard on the model axis where it
+    divides them (else they replicate there); time is never split."""
+    if layout.is_sharded(a, b):
+        m = layout.model_split(a)
+        at = layout.kernel_placements(
+            a, (0,), 2 if m > 1 and a.shape[2] % m == 0 else None)
+        h_at = [Shard(1) if p == Shard(2) else p for p in at]
+
+        def local_scan(al, bl, hl=None):
+            return rl.rg_lru(al.contiguous(), bl.contiguous(),
+                             None if hl is None else hl.contiguous())
+
+        args = (a, b) if h0 is None else (a, b, h0)
+        return layout.sharded_call(local_scan, args,
+                                   (at, at, h_at)[:len(args)], at, a.shape)
     return rl.rg_lru(a.contiguous(), b.contiguous(),
                      None if h0 is None else h0.contiguous())
 

@@ -1,9 +1,10 @@
-"""One card's dry run: every (architecture x input shape) cell built from
+"""The dry run: every (architecture x input shape) cell built from
 stand-ins on the ``meta`` device, its step run once and counted, nothing
-allocated.
+allocated, on one card or per device of a production mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out results/dryrun_torch.json
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
 
 The port of ``repro/launch/dryrun.py``, which lowers and compiles each
 cell for a 256- or 512-chip TPU mesh and reads XLA's memory and cost
@@ -33,16 +34,31 @@ reference's own semantics (its dry run lowers with ``use_kernel=False``),
 kept for parity only.  A train cell is counted with one microbatch, as
 the reference's roofline lowers it: every op of the step once.
 
-One card has no mesh, so these reference choices have no counterpart:
-``--mesh`` (single or multi pod), ``FSDP_TRAIN_ARCHS``,
-``FSDP_SERVE_ARCHS``, ``SEQ_SHARD_ARCHS``, ``default_rules_for`` and the
-partition specs of parameters, batches and caches; the collectives are
-zero.  A record gains what one card needs instead: ``fits`` (the peak
-within `hw.H100`'s 80 GB), ``rows_that_fit`` (the live bytes after each
-op are affine in the batch rows: counted at 2 and 3 rows every point is
-solved, and at one row where two do not fit; for a train cell it is the
-rows of one microbatch), ``planned_launches`` per kernel and
-``count_s``.
+On one card (``--mesh card``, the default) the collectives are zero and
+a record gains what one card needs: ``fits`` (the peak within
+`hw.H100`'s 80 GB), ``rows_that_fit`` (the live bytes after each op are
+affine in the batch rows: counted at 2 and 3 rows every point is solved,
+and at one row where two do not fit; for a train cell it is the rows of
+one microbatch), ``planned_launches`` per kernel and ``count_s``.
+
+On the production meshes (``--mesh single|multi|both``: 16 x 16, 2 x 16 x
+16; `run_mesh_cell`) a cell is built with the reference's rules
+(`default_rules_for`, ``FSDP_TRAIN_ARCHS``, ``FSDP_SERVE_ARCHS``, and
+``SEQ_SHARD_ARCHS`` on train and prefill cells through
+`production_knobs`): its parameters, AdamW moments, batch and cache are
+DTensors whose local shards are meta tensors (`shard_cell`,
+`train.sharding`, `batch_pspecs`, `cache_pspecs`), on a fake process
+group of 256 or 512 ranks in which this process is rank 0
+(`launch.mesh`).  DTensor's sharding propagation stands for GSPMD:
+`StepCounter` lets each DTensor op lower first and counts what rank 0
+runs on its shards, and `roofline.collectives.CollectiveCounter` counts
+the collectives it issues.  The record has the reference's per-device
+keys and ``collectives``.  Every mesh cell is counted at its own length,
+the xLSTM family's too: on a mesh no count is a polynomial in the length
+(DTensor picks other layouts and collectives at short lengths, so a
+count solved from short lengths misses the FLOPs, the peak and the
+collectives alike), and the loop over time runs on each device's local
+rows, a few minutes an xLSTM cell on the CPU.
 
 The xLSTM family's sLSTM is a Python loop over time (some 35 ops a token
 and block, ~3 ms a token of counting in prefill, four times that in
@@ -65,6 +81,7 @@ the card's launches, peak memory and time.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -78,6 +95,7 @@ from fractions import Fraction
 from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -86,10 +104,15 @@ from repro_torch.configs import (ARCH_IDS, SHAPES, get_config,
 from repro_torch.device import resolve
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rg_lru as rl
+from repro_torch.launch import mesh as meshes
 from repro_torch.models import api
+from repro_torch.models import attention as attn_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.optim import AdamWConfig
+from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.roofline import collectives
 from repro_torch.roofline.hw import H100
+from repro_torch.train import sharding
+from repro_torch.train.sharding import ShardingRules
 from repro_torch.train import (TrainHyper, init_train_state,
                                make_decode_step, make_prefill_step,
                                make_train_step)
@@ -125,8 +148,86 @@ EXACT_COUNTS = ("flops", "bytes", "argument_bytes", "output_bytes",
                 "kernel_flops", "kernel_bytes")
 
 
+# big models also shard weights and optimizer state over the data axes
+# when training (the reference's production defaults)
+FSDP_TRAIN_ARCHS = {"llama4-maverick-400b-a17b", "gemma2-27b",
+                    "deepseek-moe-16b"}
+# sequence-parallel attention scores where the heads do not divide the
+# model axis (train and prefill cells), and FSDP for the MoE serving cells
+SEQ_SHARD_ARCHS = {"qwen1.5-4b", "llama4-maverick-400b-a17b",
+                   "internvl2-1b"}
+FSDP_SERVE_ARCHS = {"llama4-maverick-400b-a17b", "deepseek-moe-16b"}
+# --mesh: the card's count, or the production meshes (multi_pod flags)
+MESH_CHOICES = {"card": (None,), "single": (False,), "multi": (True,),
+                "both": (False, True)}
+
+
 def train_hyper_for(arch: str) -> TrainHyper:
     return TRAIN_HYPER_OVERRIDES.get(arch, _DEFAULT_HYPER)
+
+
+def _data_axes(mesh) -> tuple:
+    return tuple(a for a in meshes.axis_names(mesh) if a != "model")
+
+
+def default_rules_for(arch: str, shape_kind: str, mesh) -> ShardingRules:
+    """The reference's production rules of a cell on ``mesh``."""
+    dp = _data_axes(mesh)
+    if shape_kind == "decode":
+        return ShardingRules(data_axes=dp, decode_cache_seq_shard=True,
+                             fsdp=arch in FSDP_SERVE_ARCHS)
+    if shape_kind == "prefill":
+        return ShardingRules(data_axes=dp, fsdp=arch in FSDP_SERVE_ARCHS)
+    return ShardingRules(data_axes=dp, fsdp=arch in FSDP_TRAIN_ARCHS)
+
+
+def batch_pspecs(batch: dict, mesh, microbatches: int = 1,
+                 rules: Optional[ShardingRules] = None) -> dict:
+    """The reference's ``_batch_specs`` of a batch (each leaf [mb?, b,
+    ...]): the rows over the data axes where they divide them, the
+    microbatch axis (with gradient accumulation) and the rest
+    unsharded."""
+    dp = rules.data_axes if rules is not None else _data_axes(mesh)
+    sizes = meshes.axis_sizes(mesh)
+    dsize = math.prod(sizes[a] for a in dp)
+    lead = (None,) if microbatches > 1 else ()
+    out = {}
+    for name, t in batch.items():
+        rows = t.shape[len(lead)]
+        bspec = dp if rows % dsize == 0 else None
+        out[name] = lead + (bspec,) + (None,) * (t.ndim - len(lead) - 1)
+    return out
+
+
+def cache_pspec(name: str, shape, mesh, rules: Optional[ShardingRules],
+                stacked: bool = False) -> tuple:
+    """The reference's spec of a cache leaf: a [B, S, K, dh] K or V
+    sequence-sharded over "model" with ``decode_cache_seq_shard`` (each
+    axis only where its dim divides the mesh axes), else `auto_pspec`.
+    ``stacked``: the leaf carries a leading layer axis (the
+    encoder-decoder's caches)."""
+    nd = len(shape) - (1 if stacked else 0)
+    if (rules is not None and rules.decode_cache_seq_shard and nd == 4
+            and name in ("k", "v")):
+        sizes = meshes.axis_sizes(mesh)
+        dsize = math.prod(sizes.get(a, 1) for a in rules.data_axes)
+        shp = shape[1:] if stacked else shape
+        bspec = rules.data_axes if shp[0] % dsize == 0 else None
+        sspec = "model" if shp[1] % sizes.get("model", 1) == 0 else None
+        spec = (bspec, sspec, None, None)
+        return ((None,) + spec) if stacked else spec
+    return sharding.auto_pspec(shape, mesh, rules, stacked=stacked)
+
+
+def cache_pspecs(cfg: ModelConfig, cache: dict, mesh,
+                 rules: Optional[ShardingRules]) -> dict:
+    """`cache_pspec` of every leaf of a port cache ({layer: {name:
+    tensor}}, or the encoder-decoder's {"self"/"cross": {name: [L,
+    ...]}}), in the same structure."""
+    stacked = api.is_encdec(cfg)
+    return {key: {name: cache_pspec(name, t.shape, mesh, rules, stacked)
+                  for name, t in part.items()}
+            for key, part in cache.items()}
 
 
 def _batch_specs(cfg: ModelConfig, b: int, s: int, microbatches: int = 1,
@@ -165,18 +266,28 @@ def _batch_specs(cfg: ModelConfig, b: int, s: int, microbatches: int = 1,
 
 class Cell(NamedTuple):
     """One cell's step and its arguments: ``step(*args)`` runs it on
-    ``rows`` rows."""
+    ``rows`` rows (over the whole mesh, where there is one: ``mesh``, the
+    arguments DTensors on it)."""
     rows: int
     step: Callable
     args: tuple
+    mesh: object = None
 
 
 def build_cell(cfg: ModelConfig, shape_name: str, rows: Optional[int] = None,
                device="meta", use_kernel: bool = True,
                seq_len: Optional[int] = None,
-               microbatches: Optional[int] = None, seed: int = 0) -> Cell:
+               microbatches: Optional[int] = None, seed: int = 0,
+               mesh=None, rules: Optional[ShardingRules] = None) -> Cell:
     """The cell of ``cfg`` at ``shape_name``: ``rows`` (default: the
     shape's global batch) of ``seq_len`` (default: the shape's) positions.
+
+    With a ``mesh`` (a ``DeviceMesh``) the cell is placed on it
+    (`shard_cell`, by ``rules``, default `default_rules_for`) and
+    ``device`` is where each device's shards lie: "meta" to count, the
+    card ("cuda"; the shards are drawn from ``seed`` on the card, the
+    whole cell is never made) or the CPU (the whole cell is made from
+    ``seed`` and split, as every rank makes it alike).
 
     A train cell is the train state in the reference's hyper-parameters
     (``microbatches`` overrides theirs) and one batch; a prefill cell the
@@ -186,6 +297,12 @@ def build_cell(cfg: ModelConfig, shape_name: str, rows: Optional[int] = None,
     weights and inputs are random, drawn from ``seed``.  ``use_kernel``:
     the kernels (True) or the plain path (False), as the model API takes
     it."""
+    if mesh is not None:
+        dev = resolve(device)
+        whole = build_cell(cfg, shape_name, rows,
+                           "meta" if dev.type == "cuda" else dev,
+                           use_kernel, seq_len, microbatches, seed)
+        return shard_cell(cfg, shape_name, whole, mesh, rules, dev, seed)
     shape = SHAPES[shape_name]
     rows = shape.global_batch if rows is None else rows
     s = shape.seq_len if seq_len is None else seq_len
@@ -222,6 +339,114 @@ def build_cell(cfg: ModelConfig, shape_name: str, rows: Optional[int] = None,
         token = torch.randint(0, cfg.vocab, (rows,), generator=gen,
                               device=dev)
     return Cell(rows, make_decode_step(cfg), (model, cache, token, s - 1))
+
+
+def distribute(t: Tensor, spec: tuple, mesh, device: torch.device,
+               gen: Optional[torch.Generator]) -> DTensor:
+    """``t`` (the whole tensor) as a DTensor of ``spec`` on ``mesh``, its
+    shard on ``device``: split where ``t`` has values; where it is a meta
+    stand-in, an empty shard on meta, else one drawn from ``gen`` (ids
+    below 2**15 for an integer tensor, N(0, 0.02**2) for a float one)."""
+    placements = sharding.placements(spec, mesh)
+    if t.device.type != "meta":
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(t, mesh, placements, src_data_rank=None)
+    local = sharding.local_shape(t.shape, spec, mesh,
+                                 tuple(mesh.get_coordinate()))
+    if device.type == "meta":
+        shard = torch.empty(local, dtype=t.dtype, device=device)
+    elif t.dtype.is_floating_point:
+        shard = (torch.randn(local, generator=gen, device=device)
+                 * 0.02).to(t.dtype)
+    else:
+        shard = torch.randint(0, 2 ** 15, local, generator=gen,
+                              device=device, dtype=t.dtype)
+    return DTensor.from_local(shard, mesh, placements, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def place_module(model: torch.nn.Module, specs: dict, mesh, device, gen
+                 ) -> None:
+    """Each parameter of ``model`` replaced by its DTensor (`distribute`)
+    in place, its ``requires_grad`` kept."""
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        mod._parameters[leaf] = torch.nn.Parameter(
+            distribute(p.detach(), specs[name], mesh, device, gen),
+            requires_grad=p.requires_grad)
+
+
+def _placed_outputs(step: Callable, specs: Callable, mesh) -> Callable:
+    """``step`` with its results laid out as the reference's
+    ``out_shardings`` ask: the next tokens replicated, the cache by
+    ``specs(cache)``."""
+    def placed(*args):
+        tok, cache = step(*args)
+        tok = tok.redistribute(mesh, [sharding.Replicate()] * mesh.ndim) \
+            if isinstance(tok, DTensor) else tok
+        want = specs(cache)
+        return tok, {key: {name: (t.redistribute(
+            mesh, sharding.placements(want[key][name], mesh))
+            if isinstance(t, DTensor) else t) for name, t in part.items()}
+            for key, part in cache.items()}
+    return placed
+
+
+def shard_cell(cfg: ModelConfig, shape_name: str, cell: Cell, mesh,
+               rules: Optional[ShardingRules] = None, device="meta",
+               seed: int = 0) -> Cell:
+    """``cell`` (built whole, on meta or with values) placed on ``mesh``
+    by ``rules`` (default: `default_rules_for` the cell): the parameters
+    by `sharding.param_pspecs`, the AdamW moments as their parameters,
+    the batch by `batch_pspecs` (the train hyper's microbatches), a
+    decode cell's cache by `cache_pspecs`; a serving step's results are
+    laid out as the reference's ``out_shardings``.  The step count, the
+    next token and the position stay plain (replicated)."""
+    kind = SHAPES[shape_name].kind
+    rules = rules or default_rules_for(cfg.name, kind, mesh)
+    dev = resolve(device)
+    gen = None
+    if dev.type not in ("meta", "cpu"):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+
+    def batch_of(batch, mb=1, batch_rules=None):
+        specs = batch_pspecs(batch, mesh, mb, batch_rules)
+        return {k: distribute(t, specs[k], mesh, dev, gen)
+                for k, t in batch.items()}
+
+    if kind == "train":
+        state, batch = cell.args
+        place_module(state.model,
+                     sharding.param_pspecs(cfg, state.model, mesh, rules),
+                     mesh, dev, gen)
+        params = dict(state.model.named_parameters())
+        state = state._replace(
+            opt=adamw_init(train_hyper_for(cfg.name).opt, params),
+            step=(torch.zeros_like(state.step, device=dev)
+                  if state.step.device.type == "meta" else state.step))
+        mb = batch["tokens"].shape[0] if batch["tokens"].ndim == 3 else 1
+        return Cell(cell.rows, cell.step,
+                    (state, batch_of(batch, mb, rules)), mesh)
+
+    model = cell.args[0]
+    place_module(model, sharding.param_pspecs(cfg, model, mesh, rules),
+                 mesh, dev, gen)
+
+    def specs(cache):
+        return cache_pspecs(cfg, cache, mesh, rules)
+
+    step = _placed_outputs(cell.step, specs, mesh)
+    if kind == "prefill":
+        return Cell(cell.rows, step, (model, batch_of(cell.args[1])), mesh)
+    _, cache, token, index = cell.args
+    want = specs(cache)
+    cache = {key: {name: distribute(t, want[key][name], mesh, dev, gen)
+                   for name, t in part.items()}
+             for key, part in cache.items()}
+    return Cell(cell.rows, step, (model, cache, token, index), mesh)
 
 
 def build_dtype(cfg: ModelConfig, shape_name: str) -> torch.dtype:
@@ -268,7 +493,7 @@ def _leaves(x, out: list) -> list:
     order, appended to ``out``: nested tuples, lists and dicts, and a
     module's parameters and buffers."""
     if isinstance(x, Tensor):
-        out.append(x)
+        out.append(_local(x))
     elif isinstance(x, (list, tuple)):
         for y in x:
             _leaves(y, out)
@@ -276,9 +501,14 @@ def _leaves(x, out: list) -> list:
         for y in x.values():
             _leaves(y, out)
     elif isinstance(x, torch.nn.Module):
-        out.extend(x.parameters())
-        out.extend(x.buffers())
+        out.extend(_local(t) for t in x.parameters())
+        out.extend(_local(t) for t in x.buffers())
     return out
+
+
+def _local(t: Tensor) -> Tensor:
+    """A DTensor's local shard (this device's part); a tensor itself."""
+    return t._local_tensor if isinstance(t, DTensor) else t
 
 
 def _tensors(tree) -> list:
@@ -400,10 +630,17 @@ class StepCounter(TorchDispatchMode):
     Xeon host (``scripts/dryrun_memo_cost.py``).
     ``aten.bincount`` has no meta kernel: on meta tensors it returns its
     ``minlength`` bins (an MoE router's expert ids are below its expert
-    count, so the bins are exactly ``minlength``)."""
+    count, so the bins are exactly ``minlength``).  With ``sharded`` (the
+    arguments are DTensors on a mesh) an op on DTensors is let through
+    first (``NotImplemented``: DTensor lowers it to what this device runs
+    on its shards, which the counter then sees), DTensor's sharding
+    propagation on fake tensors is not counted, and a collective moves no
+    memory bytes (`roofline.collectives` counts it)."""
 
-    def __init__(self, arguments=(), loop_length: int = 0):
+    def __init__(self, arguments=(), loop_length: int = 0,
+                 sharded: bool = False):
         super().__init__()
+        self.sharded = sharded
         self.device = torch.device("meta")
         elsewhere = {str(t.device) for t in _tensors(arguments)
                      if t.device != self.device}
@@ -466,6 +703,24 @@ class StepCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self.sharded:
+            if isinstance(func, torch._ops.HigherOrderOperator):
+                return func(*args, **kwargs)
+            if any(issubclass(t, collectives.SUBCLASSES) for t in types):
+                # DTensor lowers the op to local ops and collectives
+                # first: those are what one device runs
+                return NotImplemented
+            if collectives.is_propagation(types):
+                return func(*args, **kwargs)
+            if collectives.is_collective(func):
+                # its bytes cross the links (`roofline.collectives`), not
+                # memory; its results are live like any other
+                out = self._run(func, args, kwargs)
+                for t in _leaves(out, []):
+                    if t.device == self.device:
+                        self._hold(t)
+                self._note()
+                return out
         if _fresh(func):
             key = (func, _signature(args), _signature(kwargs))
             if key[1] is _UNKEYED or key[2] is _UNKEYED:
@@ -502,21 +757,38 @@ class StepCounter(TorchDispatchMode):
                 for t in outs:
                     if t.untyped_storage()._cdata not in held:
                         self._hold(t)
-        if self.live > self.peak:
-            self.peak = self.live
-        if self.live + self._slack > self.peak_upper:
-            self.peak_upper = self.live + self._slack
-        self.trace.append(self.live)
+        self._note()
         if self.loop_length and func in _STEP_SELECTS:
             size = args[0].shape if func is aten.select.int else args[1]
             if size[args[-2]] == self.loop_length:
                 self.marks.append((len(self.trace) - 1, args[-1]))
         return out
 
+    def _note(self) -> None:
+        """The live bytes after an op: the peaks, the trace."""
+        if self.live > self.peak:
+            self.peak = self.live
+        if self.live + self._slack > self.peak_upper:
+            self.peak_upper = self.live + self._slack
+        self.trace.append(self.live)
+
 
 def _planned() -> dict:
     return {name: (m.PLANNED_LAUNCHES, m.PLANNED_FLOP, m.PLANNED_BYTES)
             for name, m in KERNELS.items()}
+
+
+@contextlib.contextmanager
+def on_mesh(mesh):
+    """Where a step runs on ``mesh`` (not None): its plain tensors (the
+    positions, the step count, the token) count as replicated on it."""
+    if mesh is None:
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with implicit_replication():
+        yield
 
 
 def count_cell(cell: Cell, keep_trace: bool = False,
@@ -537,7 +809,10 @@ def count_cell(cell: Cell, keep_trace: bool = False,
     before = _planned()
     arg_bytes = storage_bytes(cell.args)
     t0 = time.perf_counter()
-    with StepCounter(cell.args, loop_length) as counter:
+    sharded = cell.mesh is not None
+    colls = collectives.CollectiveCounter() if sharded else None
+    with StepCounter(cell.args, loop_length, sharded) as counter, \
+            on_mesh(cell.mesh), colls or contextlib.nullcontext():
         out = cell.step(*cell.args)
         out_bytes = counter.allocated(out)
     del out
@@ -559,6 +834,8 @@ def count_cell(cell: Cell, keep_trace: bool = False,
         "kernel_flops": k_flops,
         "kernel_bytes": k_bytes,
         "planned_launches": launches,
+        "collectives": (colls.result() if sharded
+                        else collectives.empty_result()),
         "count_s": count_s,
     }
     if keep_trace:
@@ -594,8 +871,9 @@ def rows_that_fit(a: dict, b: dict, capacity: float) -> int:
 # ---------------------------------------------------------------------------
 
 def uses_poly(cfg: ModelConfig, shape_name: str) -> bool:
-    """Whether a cell is counted through `solve_poly`: a train or prefill
-    cell of a config with an sLSTM block (a Python loop over time)."""
+    """Whether a cell is counted through `solve_poly` on one card: a train
+    or prefill cell of a config with an sLSTM block (a Python loop over
+    time)."""
     return ("slstm" in cfg.block_pattern
             and SHAPES[shape_name].kind in ("train", "prefill"))
 
@@ -649,42 +927,46 @@ def loop_points(trace, marks, length: int) -> Optional[list]:
 
 
 def _count(cfg, shape_name, rows=None, use_kernel=True, microbatches=1,
-           keep_trace=False, seq_len=None) -> dict:
-    """`count_cell` of a meta cell; where `uses_poly`, counted at each of
-    `POLY_LENGTHS` and solved for the cell's length (``seq_len``, default
-    the shape's): the exact counts by `solve_poly`, the live bytes point
-    by point along `loop_points` (its ``trace``), so the peak too.  Where
-    the points do not line up, the peak is a fit of the peaks
-    (``peak_fitted``)."""
-    if not uses_poly(cfg, shape_name):
+           keep_trace=False, seq_len=None, mesh=None, rules=None) -> dict:
+    """`count_cell` of a meta cell (on ``mesh``, a meta ``DeviceMesh``,
+    per device, where one is given, always at the cell's own length);
+    on one card, where `uses_poly`, counted at each of `POLY_LENGTHS` and
+    solved for the cell's length (``seq_len``, default the shape's): the
+    exact counts by `solve_poly`, the live bytes point by point along
+    `loop_points` (its ``trace``), so the peak too.  Where the points do
+    not line up, the peak is a fit of the peaks (``peak_fitted``)."""
+    if mesh is not None or not uses_poly(cfg, shape_name):
         return count_cell(build_cell(cfg, shape_name, rows,
                                      use_kernel=use_kernel, seq_len=seq_len,
-                                     microbatches=microbatches), keep_trace)
+                                     microbatches=microbatches, mesh=mesh,
+                                     rules=rules), keep_trace)
+    lengths = POLY_LENGTHS
     recs = [count_cell(build_cell(cfg, shape_name, rows,
                                   use_kernel=use_kernel, seq_len=t,
                                   microbatches=microbatches),
                        keep_trace=True, loop_length=t)
-            for t in POLY_LENGTHS]
+            for t in lengths]
     at = SHAPES[shape_name].seq_len if seq_len is None else seq_len
-    out = {k: solve_poly(POLY_LENGTHS, [r[k] for r in recs], at)
+    out = {k: solve_poly(lengths, [r[k] for r in recs], at)
            for k in EXACT_COUNTS}
+    out["planned_launches"] = recs[-1]["planned_launches"]
+    out["rows"] = recs[-1]["rows"]
+    out["count_s"] = sum(r["count_s"] for r in recs)
+    out["poly_lengths"] = list(lengths)
+    out["collectives"] = collectives.empty_result()
     points = [loop_points(r["trace"], r["marks"], t)
-              for r, t in zip(recs, POLY_LENGTHS)]
+              for r, t in zip(recs, lengths)]
     if None not in points and len({len(p) for p in points}) == 1:
-        trace = [solve_poly(POLY_LENGTHS, vals, at)
+        trace = [solve_poly(lengths, vals, at)
                  for vals in zip(*points)]
         out["peak_bytes"] = max(trace)
         if keep_trace:
             out["trace"] = trace
     else:
-        out["peak_bytes"] = solve_poly(
-            POLY_LENGTHS, [r["peak_bytes"] for r in recs], at, exact=False)
+        out["peak_bytes"] = max(recs[-1]["peak_bytes"], solve_poly(
+            lengths, [r["peak_bytes"] for r in recs], at, exact=False))
         out["peak_fitted"] = True
     out["temp_bytes"] = out["peak_bytes"] - out["argument_bytes"]
-    out["planned_launches"] = recs[-1]["planned_launches"]
-    out["rows"] = recs[-1]["rows"]
-    out["count_s"] = sum(r["count_s"] for r in recs)
-    out["poly_lengths"] = list(POLY_LENGTHS)
     return out
 
 
@@ -714,11 +996,102 @@ def _fit_rows(cfg, shape_name, capacity: float = H100.hbm_bytes
 # Records
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def production_knobs(arch: str, shape_kind: str):
+    """The reference's production defaults for a cell on a mesh: the
+    sequence-sharded scores (`attention.SEQ_SHARD_AXIS`) for
+    `SEQ_SHARD_ARCHS` on full-sequence cells, for the block's length."""
+    prev = attn_mod.SEQ_SHARD_AXIS
+    if arch in SEQ_SHARD_ARCHS and shape_kind in ("train", "prefill"):
+        attn_mod.SEQ_SHARD_AXIS = "model"
+    try:
+        yield
+    finally:
+        attn_mod.SEQ_SHARD_AXIS = prev
+
+
+def count_on_mesh(arch: str, shape_name: str, mesh,
+                  rules: Optional[ShardingRules] = None,
+                  use_kernel: bool = True, rows: Optional[int] = None
+                  ) -> dict:
+    """`_count` of a cell on ``mesh`` (a meta ``DeviceMesh``) with the
+    reference's production rules and knobs (`default_rules_for`,
+    `production_knobs`) unless ``rules`` are given: each device's share
+    (rank 0's shards) and its collectives."""
+    cfg = get_config(arch)
+    kind = SHAPES[shape_name].kind
+    rules = rules or default_rules_for(arch, kind, mesh)
+    with production_knobs(arch, kind):
+        return _count(cfg, shape_name, rows, use_kernel=use_kernel,
+                      mesh=mesh, rules=rules)
+
+
+def run_mesh_cell(arch: str, shape_name: str, multi_pod: bool,
+                  rules: Optional[ShardingRules] = None,
+                  verbose: bool = True) -> dict:
+    """The dry-run record of one cell on a production mesh, with the
+    reference's per-device keys (``flops_per_device``, ...,
+    ``peak_bytes_per_device``, ``collectives``), counted on rank 0 of a
+    fake group (`launch.mesh`), the kernel route (the card's)."""
+    cfg = get_config(arch)
+    label = meshes.MESH_LABELS[multi_pod]
+    rec = {"arch": arch, "shape": shape_name, "mesh": label}
+    skip = shape_skip_reason(cfg, shape_name)
+    if skip:
+        rec["status"] = "skipped"
+        rec["reason"] = skip
+        return rec
+    t0 = time.perf_counter()
+    try:
+        mesh = meshes.make_production_mesh(multi_pod, "meta")
+        got = count_on_mesh(arch, shape_name, mesh, rules)
+        rec.update({
+            "status": "ok",
+            "kind": SHAPES[shape_name].kind,
+            "dtype": str(build_dtype(cfg, shape_name)).replace("torch.", ""),
+            "flops_per_device": got["flops"],
+            "bytes_accessed_per_device": got["bytes"],
+            "argument_bytes_per_device": got["argument_bytes"],
+            "output_bytes_per_device": got["output_bytes"],
+            "temp_bytes_per_device": got["temp_bytes"],
+            "peak_bytes_per_device": got["peak_bytes"],
+            "kernel_flops": got["kernel_flops"],
+            "kernel_bytes": got["kernel_bytes"],
+            "collectives": got["collectives"],
+            "fits": got["peak_bytes"] <= H100.hbm_bytes,
+            "planned_launches": got["planned_launches"],
+        })
+        rec["count_s"] = time.perf_counter() - t0
+        if verbose:
+            colls = {k: round(v / 2**20, 1) for k, v in
+                     rec["collectives"]["bytes_by_kind"].items()}
+            print(f"[{label}] {arch} x {shape_name}: "
+                  f"args={rec['argument_bytes_per_device'] / 2**30:.2f}GiB "
+                  f"temp={rec['temp_bytes_per_device'] / 2**30:.2f}GiB "
+                  f"flops/dev={rec['flops_per_device']:.3g} "
+                  f"colls={colls}MiB launches={rec['planned_launches']} "
+                  f"(count {rec['count_s']:.1f}s)", flush=True)
+    except Exception as e:  # noqa: BLE001 — record failures, keep sweeping
+        rec["status"] = "error"
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-2000:]
+        rec["count_s"] = time.perf_counter() - t0
+        if verbose:
+            print(f"[{label}] {arch} x {shape_name}: FAILED {rec['error']}",
+                  flush=True)
+    return rec
+
+
 def run_cell(arch: str, shape_name: str, verbose: bool = True,
-             plain: bool = True) -> dict:
-    """The dry-run record of one cell (the reference's keys where they have
-    a meaning on one card, and the card's own; see the module's
-    docstring).  ``plain``: also count the plain route (``plain_*``)."""
+             plain: bool = True, mesh="card") -> dict:
+    """The dry-run record of one cell: on one card (``mesh="card"``: the
+    reference's keys where they have a meaning on one card, and the
+    card's own; see the module's docstring), or on a production mesh
+    ("16x16", "2x16x16": `run_mesh_cell`, the kernel route only).
+    ``plain``: on one card, also count the plain route (``plain_*``)."""
+    if mesh != "card":
+        return run_mesh_cell(arch, shape_name, mesh == "2x16x16",
+                             verbose=verbose)
     cfg = get_config(arch)
     rec = {"arch": arch, "shape": shape_name, "mesh": "1xH100"}
     skip = shape_skip_reason(cfg, shape_name)
@@ -796,6 +1169,10 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCH_IDS)
     ap.add_argument("--shape", choices=tuple(SHAPES))
+    ap.add_argument("--mesh", choices=tuple(MESH_CHOICES), default="card",
+                    help="card: one card's count (the default); single, "
+                         "multi, both: per device on the 16x16 and "
+                         "2x16x16 meshes")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -803,7 +1180,11 @@ def main(argv=None) -> None:
     archs = ARCH_IDS if (args.all or not args.arch) else (args.arch,)
     shapes = tuple(SHAPES) if (args.all or not args.shape) else (args.shape,)
     t0 = time.perf_counter()
-    records = [run_cell(arch, shape) for arch in archs for shape in shapes]
+    records = [run_cell(arch, shape,
+                        mesh="card" if mp is None
+                        else meshes.MESH_LABELS[mp])
+               for arch in archs for shape in shapes
+               for mp in MESH_CHOICES[args.mesh]]
     n_err = sum(r["status"] == "error" for r in records)
     print(f"\n{summary(records)}")
     print(f"counted in {time.perf_counter() - t0:.1f}s")

@@ -4,8 +4,13 @@ The port of ``repro/models/attention.py``: grouped KV heads, RoPE, qk-norm
 (Qwen3), QKV bias (Qwen1.5), attention-logit softcap (Gemma-2), local
 sliding window (Gemma-2 / RecurrentGemma), KV-cache decode against a
 full or a ring cache, and cross-attention (the seamless-m4t decoder:
-K/V projected from the encoder's memory, no rope, no mask).  The
-reference's sequence-sharding knob has no counterpart on one card.
+K/V projected from the encoder's memory, no rope, no mask).
+
+On a device mesh (DTensor parameters, `train.sharding`) the reference's
+knob `SEQ_SHARD_AXIS` shards the dense path's queries and scores on the
+sequence axis (`_seq_shard`), and the caches a prefill makes and a decode
+step writes stay sharded (`launch.layout`); on plain tensors both are
+no-ops, so every one-card path is as it was.
 
 The full-sequence self-attention path can route through the
 flash-attention kernel (`repro_torch.kernels.ops.flash_attention`,
@@ -26,6 +31,7 @@ import torch.nn as nn
 
 from repro_torch.device import use_kernels
 from repro_torch.kernels.ref import NEG_INF, f32_sqrt
+from repro_torch.launch import layout
 from repro_torch.models import layers
 from repro_torch.models.layers import dense_init, rope, softcap
 
@@ -65,15 +71,33 @@ def init_attn(cfg, generator=None, device=None) -> Attention:
 
 
 def _project_qkv(params: Attention, cfg, x: Tensor, kv_x: Tensor):
-    q = torch.einsum("btd,dhk->bthk", x, params.wq)
-    k = torch.einsum("bsd,dhk->bshk", kv_x, params.wk)
-    v = torch.einsum("bsd,dhk->bshk", kv_x, params.wv)
+    q = layout.project_heads(x, params.wq)
+    k = layout.project_heads(kv_x, params.wk)
+    v = layout.project_heads(kv_x, params.wv)
     if cfg.qkv_bias:
         q, k, v = q + params.bq, k + params.bk, v + params.bv
     if cfg.qk_norm:
         q = layers.rms_norm(q, params.q_norm, cfg.norm_eps)
         k = layers.rms_norm(k, params.k_norm, cfg.norm_eps)
     return q, k, v
+
+
+# Shard the query/scores sequence axis over this mesh axis in the dense
+# full-sequence path (the reference's hillclimb knob; the dry run sets it
+# for `launch.dryrun.SEQ_SHARD_ARCHS`): it cuts the [T, S] probabilities
+# by the axis size where the heads cannot shard.
+SEQ_SHARD_AXIS: Optional[str] = None
+
+
+def _seq_shard(x: Tensor, axis: int = 1) -> Tensor:
+    """The reference's ``with_sharding_constraint`` of ``x`` to a spec
+    naming `SEQ_SHARD_AXIS` on ``axis``: a redistribute on a DTensor, a
+    no-op on a plain tensor or with the knob off."""
+    if SEQ_SHARD_AXIS is None:
+        return x
+    spec = [None] * x.ndim
+    spec[axis] = SEQ_SHARD_AXIS
+    return layout.constrain(x, spec)
 
 
 def _expand_kv(k: Tensor, n_heads: int) -> Tensor:
@@ -89,7 +113,8 @@ def _grouped_decode_attend(cfg, q, ck, cv, valid) -> Tensor:
     b, t, h, dh = q.shape
     kh = ck.shape[2]
     g = h // kh
-    qg = q.reshape(b, t, kh, g, dh)
+    # a view cannot split heads that the model axis shards unevenly
+    qg = layout.unshard(q, (2,)).reshape(b, t, kh, g, dh)
     scores = torch.einsum("btkgd,bskd->btkgs", qg, ck) / f32_sqrt(dh)
     scores = softcap(scores, cfg.attn_softcap)
     scores = torch.where(valid[None, None, None, None, :], scores, NEG_INF)
@@ -107,6 +132,7 @@ _Q_CHUNK = 1024
 def _attend_dense(cfg, q, k, v, *, causal, window, q_offset):
     b, t, h, dh = q.shape
     s = k.shape[1]
+    q = _seq_shard(q)
     scores = torch.einsum("bthd,bshd->bths", q, k) / f32_sqrt(dh)
     scores = softcap(scores, cfg.attn_softcap)
     qpos = q_offset + torch.arange(t, device=q.device)
@@ -165,7 +191,7 @@ def attn_forward(params: Attention, cfg, x: Tensor, *, positions: Tensor,
     else:
         out = attend(cfg, q, k, v, causal=causal and not cross,
                      window=window)
-    y = torch.einsum("bthk,hkd->btd", out, params.wo)
+    y = layout.project_out(out, params.wo)
     if return_kv:
         return y, (k, v)
     return y
@@ -176,8 +202,15 @@ def attn_forward(params: Attention, cfg, x: Tensor, *, positions: Tensor,
 # ---------------------------------------------------------------------------
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
-                  device=None) -> dict:
+                  device=None, like: Optional[Tensor] = None) -> dict:
+    """Zeroed [B, S, K, D] K/V caches; with ``like``, a DTensor K of
+    [B, T, K, D], laid out as it (`layout.full_like_layout`)."""
     k, dh = cfg.n_kv_heads, cfg.head_dim
+    if layout.is_sharded(like):
+        dims = {d: d for d in range(4)}
+        return {name: layout.full_like_layout((batch, max_len, k, dh), 0.0,
+                                              dtype, like, dims)
+                for name in ("k", "v")}
     return {
         "k": torch.zeros((batch, max_len, k, dh), dtype=dtype, device=device),
         "v": torch.zeros((batch, max_len, k, dh), dtype=dtype, device=device),
@@ -185,10 +218,19 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.float32,
 
 
 def init_ring_cache(cfg, batch: int, window: int, dtype=torch.float32,
-                    device=None) -> dict:
+                    device=None, like: Optional[Tensor] = None) -> dict:
     """Fixed-size rotating KV cache for sliding-window layers: O(window)
-    memory regardless of sequence length."""
+    memory regardless of sequence length.  With ``like`` (a DTensor K),
+    laid out as `init_kv_cache` lays it, ``pos`` replicated."""
     k, dh = cfg.n_kv_heads, cfg.head_dim
+    if layout.is_sharded(like):
+        dims = {d: d for d in range(4)}
+        kv = {name: layout.full_like_layout((batch, window, k, dh), 0.0,
+                                            dtype, like, dims)
+              for name in ("k", "v")}
+        kv["pos"] = layout.full_like_layout((window,), -1, torch.int32,
+                                            like, {})
+        return kv
     return {
         "k": torch.zeros((batch, window, k, dh), dtype=dtype, device=device),
         "v": torch.zeros((batch, window, k, dh), dtype=dtype, device=device),
@@ -210,9 +252,9 @@ def fill_ring_cache(cache: dict, k: Tensor, v: Tensor, t: int) -> dict:
     take = min(w, t)
     tail_pos = torch.arange(t - take, t, device=k.device)
     slots = tail_pos % w
-    cache["k"][:, slots] = k[:, t - take: t]
-    cache["v"][:, slots] = v[:, t - take: t]
-    cache["pos"][slots] = tail_pos.to(torch.int32)
+    layout.put_rows(cache["k"], 1, slots, k[:, t - take: t])
+    layout.put_rows(cache["v"], 1, slots, v[:, t - take: t])
+    layout.put_rows(cache["pos"], 0, slots, tail_pos.to(torch.int32))
     return cache
 
 
@@ -230,14 +272,14 @@ def attn_decode(params: Attention, cfg, x: Tensor, cache: dict, index: int,
     """One-token decode step at position ``index``. x: [B, 1, D]; cache
     k/v: [B, S, K, D], updated in place."""
     q, k_new, v_new = _decode_qkv(params, cfg, x, index)
-    cache["k"][:, index] = k_new[:, 0]
-    cache["v"][:, index] = v_new[:, 0]
+    layout.write_at(cache["k"], 1, index, k_new[:, 0])
+    layout.write_at(cache["v"], 1, index, v_new[:, 0])
     kpos = torch.arange(cache["k"].shape[1], device=x.device)
     valid = kpos <= index
     if window and window > 0:
         valid &= kpos > (index - window)
     out = _grouped_decode_attend(cfg, q, cache["k"], cache["v"], valid)
-    y = torch.einsum("bthk,hkd->btd", out, params.wo)
+    y = layout.project_out(out, params.wo)
     return y, cache
 
 
@@ -247,11 +289,11 @@ def attn_decode_ring(params: Attention, cfg, x: Tensor, cache: dict,
     x: [B, 1, D]."""
     q, k_new, v_new = _decode_qkv(params, cfg, x, index)
     slot = index % cache["k"].shape[1]
-    cache["k"][:, slot] = k_new[:, 0]
-    cache["v"][:, slot] = v_new[:, 0]
-    cache["pos"][slot] = index
+    layout.write_at(cache["k"], 1, slot, k_new[:, 0])
+    layout.write_at(cache["v"], 1, slot, v_new[:, 0])
+    layout.write_at(cache["pos"], 0, slot, index)
     pos = cache["pos"]
     valid = (pos >= 0) & (pos <= index) & (pos > index - window)
     out = _grouped_decode_attend(cfg, q, cache["k"], cache["v"], valid)
-    y = torch.einsum("bthk,hkd->btd", out, params.wo)
+    y = layout.project_out(out, params.wo)
     return y, cache

@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.kernels.ref import f32_sqrt
+from repro_torch.launch import layout
 from repro_torch.models import attention, layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, embed_init, norm, norm_param
@@ -106,9 +107,10 @@ def _run(fn, remat: bool, *args):
 def _enc_block(cfg, blk: EncBlock, h: Tensor, positions: Tensor,
                use_kernel: Optional[bool]) -> Tensor:
     x = norm(cfg, h, blk.norm1)
-    h = h + attention.attn_forward(blk.attn, cfg, x, positions=positions,
-                                   causal=False, use_kernel=use_kernel)
-    return h + layers.mlp(blk.ffn, norm(cfg, h, blk.norm2))
+    h = layout.residual(h, attention.attn_forward(
+        blk.attn, cfg, x, positions=positions, causal=False,
+        use_kernel=use_kernel))
+    return layout.residual(h, layers.mlp(blk.ffn, norm(cfg, h, blk.norm2)))
 
 
 def encode(cfg: ModelConfig, model: EncDec, frames: Tensor,
@@ -129,11 +131,11 @@ def _dec_block(cfg, blk: DecBlock, h: Tensor, memory: Tensor,
                                use_kernel=use_kernel, return_kv=return_kv)
     if return_kv:
         y, kv = y
-    h = h + y
+    h = layout.residual(h, y)
     x = norm(cfg, h, blk.norm_x)
-    h = h + attention.attn_forward(blk.cross_attn, cfg, x,
-                                   positions=positions, kv_x=memory)
-    h = h + layers.mlp(blk.ffn, norm(cfg, h, blk.norm2))
+    h = layout.residual(h, attention.attn_forward(
+        blk.cross_attn, cfg, x, positions=positions, kv_x=memory))
+    h = layout.residual(h, layers.mlp(blk.ffn, norm(cfg, h, blk.norm2)))
     return (h, kv) if return_kv else h
 
 
@@ -144,7 +146,7 @@ def forward(cfg: ModelConfig, model: EncDec, tokens: Tensor, frames: Tensor,
     aux = 0).  ``remat``: each block runs under ``torch.utils.checkpoint``
     where autograd records."""
     memory = encode(cfg, model, frames, use_kernel, remat)
-    h = model.embed[tokens]
+    h = layout.lookup(model.embed, tokens)
     positions = _positions(h)
     for blk in model.dec:
         h = _run(_dec_block, remat, cfg, blk, h, memory, positions,
@@ -159,12 +161,22 @@ def forward(cfg: ModelConfig, model: EncDec, tokens: Tensor, frames: Tensor,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int,
-               dtype=torch.float32, device=None) -> dict:
+               dtype=torch.float32, device=None,
+               like: Optional[Tensor] = None) -> dict:
+    """Zeroed [L, B, S, K, D] caches; with ``like`` (a DTensor [B, ...]
+    activation) each one's batch sharded as ``like``'s
+    (`layout.full_like_layout`)."""
     kh, dh, n = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
-    dev = resolve(device)
+    if layout.is_sharded(like):
+        def zeros(s):
+            return layout.full_like_layout((n, batch, s, kh, dh), 0.0, dtype,
+                                           like, {0: 1})
+    else:
+        dev = resolve(device)
 
-    def zeros(s):
-        return torch.zeros((n, batch, s, kh, dh), dtype=dtype, device=dev)
+        def zeros(s):
+            return torch.zeros((n, batch, s, kh, dh), dtype=dtype,
+                               device=dev)
 
     # cross K/V are computed from the encoder memory at prefill
     return {"self": {"k": zeros(max_len), "v": zeros(max_len)},
@@ -191,11 +203,11 @@ def prefill(cfg: ModelConfig, model: EncDec, tokens: Tensor, frames: Tensor,
             ) -> tuple[Tensor, dict]:
     """Encode the source, teacher-force the target prefix, emit caches."""
     memory = encode(cfg, model, frames, use_kernel)
-    h = model.embed[tokens]
+    h = layout.lookup(model.embed, tokens)
     positions = _positions(h)
     t = h.shape[1]
     cache = init_cache(cfg, h.shape[0], max_len, memory.shape[1], h.dtype,
-                       h.device)
+                       h.device, like=h)
     for i, blk in enumerate(model.dec):
         h, (k, v) = _dec_block(cfg, blk, h, memory, positions, use_kernel,
                                return_kv=True)
@@ -226,16 +238,17 @@ def decode_step(cfg: ModelConfig, model: EncDec, cache: dict, token: Tensor,
     """token: [B] int; index: its position in the target.  Returns (logits
     [B, V], cache); the self-attention cache is updated in place."""
     index = int(index)
-    h = model.embed[token][:, None, :]
+    h = layout.lookup(model.embed, token)[:, None, :]
     for i, blk in enumerate(model.dec):
         x = norm(cfg, h, blk.norm1)
         y, _ = attention.attn_decode(
             blk.self_attn, cfg, x,
             {"k": cache["self"]["k"][i], "v": cache["self"]["v"][i]}, index)
-        h = h + y
+        h = layout.residual(h, y)
         x = norm(cfg, h, blk.norm_x)
-        h = h + _cross_decode(cfg, blk.cross_attn, x, cache["cross"]["k"][i],
-                              cache["cross"]["v"][i])
-        h = h + layers.mlp(blk.ffn, norm(cfg, h, blk.norm2))
+        h = layout.residual(h, _cross_decode(
+            cfg, blk.cross_attn, x, cache["cross"]["k"][i],
+            cache["cross"]["v"][i]))
+        h = layout.residual(h, layers.mlp(blk.ffn, norm(cfg, h, blk.norm2)))
     h = norm(cfg, h, model.final_norm)
     return h[:, 0] @ model.head, cache

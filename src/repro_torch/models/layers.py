@@ -14,6 +14,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from repro_torch.launch import layout
+
 Tensor = torch.Tensor
 
 
@@ -101,6 +103,8 @@ def softcap(x: Tensor, cap: Optional[float]) -> Tensor:
 
 
 def swiglu(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor) -> Tensor:
+    # on a mesh, FSDP's weights gathered before use
+    w_gate, w_up, w_down = (layout.gathered(w) for w in (w_gate, w_up, w_down))
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 

@@ -11,17 +11,20 @@ the expert products run as batched ``torch.bmm`` over the expert axis,
 and the outputs gather back with their routing weights.  A Switch-style
 load-balance loss comes back beside the output.
 
-The reference also pins the expert buffers to a mesh axis
-(``_ep_constrain`` / ``EP_CONSTRAINT_AXIS``) so that XLA shards them for
-expert parallelism; on one card there is no mesh, so nothing here stands
-for it.
+On a device mesh the expert buffers are pinned to the mesh axis
+`EP_CONSTRAINT_AXIS` (`_ep_constrain`, the reference's knob): DTensor
+then runs the expert products where the experts lie (expert parallelism)
+and moves the tokens there.  On a plain tensor it is a no-op.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from repro_torch.launch import layout
 from repro_torch.models import layers
 from repro_torch.models.layers import dense_init
 
@@ -53,6 +56,32 @@ def init_moe(cfg, generator=None, device=None) -> MoE:
     return MoE(cfg, generator, device)
 
 
+# Expert-parallel sharding constraint: the mesh axis the expert buffers
+# [E, C, d] are pinned to (None: not pinned).  Without it the buffer would
+# be replicated and all-reduced.
+EP_CONSTRAINT_AXIS: Optional[str] = "model"
+
+
+def _ep_constrain(x: Tensor, spec_axes) -> Tensor:
+    """``x`` with its "E" dimension on `EP_CONSTRAINT_AXIS`
+    (`layout.constrain`); a no-op on a plain tensor."""
+    if EP_CONSTRAINT_AXIS is None:
+        return x
+    return layout.constrain(x, [EP_CONSTRAINT_AXIS if a == "E" else None
+                                for a in spec_axes])
+
+
+def _expert_parallel(xf: Tensor, n_experts: int) -> bool:
+    """Whether the dispatch runs expert parallel (`layout.expert_scatter`):
+    DTensor tokens, the buffers pinned to the model axis, and the experts
+    splitting evenly over it (else DTensor's own rules run the one-card
+    dispatch)."""
+    if EP_CONSTRAINT_AXIS != "model" or not layout.is_sharded(xf):
+        return False
+    m = layout.model_size(xf)
+    return m > 1 and n_experts % m == 0
+
+
 def expert_capacity(n_tokens: int, cfg) -> int:
     m = cfg.moe
     cap = int(n_tokens * m.top_k * cfg.capacity_factor / m.n_experts) + 1
@@ -65,7 +94,7 @@ def _positions_sort(flat_e: Tensor, n_experts: int) -> Tensor:
     capacity semantics of the reference's one-hot cumsum."""
     nk = flat_e.shape[0]
     order = torch.argsort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    counts = layout.bincount(flat_e, n_experts)
     starts = torch.cumsum(counts, dim=0) - counts
     rank_sorted = (torch.arange(nk, device=flat_e.device)
                    - starts[flat_e[order]])
@@ -87,7 +116,9 @@ def dispatch(flat_e: Tensor, cfg, cap: int) -> tuple[Tensor, Tensor, Tensor]:
     """(pos, keep, slot) of each flattened (token, slot) entry: its rank in
     its expert, whether it fits the capacity, and its row of the [E*C, d]
     buffer (0 for a dropped entry, whose weight is zero)."""
-    pos = _positions_sort(flat_e, cfg.moe.n_experts)
+    # the ranks are over every token: on a mesh each device sorts them all
+    pos = layout.whole_call(lambda fe: _positions_sort(fe, cfg.moe.n_experts),
+                            flat_e, flat_e.shape)
     keep = pos < cap
     slot = torch.where(keep, flat_e * cap + torch.clamp_max(pos, cap - 1),
                        torch.zeros_like(pos))
@@ -109,27 +140,40 @@ def moe_forward(params: MoE, cfg, x: Tensor) -> tuple[Tensor, Tensor]:
 
     # scatter tokens into the expert buffers [E*C, d]: every kept slot
     # receives one entry, dropped ones add zeros into slot 0
-    tok_rep = torch.arange(n, device=x.device).repeat_interleave(m.top_k)
-    buf = torch.zeros((m.n_experts * cap, d), dtype=xf.dtype,
-                      device=x.device)
-    buf = buf.index_add(0, slot, xf[tok_rep] * keep_f)
-    eb = buf.reshape(m.n_experts, cap, d)
+    if _expert_parallel(xf, m.n_experts):
+        eb = layout.expert_scatter(xf, slot, keep, m.n_experts, cap,
+                                   m.top_k)
+    else:
+        tok_rep = torch.arange(n, device=x.device).repeat_interleave(
+            m.top_k)
+        buf = torch.zeros((m.n_experts * cap, d), dtype=xf.dtype,
+                          device=x.device)
+        buf = buf.index_add(0, slot, xf[tok_rep] * keep_f)
+        eb = buf.reshape(m.n_experts, cap, d)
+    eb = _ep_constrain(eb, ("E", None, None))
 
     # expert compute, batched over the experts
-    h = F.silu(torch.bmm(eb, params.w_gate)) * torch.bmm(eb, params.w_up)
-    out = torch.bmm(h, params.w_down)
+    w_gate, w_up, w_down = (layout.gathered(w) for w in (
+        params.w_gate, params.w_up, params.w_down))
+    h = F.silu(torch.bmm(eb, w_gate)) * torch.bmm(eb, w_up)
+    out = _ep_constrain(torch.bmm(h, w_down), ("E", None, None))
 
     # combine: gather back, weight, and sum over the k slots
-    out_flat = out.reshape(m.n_experts * cap, d)
-    gathered = out_flat[slot] * (top_w.reshape(-1)[:, None] * keep_f)
-    y = torch.sum(gathered.reshape(n, m.top_k, d), dim=1)
+    if _expert_parallel(xf, m.n_experts):
+        y = layout.expert_gather(out, slot,
+                                 top_w.reshape(-1) * keep.to(top_w.dtype),
+                                 m.top_k)
+    else:
+        out_flat = out.reshape(m.n_experts * cap, d)
+        gathered = out_flat[slot] * (top_w.reshape(-1)[:, None] * keep_f)
+        y = torch.sum(gathered.reshape(n, m.top_k, d), dim=1)
 
     if m.n_shared:
         y = y + layers.mlp(params.shared, xf)
 
     # Switch-style load-balance aux loss
     me = probs.mean(dim=0)                                 # mean router prob
-    counts = torch.bincount(flat_e, minlength=m.n_experts).to(torch.float32)
+    counts = layout.bincount(flat_e, m.n_experts).to(torch.float32)
     aux = torch.sum(me * (counts / n)) * m.n_experts
     return y.reshape(b, t, d), aux.to(torch.float32)
 

@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.kernels.ref import f32_sqrt
+from repro_torch.launch import layout
 from repro_torch.models import attention, layers, rglru, xlstm
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
@@ -83,7 +84,7 @@ class Block(nn.Module):
         aux = None
         if cfg.post_norm:
             y = norm(cfg, y, self.postnorm1)
-        h = h + y
+        h = layout.residual(h, y)
         if self.ffn_kind in ("dense", "moe"):
             x = norm(cfg, h, self.norm2)
             if self.ffn_kind == "dense":
@@ -92,7 +93,7 @@ class Block(nn.Module):
                 y, aux = moe_mod.moe_forward(self.moe, cfg, x)
             if cfg.post_norm:
                 y = norm(cfg, y, self.postnorm2)
-            h = h + y
+            h = layout.residual(h, y)
         return h, aux
 
 
@@ -126,7 +127,7 @@ def _apply_block_prefill(cfg: ModelConfig, blk: Block, h: Tensor,
             blk.attn, cfg, x, positions=positions, window=window,
             use_kernel=use_kernel, return_kv=True)
         cache = _init_block_cache(cfg, blk.kind, batch, max_len, h.dtype,
-                                  h.device)
+                                  h.device, like=k)
         if blk.kind == "attn":
             attention.fill_kv_cache(cache, k, v)
         else:
@@ -208,7 +209,8 @@ class Model(nn.Module):
                 dense_init(generator, (d, cfg.vocab_padded), device=dev))
 
     def head_matrix(self) -> Tensor:
-        return self.embed.T if self.cfg.tie_embeddings else self.head
+        return layout.gathered(self.embed.T if self.cfg.tie_embeddings
+                               else self.head)
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -227,7 +229,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 def embed_inputs(cfg: ModelConfig, model: Model, tokens: Tensor,
                  extra_embeds: Optional[Tensor] = None) -> Tensor:
-    h = model.embed[tokens]
+    h = layout.lookup(model.embed, tokens)
     if cfg.embed_scale:
         h = h * f32_sqrt(cfg.d_model)
     if extra_embeds is not None:
@@ -315,12 +317,15 @@ def prefill(cfg: ModelConfig, model: Model, tokens: Tensor, max_len: int,
 # ---------------------------------------------------------------------------
 
 def _init_block_cache(cfg, kind: str, batch: int, max_len: int, dtype,
-                      device) -> dict:
+                      device, like: Optional[Tensor] = None) -> dict:
+    """One block's zeroed cache; an attention block's laid out as ``like``
+    (its prefill's K) where that is a DTensor."""
     if kind == "attn":
-        return attention.init_kv_cache(cfg, batch, max_len, dtype, device)
+        return attention.init_kv_cache(cfg, batch, max_len, dtype, device,
+                                       like)
     if kind == "attn_local":
         w = min(cfg.window or max_len, max_len)
-        return attention.init_ring_cache(cfg, batch, w, dtype, device)
+        return attention.init_ring_cache(cfg, batch, w, dtype, device, like)
     if kind == "rec":
         return rglru.init_rglru_cache(cfg, batch, dtype, device)
     if kind == "mlstm":
@@ -340,7 +345,7 @@ def decode_step(cfg: ModelConfig, model: Model, cache: dict, token: Tensor,
     """token: [B] int; index: the token's position.  Returns (logits
     [B, V], cache); the cache is updated in place."""
     index = int(index)
-    h = model.embed[token][:, None, :]
+    h = layout.lookup(model.embed, token)[:, None, :]
     if cfg.embed_scale:
         h = h * f32_sqrt(cfg.d_model)
     for i, blk in enumerate(model.layers):

@@ -23,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.kernels.ref import f32_sqrt
+from repro_torch.launch import layout
 from repro_torch.models.layers import dense_init, rms_norm
 from repro_torch.models.rglru import _softplus, conv1d_causal
 
@@ -103,6 +104,17 @@ def _mlstm_parallel(q: Tensor, k: Tensor, v: Tensor, log_i: Tensor,
     return num / den[..., None]
 
 
+def _mlstm_cell(q: Tensor, k: Tensor, v: Tensor, log_i: Tensor,
+                log_f: Tensor) -> Tensor:
+    """`_mlstm_parallel`; on DTensors on each device's own rows of the
+    batch (every mesh axis splits the rows, `layout.by_rows`): DTensor's
+    own einsums would split the flattened batch x heads, which the
+    backward pass of a multi-pod mesh cannot view back."""
+    return layout.on_rows(_mlstm_parallel, (q, k, v, log_i, log_f),
+                          (True,) * 5, q.shape, q,
+                          {d: d for d in range(q.ndim)})
+
+
 def _mlstm_inputs(params: MLSTM, x: Tensor, conv_state=None):
     """The block's branches up to the cell: (gate, c, q, k, v, log_i,
     log_f, conv_state)."""
@@ -110,10 +122,12 @@ def _mlstm_inputs(params: MLSTM, x: Tensor, conv_state=None):
     gate = x @ params.w_gate
     c, conv_state = conv1d_causal(params, up, conv_state)
     c = F.silu(c)
-    q = torch.einsum("btd,dhk->bthk", c, params.wq)
-    k = torch.einsum("btd,dhk->bthk", c, params.wk)
-    v = torch.einsum("btd,dhk->bthk", up, params.wv)
-    gif = torch.einsum("btd,dhg->bthg", up, params.w_if) + params.b_if
+    # on a mesh DTensor's einsum cannot view its result back by heads where
+    # the model axis splits the contracted dimension (`layout.project_heads`)
+    q = layout.project_heads(c, params.wq)
+    k = layout.project_heads(c, params.wk)
+    v = layout.project_heads(up, params.wv)
+    gif = layout.project_heads(up, params.w_if) + params.b_if
     log_i = gif[..., 0] - _softplus(gif[..., 0])            # log sigmoid-ish
     log_f = -_softplus(-gif[..., 1])                        # log sigmoid
     return gate, c, q, k, v, log_i, log_f, conv_state
@@ -122,14 +136,17 @@ def _mlstm_inputs(params: MLSTM, x: Tensor, conv_state=None):
 def _mlstm_out(params: MLSTM, hten: Tensor, c: Tensor, gate: Tensor
                ) -> Tensor:
     b, t = hten.shape[:2]
-    hflat = rms_norm(hten.reshape(b, t, -1), params.out_norm)
+    # on a mesh, the gradient comes back as the merged heads' shards:
+    # laid out whole per head first, else the reshape cannot view it back
+    hflat = rms_norm(layout.grad_as(hten.reshape(b, t, -1)),
+                     params.out_norm)
     hflat = hflat + params.skip * c
     return (hflat * F.silu(gate)) @ params.w_down
 
 
 def mlstm_forward(params: MLSTM, cfg, x: Tensor, return_state: bool = False):
     gate, c, q, k, v, log_i, log_f, conv_state = _mlstm_inputs(params, x)
-    hten = _mlstm_parallel(q, k, v, log_i, log_f)
+    hten = _mlstm_cell(q, k, v, log_i, log_f)
     y = _mlstm_out(params, hten, c, gate)
     if not return_state:
         return y
@@ -246,20 +263,52 @@ def _slstm_gates(params: SLSTM, x: Tensor, conv_state=None):
             conv_state)
 
 
-def slstm_forward(params: SLSTM, cfg, x: Tensor, return_state: bool = False):
-    b, t, d = x.shape
-    h, dh = cfg.n_heads, d // cfg.n_heads
-    xg, conv_state = _slstm_gates(params, x)
+def _slstm_scan(params, xg: Tensor, h: int, dh: int):
+    """The sLSTM's loop over time from its gate inputs xg [B, T, H, 4, dh]
+    (``params``: anything with ``r_gates`` and ``b_gates``): (hs [B, T, H,
+    dh], the final carry (c, n, h, m))."""
+    b, t = xg.shape[:2]
 
     def full(value):
-        return torch.full((b, h, dh), value, dtype=x.dtype, device=x.device)
+        return torch.full((b, h, dh), value, dtype=xg.dtype,
+                          device=xg.device)
 
     carry = (full(0.0), full(1e-6), full(0.0), full(-1e30))
     hs = []
     for step in range(t):
         carry, h_new = _slstm_step(params, carry, xg[:, step])
         hs.append(h_new)
-    y = _slstm_ffn(params, cfg, torch.stack(hs, dim=1).reshape(b, t, d))
+    return torch.stack(hs, dim=1), carry
+
+
+def _slstm_scan_on_rows(params: SLSTM, xg: Tensor, h: int, dh: int):
+    """`_slstm_scan` on DTensors: each device runs the loop on its own rows
+    of the batch (`layout.by_rows`) with the recurrent weights whole (a
+    loop of DTensor ops would pay DTensor's dispatch per step); the final
+    carry rides as four more positions of the result."""
+    from types import SimpleNamespace
+
+    t = xg.shape[1]
+
+    def local(xl, rl, bl):
+        hs, carry = _slstm_scan(SimpleNamespace(r_gates=rl, b_gates=bl), xl,
+                                h, dh)
+        return torch.cat([hs, torch.stack(carry, dim=1)], dim=1)
+
+    # laid out back as the gates, their gate axis dropped
+    out = layout.on_rows(local, (xg, params.r_gates, params.b_gates),
+                         (True, False, False), (xg.shape[0], t + 4, h, dh),
+                         xg, {0: 0, 1: 1, 2: 2, 4: 3})
+    return out[:, :t], tuple(out[:, t + i] for i in range(4))
+
+
+def slstm_forward(params: SLSTM, cfg, x: Tensor, return_state: bool = False):
+    b, t, d = x.shape
+    h, dh = cfg.n_heads, d // cfg.n_heads
+    xg, conv_state = _slstm_gates(params, x)
+    scan = _slstm_scan_on_rows if layout.is_sharded(xg) else _slstm_scan
+    hs, carry = scan(params, xg, h, dh)
+    y = _slstm_ffn(params, cfg, layout.grad_as(hs.reshape(b, t, d)))
     if return_state:
         cc, nn_, hh, mm = carry
         return y, {"c": cc, "n": nn_, "h": hh, "m": mm,

@@ -43,8 +43,8 @@ def adamw_init(cfg: AdamWConfig, params: dict) -> AdamWState:
     """Zero moments in the state dtype, on each parameter's device."""
     dt = _DTYPES[cfg.state_dtype]
     first = next(iter(params.values()))
-    z = {name: torch.zeros(p.shape, dtype=dt, device=p.device)
-         for name, p in params.items()}
+    # zeros_like keeps a DTensor parameter's mesh and placements
+    z = {name: torch.zeros_like(p, dtype=dt) for name, p in params.items()}
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),
         m=z, v={name: torch.zeros_like(t) for name, t in z.items()})

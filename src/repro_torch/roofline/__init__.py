@@ -1,20 +1,18 @@
-"""roofline — the card's data-sheet constants (`hw.H100`) and the roofline
-terms of every dry-run cell on it (`analysis`, over
-`repro_torch.launch.dryrun`'s counts).
+"""roofline — the card's data-sheet constants (`hw.H100`), the roofline
+terms of every dry-run cell on one card or per device of a mesh
+(`analysis`, over `repro_torch.launch.dryrun`'s counts), and
+`collectives`, the counterpart of ``repro/roofline/hlo.py``: where the
+reference parses the collectives out of the partitioned HLO, a
+``TorchDispatchMode`` counts those a DTensor step issues, under the
+reference's kinds and keys.  The static verifier's budgets
+(`repro_torch.analysis.budget`) stand for hlo.py's ``cost_envelope``.
 
-Two reference modules have no one-card counterpart:
-
-* ``repro/roofline/hlo.py`` parses the collectives out of a compiled XLA
-  module's HLO text.  The port compiles no HLO and one card runs no
-  collective; the dry run counts its FLOPs and bytes op by op, and the
-  static verifier's budgets (`repro_torch.analysis.budget`) stand for its
-  ``cost_envelope``.
-* ``repro/roofline/hillclimb.py`` searches four knobs of the pod mesh
-  (``SEQ_SHARD_AXIS``, ``DECODE_GROUPED_GQA``, ``DISPATCH_MODE``,
-  ``EP_CONSTRAINT_AXIS``) by lowering cells on it.  They choose how a step
-  is sharded; the port runs on one card, has no sequence-shard axis
-  (`models.attention`), dropped the dispatch mode and pins no expert axis
-  (`models.moe`), and always decodes grouped.
+``repro/roofline/hillclimb.py`` waits for a later slice: it searches four
+knobs (``SEQ_SHARD_AXIS``, ``DECODE_GROUPED_GQA``, ``DISPATCH_MODE``,
+``EP_CONSTRAINT_AXIS``) by counting cells on the mesh that
+`launch.mesh` now builds; the port has the first and the last
+(`models.attention`, `models.moe`), always decodes grouped and dropped
+the dispatch mode.
 """
 
 from repro_torch.roofline.hw import H100, HwSpec

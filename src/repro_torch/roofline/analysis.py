@@ -1,33 +1,40 @@
-"""Roofline analysis on one card.
+"""Roofline analysis: per (arch x shape) cell, from the dry run's count
+(`repro_torch.launch.dryrun`, the kernel route), the three roofline terms
+of one device (`hw.H100`):
 
-Per (arch x shape) cell, from the dry run's count
-(`repro_torch.launch.dryrun.run_cell`, the kernel route), the three
-roofline terms of the card (`hw.H100`):
-
-  compute    = FLOPs              / peak FLOP/s of the cell's dtype
+  compute    = FLOPs per device          / peak FLOP/s of the cell's dtype
                (989e12 bf16, the reference's cells; 67e12 float32)
-  memory     = bytes accessed     / HBM bandwidth (3.35e12)
-  collective = 0: one card runs no collective
+  memory     = bytes accessed per device / HBM bandwidth (3.35e12)
+  collective = collective bytes per device / one NVLink link (50e9),
+               the reference's formula with the card's ``ici_link_bw``
 
-The port of ``repro/roofline/analysis.py``, whose terms are per chip of a
-256-chip TPU mesh.  XLA's cost analysis counts a scanned layer body once,
-so the reference lowers every cell again at one and two layer groups,
-unrolled, and extrapolates to the full depth (`_extrapolate`).  The
-port's layers run as a Python loop and the dry run sees every op at full
-depth, so it needs no extrapolation; `_extrapolate` and `_reduced_cfg`
-stay, and the tests hold a full-depth count equal to the extrapolation
-of its one- and two-group counts.  ``useful_flops_ratio`` is
-`model_flops` (6 N D for training, 2 N D for serving) over the counted
-FLOPs of the one card.
+On one card (``mesh="card"``) the collective term is 0.  On the 16x16
+or 2x16x16 mesh (``mesh="16x16"``, ``"2x16x16"``) each term is per device
+of the mesh (rank 0's share, counted on a fake process group:
+`launch.dryrun.run_mesh_cell`), the collective bytes those DTensor issues
+(`roofline.collectives`), and ``useful_flops_ratio`` is `model_flops`
+over the FLOPs of the whole mesh, as the reference computes it.
+
+The port of ``repro/roofline/analysis.py``.  XLA's cost analysis counts a
+scanned layer body once, so the reference lowers every cell again at one
+and two layer groups, unrolled, and extrapolates to the full depth
+(`_extrapolate`, FLOPs, bytes and collective bytes).  The port's layers
+run as a Python loop and the dry run sees every op at full depth, so it
+needs no extrapolation; `_extrapolate` and `_reduced_cfg` stay, and the
+tests hold a full-depth count equal to the extrapolation of its one- and
+two-group counts, on the mesh too.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.roofline.analysis --out results/roofline_torch.json
+  PYTHONPATH=src python -m repro_torch.roofline.analysis --mesh both \
+      --dryrun results/dryrun_mesh_torch.json
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import os
 import time
 from typing import Optional
@@ -36,6 +43,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config
 from repro_torch.launch import dryrun as dr
+from repro_torch.launch import mesh as meshes
 from repro_torch.models import transformer
 from repro_torch.roofline.hw import H100, HwSpec
 
@@ -54,13 +62,16 @@ def _reduced_cfg(cfg, n_groups: int):
 
 
 def _measure(cfg, shape_name: str, rows: Optional[int] = None,
-             seq_len: Optional[int] = None) -> dict:
+             seq_len: Optional[int] = None, mesh=None, rules=None) -> dict:
     """One cell's kernel-route count in the reference's ``_measure`` form
-    (one microbatch; no collectives on one card)."""
+    (one microbatch), per device of ``mesh`` (a meta ``DeviceMesh``;
+    None: one card, no collectives)."""
     got = dr.count_cell(dr.build_cell(cfg, shape_name, rows,
-                                      seq_len=seq_len, microbatches=1))
-    return {"flops": got["flops"], "bytes": got["bytes"], "coll_bytes": 0,
-            "coll_by_kind": {}}
+                                      seq_len=seq_len, microbatches=1,
+                                      mesh=mesh, rules=rules))
+    return {"flops": got["flops"], "bytes": got["bytes"],
+            "coll_bytes": got["collectives"]["total_bytes"],
+            "coll_by_kind": got["collectives"]["bytes_by_kind"]}
 
 
 def _extrapolate(m1: dict, m2: dict, g_full: int) -> dict:
@@ -92,46 +103,58 @@ def model_flops(cfg, shape) -> float:
     return 2.0 * n * shape.global_batch          # decode: 1 token per seq
 
 
-def roofline_terms(record: dict, cfg, shape, hw: HwSpec = H100) -> dict:
-    """The roofline terms of a dry-run record (status "ok") on ``hw``:
-    compute at the peak of the cell's dtype (bf16 for every cell of the
-    reference's hyper-parameters; float32 for a float32 cell), memory,
-    collective (0), the dominant one, and the useful share."""
+def roofline_terms(record: dict, cfg, shape, hw: HwSpec = H100,
+                   n_devices: int = 1) -> dict:
+    """The roofline terms of a dry-run record (status "ok") on ``hw``, per
+    device of ``n_devices``: compute at the peak of the cell's dtype (bf16
+    for every cell of the reference's hyper-parameters; float32 for a
+    float32 cell), memory, collective (the record's collective bytes over
+    one link), the dominant one, and the useful share of the whole
+    mesh's FLOPs."""
     dtype = getattr(torch, record["dtype"])
     flops = record["flops_per_device"]
+    colls = record["collectives"]
+    coll_bytes = colls["total_bytes"]
     terms = {"compute": flops / hw.peak_flops(dtype),
              "memory": record["bytes_accessed_per_device"] / hw.hbm_bw,
-             "collective": 0.0}
+             "collective": coll_bytes / hw.ici_link_bw}
     mf = model_flops(cfg, shape)
+    total = flops * n_devices
     return {
         "peak_dtype": str(dtype).replace("torch.", ""),
+        "coll_bytes_per_device": coll_bytes,
+        "coll_by_kind": dict(colls["bytes_by_kind"]),
         "t_compute_s": terms["compute"],
         "t_memory_s": terms["memory"],
         "t_collective_s": terms["collective"],
         "dominant": max(terms, key=terms.get),
         "model_flops": mf,
-        "useful_flops_ratio": mf / flops if flops else 0.0,
+        "useful_flops_ratio": mf / total if total else 0.0,
         "roofline_bound_s": max(terms.values()),
         "step_lower_bound_s": max(terms.values()),
     }
 
 
 def roofline_cell(arch: str, shape_name: str, hw: HwSpec = H100,
-                  verbose: bool = True, record: Optional[dict] = None
-                  ) -> dict:
-    """The dry-run record of one cell (``record``, or counted now) with its
+                  verbose: bool = True, record: Optional[dict] = None,
+                  mesh: str = "card") -> dict:
+    """The dry-run record of one cell (``record``, or counted now: on one
+    card, or per device of the ``mesh`` "16x16" or "2x16x16") with its
     roofline terms on ``hw``."""
     cfg = get_config(arch)
     rec = dict(record) if record is not None else dr.run_cell(
-        arch, shape_name, verbose=False)
+        arch, shape_name, verbose=False, plain=False, mesh=mesh)
     if rec["status"] != "ok":
         return rec
-    rec.update(roofline_terms(rec, cfg, SHAPES[shape_name], hw))
+    n = math.prod(int(s) for s in rec["mesh"].split("x")) \
+        if rec["mesh"] != "1xH100" else 1
+    rec.update(roofline_terms(rec, cfg, SHAPES[shape_name], hw, n))
     if verbose:
-        print(f"{arch:28s} {shape_name:12s} "
+        print(f"[{rec['mesh']}] {arch:28s} {shape_name:12s} "
               f"comp={rec['t_compute_s'] * 1e3:10.2f}ms "
-              f"mem={rec['t_memory_s'] * 1e3:10.2f}ms coll=0 "
-              f"dom={rec['dominant']:8s} "
+              f"mem={rec['t_memory_s'] * 1e3:10.2f}ms "
+              f"coll={rec['t_collective_s'] * 1e3:10.2f}ms "
+              f"dom={rec['dominant']:10s} "
               f"useful={rec['useful_flops_ratio']:.2f}", flush=True)
     return rec
 
@@ -140,12 +163,36 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCH_IDS)
     ap.add_argument("--shape", choices=tuple(SHAPES))
-    ap.add_argument("--out", default="results/roofline_torch.json")
+    ap.add_argument("--mesh", choices=tuple(dr.MESH_CHOICES),
+                    default="card",
+                    help="card: one card (the default); single, multi, "
+                         "both: per device of the 16x16 and 2x16x16 meshes")
+    ap.add_argument("--out", default=None,
+                    help="default: results/roofline_torch.json for the "
+                         "card, results/roofline_mesh_torch.json for a mesh")
+    ap.add_argument("--dryrun", default=None,
+                    help="read the dry run's records from this JSON (its "
+                         "--out) in place of counting the cells again")
     args = ap.parse_args(argv)
+    if args.out is None:
+        args.out = ("results/roofline_torch.json" if args.mesh == "card"
+                    else "results/roofline_mesh_torch.json")
     archs = (args.arch,) if args.arch else ARCH_IDS
     shapes = (args.shape,) if args.shape else tuple(SHAPES)
+    labels = ["card" if mp is None else meshes.MESH_LABELS[mp]
+              for mp in dr.MESH_CHOICES[args.mesh]]
     t0 = time.perf_counter()
-    records = [roofline_cell(a, s) for a in archs for s in shapes]
+    if args.dryrun:
+        with open(args.dryrun) as f:
+            counted = {(r["arch"], r["shape"], r["mesh"]): r
+                       for r in json.load(f)}
+        labels = ["1xH100" if m == "card" else m for m in labels]
+        records = [roofline_cell(a, s, record=counted[(a, s, m)])
+                   for a in archs for s in shapes for m in labels
+                   if (a, s, m) in counted]
+    else:
+        records = [roofline_cell(a, s, mesh=m) for a in archs
+                   for s in shapes for m in labels]
     n_ok = sum(r["status"] == "ok" for r in records)
     n_err = sum(r["status"] == "error" for r in records)
     print(f"roofline: {n_ok} ok, {n_err} failed in "

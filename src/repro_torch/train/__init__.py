@@ -1,8 +1,8 @@
-"""train — the training step (loss, gradients, AdamW) and the serving steps.
-
-The reference's ``train/sharding.py`` (partition specs of parameters and
-batches over a TPU mesh) has no counterpart: the port trains and serves
-on one card.
+"""train — the training step (loss, gradients, AdamW), the serving steps,
+and `sharding` (the port of ``repro/train/sharding.py``: the partition
+specs of parameters, batches and caches over the production mesh, and
+their DTensor placements).  The steps run on one card, or on a mesh when
+the parameters are DTensors.
 """
 
 from repro_torch.train.serve_step import (generate, make_decode_step,

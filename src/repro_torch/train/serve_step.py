@@ -9,6 +9,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.launch import layout
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
 
@@ -21,7 +22,7 @@ def make_prefill_step(cfg: ModelConfig, max_len: int,
     def prefill_step(model, batch: dict):
         logits, cache = api.prefill(cfg, model, batch, max_len,
                                     use_kernel=use_kernel)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        next_tok = layout.argmax_last(logits).to(torch.int32)
         return next_tok, cache
     return prefill_step
 
@@ -31,7 +32,7 @@ def make_decode_step(cfg: ModelConfig):
     @torch.no_grad()
     def decode_step(model, cache: dict, token: Tensor, index: int):
         logits, cache = api.decode_step(cfg, model, cache, token, index)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        next_tok = layout.argmax_last(logits).to(torch.int32)
         return next_tok, cache
     return decode_step
 

@@ -10,9 +10,12 @@ Gradients come from ``torch.autograd.grad`` over the parameters, so no
 ``.grad`` is kept between steps.
 
 The reference's ``unroll`` knob has no counterpart (there is no
-``lax.scan`` of layer groups to unroll), nor its sharding rules
-(``repro/train/sharding.py``), which place a step on a TPU mesh: the port
-trains on one card.
+``lax.scan`` of layer groups to unroll).  The same step runs on a device
+mesh when the model's parameters are DTensors placed by
+`train.sharding` (``launch.dryrun.build_cell(..., mesh=...)``): the
+moments follow the parameters' placements, each gradient is laid out as
+its parameter (`layout.as_placed`: the data-parallel all-reduce, or
+FSDP's reduce-scatter), and DTensor issues the collectives.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.launch import layout
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import (AdamWConfig, AdamWState, CompressionConfig,
@@ -83,9 +87,7 @@ def loss_fn(cfg: ModelConfig, model, batch: dict, hyper: TrainHyper
     logits = logits[:, prefix:]
     targets = tokens[:, 1:]
     pred = logits[:, :-1]
-    logp = torch.log_softmax(pred.to(torch.float32), dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
-    ce = nll.mean()
+    ce = layout.nll_mean(pred, targets)
     loss = ce + hyper.aux_weight * aux
     return loss, {"ce": ce, "aux": aux}
 
@@ -99,7 +101,8 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper):
         loss, metrics = loss_fn(cfg, model, batch, hyper)
         grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            dict(zip(params, grads))
+            {name: layout.as_placed(g, p)
+             for (name, p), g in zip(params.items(), grads)}
 
     def train_step(state: TrainState, batch: dict):
         params = dict(state.model.named_parameters())
@@ -108,8 +111,7 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper):
             if not all(x.shape[0] == mb for x in batch.values()):
                 raise ValueError(f"microbatched train_step expects leading "
                                  f"dim {mb}")
-            grads = {name: torch.zeros(p.shape, dtype=torch.float32,
-                                       device=p.device)
+            grads = {name: torch.zeros_like(p, dtype=torch.float32)
                      for name, p in params.items()}
             loss = 0.0
             for i in range(mb):
