@@ -159,10 +159,18 @@ It builds the port's four kernels from ``src/repro_torch/kernels/csrc``
   one, and each kernel held to its plain version at the local shapes the
   cell gave it; on a machine with four cards, a real NCCL (2, 2) train
   step against the one-card step of the same weights, and NCCL's
-  collective bytes equal to the fake group's count.
+  collective bytes equal to the fake group's count;
+* the hillclimb (``hillclimb``): the twelve experiments of
+  ``repro_torch.roofline.hillclimb`` (the reference's rules and knobs),
+  each counted on the kernel route on meta shards of 16 x 16, and each
+  whose count fits the card and differs from every earlier one run as
+  rank 0's share on the card, cold and then HILLCLIMB_WARM times, held as
+  a ``mesh`` cell is held; one line an experiment sets its counted bound
+  and its time on the card, each as a ratio to its baseline's.
 
 ``--only PHASE ...`` builds the kernels of the phases named and runs
-those alone, in that order: ``dryrun`` and ``mesh`` the two LM kernels;
+those alone, in that order: ``dryrun``, ``mesh`` and ``hillclimb`` the
+two LM kernels;
 ``suites``,
 ``per_tick_graph``, ``plans`` and ``figures`` the two simulator kernels.
 ``--probe KERNEL`` (``flash_attention`` or ``rg_lru``; ``--probe-flash``
@@ -4921,28 +4929,41 @@ def mesh_kernel_checks(fa, rl, ref, flash_shapes, scan_shapes) -> list:
     return checks
 
 
-def mesh_cell(fa, rl, ref, arch: str, shape: str, meta, card) -> dict:
+def mesh_cell(fa, rl, ref, arch: str, shape: str, meta, card, rules=None,
+              knobs=None, count=None, warm: int = MESH_WARM,
+              checked=None) -> dict:
     """One cell's per-device share: counted on ``meta`` (the fake group's
-    meta mesh), then built on ``card`` (the same group's CUDA mesh, rank 0's
-    shards drawn from seed 0) and run cold, then MESH_WARM times, each
-    warm step timed with CUDA events with the launch counts set to 0
-    before it and read after.  Fails (``failed``) where a warm step's
-    launches differ from the planned ones, its time is under the
-    per-device bound, or a kernel disagrees with its plain version at the
-    local shapes the cell gave it."""
+    meta mesh; ``count``, where given, is that count), then built on
+    ``card`` (the same group's CUDA mesh, rank 0's shards drawn from seed
+    0) and run cold, then ``warm`` times, each warm step timed with CUDA
+    events with the launch counts set to 0 before it and read after.  By
+    the reference's production rules and knobs, or by ``rules`` with the
+    hillclimb's ``knobs`` (`roofline.hillclimb.set_knobs`'s arguments).
+    Fails (``failed``) where a warm step's launches differ from the
+    planned ones, its time is under the per-device bound, or a kernel
+    disagrees with its plain version at the local shapes the cell gave it
+    (``checked``: the checks of shapes held already, by shape, reused and
+    added to)."""
     import gc
 
     import torch
 
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.roofline import hillclimb
     from repro_torch.roofline.hw import H100
 
     cfg = get_config(arch)
     kind = SHAPES[shape].kind
-    rules = dr.default_rules_for(arch, kind, meta)
-    with dr.production_knobs(arch, kind):
-        count = dr._count(cfg, shape, mesh=meta, rules=rules)
+    if rules is None:
+        rules = dr.default_rules_for(arch, kind, meta)
+        knobs_set = dr.production_knobs(arch, kind)
+    else:
+        knobs_set = hillclimb.set_knobs(**(knobs or {}))
+    with knobs_set:
+        if count is None:
+            count = dr._count(cfg, shape, mesh=meta, rules=rules)
         dtype = dr.build_dtype(cfg, shape)
         terms = {"compute": count["flops"] / H100.peak_flops(dtype),
                  "memory": count["bytes"] / H100.hbm_bw}
@@ -4964,7 +4985,7 @@ def mesh_cell(fa, rl, ref, arch: str, shape: str, meta, card) -> dict:
             cold_s = time.time() - t0
         del out
         steps = []
-        for _ in range(MESH_WARM):
+        for _ in range(warm):
             gc.collect()
             torch.cuda.reset_peak_memory_stats()
             fa.LAUNCH_COUNT = rl.LAUNCH_COUNT = 0
@@ -4984,12 +5005,22 @@ def mesh_cell(fa, rl, ref, arch: str, shape: str, meta, card) -> dict:
         del cell
         gc.collect()
         torch.cuda.empty_cache()
-    checks = mesh_kernel_checks(fa, rl, ref, seen.flash, seen.scan)
+    checked = {} if checked is None else checked
+    for key in sorted(seen.flash, key=str):
+        if key not in checked:
+            checked[key] = mesh_kernel_checks(fa, rl, ref, {key}, ())
+    for key in sorted(seen.scan, key=str):
+        if key not in checked:
+            checked[key] = mesh_kernel_checks(fa, rl, ref, (), {key})
+    checks = [c for key in sorted(seen.flash | seen.scan, key=str)
+              for c in checked[key]]
     colls = count["collectives"]
+    ways = math.prod(meshes.axis_sizes(meta)[a] for a in rules.data_axes)
+    rows = SHAPES[shape].global_batch
     row = dict(
         arch=arch, shape=shape, mesh="16x16", rank=0,
         layers=cfg.n_layers, dtype=str(dtype).removeprefix("torch."),
-        rows_per_device=SHAPES[shape].global_batch // 16,
+        rows_per_device=rows // ways if rows % ways == 0 else rows,
         ms=statistics.median(s["ms"] for s in steps), steps=steps,
         cold_s=cold_s, build_s=build_s,
         bound_ms=bound_ms, bound_by=("operations" if terms["compute"]
@@ -5020,7 +5051,7 @@ def mesh_cell(fa, rl, ref, arch: str, shape: str, meta, card) -> dict:
     failed += [f"{c['kernel']} at {c.get('q', c.get('shape'))} disagrees "
                f"with its plain version ({c['max_abs_err']})"
                for c in checks if not c["ok"]]
-    if not count["planned_launches"]["flash_attention"]:
+    if kind != "decode" and not count["planned_launches"]["flash_attention"]:
         failed.append("no flash launch planned")
     row["failed"] = [f"{arch} x {shape}: {f}" for f in failed]
     return row
@@ -5223,6 +5254,136 @@ def phase_mesh(fa, rl, ref) -> dict:
     return res
 
 
+HILLCLIMB_WARM = 1              # warm steps an experiment, after its cold
+
+
+def phase_hillclimb(fa, rl, ref) -> dict:
+    """The hillclimb's experiments (`roofline.hillclimb.EXPERIMENTS`) on
+    the kernel route: each counted on the meta 16 x 16 mesh by its rules
+    and knobs; where its count equals an earlier experiment's (FLOPs,
+    bytes, collective bytes) it is not run again, where its counted peak
+    does not fit the card it is not run; every other one runs as rank 0's
+    share on the card (`mesh_cell`: launches as planned, time at or above
+    the per-device bound, peak beside the count, the kernels at their
+    local shapes).  Each line sets the counted bound (the per-device
+    compute and memory terms; the roofline's, with the collective term,
+    beside it) and the card's time, each as a ratio to the baseline's.
+    The phase emits its line before it raises."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.roofline import hillclimb
+    from repro_torch.roofline.hw import H100
+
+    t0 = time.time()
+    meta = meshes.make_production_mesh(False, "meta")
+    card = meshes.make_production_mesh(False, DEVICE)
+    rows, failed, by_count, checked = {}, [], {}, {}
+    for exp in hillclimb.EXPERIMENTS:
+        cfg = get_config(exp.arch)
+        rules = exp.rules or dr.reference_rules(meta)
+        t1 = time.time()
+        with hillclimb.set_knobs(**exp.knobs):
+            count = dr._count(cfg, exp.shape, mesh=meta, rules=rules)
+        dtype = dr.build_dtype(cfg, exp.shape)
+        terms = {"compute": count["flops"] / H100.peak_flops(dtype),
+                 "memory": count["bytes"] / H100.hbm_bw}
+        coll_s = count["collectives"]["total_bytes"] / H100.ici_link_bw
+        key = (count["flops"], count["bytes"],
+               count["collectives"]["total_bytes"])
+        row = dict(name=exp.name, arch=exp.arch, shape=exp.shape,
+                   baseline=exp.baseline, knobs=dict(exp.knobs),
+                   rules=dr.rules_record(rules, "given" if exp.rules
+                                         else "reference"),
+                   bound_ms=1e3 * max(terms.values()),
+                   bound_by=("operations" if terms["compute"]
+                             >= terms["memory"] else "bytes"),
+                   roofline_bound_ms=1e3 * max(coll_s, *terms.values()),
+                   t_collective_s=coll_s,
+                   flops_per_device=count["flops"],
+                   bytes_accessed_per_device=count["bytes"],
+                   coll_bytes_per_device=count["collectives"]["total_bytes"],
+                   counted_peak_bytes=count["peak_bytes"],
+                   planned=count["planned_launches"],
+                   count_s=time.time() - t1, ran=False)
+        if key in by_count:
+            row["same_count_as"] = by_count[key]
+        elif count["peak_bytes"] > H100.hbm_bytes:
+            row["fits"] = False
+        else:
+            by_count[key] = exp.name
+            try:
+                cell = mesh_cell(fa, rl, ref, exp.arch, exp.shape, meta,
+                                 card, rules=rules, knobs=exp.knobs,
+                                 count=count, warm=HILLCLIMB_WARM,
+                                 checked=checked)
+            except Exception as e:  # noqa: BLE001 — emitted, then raised
+                row["error"] = f"{type(e).__name__}: {e}"[:2000]
+                failed.append(f"{exp.name}: {row['error']}")
+                rows[exp.name] = row
+                torch.cuda.empty_cache()
+                continue
+            failed += [f"{exp.name}: {f}" for f in cell["failed"]]
+            row.update(ran=True, fits=True, ms=cell["ms"],
+                       steps=cell["steps"], cold_s=cell["cold_s"],
+                       build_s=cell["build_s"],
+                       card_peak_bytes=cell["card_peak_bytes"],
+                       peak_over_count=cell["peak_over_count"],
+                       time_over_bound=cell["time_over_bound"],
+                       flash_local_shapes=cell["flash_local_shapes"],
+                       kernel_checks=cell["kernel_checks"])
+        rows[exp.name] = row
+
+    def measured(row):
+        return rows[row.get("same_count_as", row["name"])]
+
+    for row in rows.values():
+        base = rows.get(row["baseline"])
+        if base is None:
+            continue
+        row["bound_ratio"] = row["bound_ms"] / base["bound_ms"]
+        row["roofline_ratio"] = (row["roofline_bound_ms"]
+                                 / base["roofline_bound_ms"])
+        got, want = measured(row), measured(base)
+        if "ms" in got and "ms" in want:
+            row["card_ratio"] = got["ms"] / want["ms"]
+    res = dict(note="kernel route, rank 0 of a fake 16x16 group: the "
+                    "collectives move no data, so only the compute and "
+                    "memory terms bound a step; the ratios are against "
+                    "each experiment's baseline",
+               experiments=list(rows.values()),
+               device=torch.cuda.get_device_name(0),
+               seconds=time.time() - t0)
+    emit("hillclimb", **res)
+    for row in rows.values():
+        head = (f"hillclimb: {row['name']} ({row['arch']} x {row['shape']}"
+                f"): bound {row['bound_ms']:.2f} ms ({row['bound_by']}), "
+                f"roofline {row['roofline_bound_ms']:.2f} ms")
+        if "bound_ratio" in row:
+            head += (f", x{row['bound_ratio']:.3f} / "
+                     f"x{row['roofline_ratio']:.3f} of {row['baseline']}'s")
+        if "same_count_as" in row:
+            tail = f"; same count as {row['same_count_as']}, not run again"
+        elif "error" in row:
+            tail = f"; FAILED on the card: {row['error'][:300]}"
+        elif not row["ran"]:
+            tail = (f"; counted peak {row['counted_peak_bytes'] / 1e9:.2f} "
+                    f"GB does not fit the card, not run")
+        else:
+            tail = (f"; card {row['ms']:.2f} ms ({row['time_over_bound']:.2f}"
+                    f"x the bound), peak {row['card_peak_bytes'] / 1e9:.2f} "
+                    f"GB (counted {row['counted_peak_bytes'] / 1e9:.2f}), "
+                    f"launches {row['steps'][0]['launches']}")
+        if "card_ratio" in row:
+            tail += f", card x{row['card_ratio']:.3f} of the baseline's"
+        print(head + tail, flush=True)
+    if failed:
+        raise AssertionError("hillclimb: " + "; ".join(failed))
+    return res
+
+
 def armed_attributes(nc, netsim, core, workload) -> dict:
     """Registers, spills and static shared memory of each armed
     instantiation (one per algorithm and ARMED; the CC selections are its
@@ -5258,7 +5419,7 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
                  lm: dict, served: dict, armed: dict, tel: dict, flt: dict,
                  trained: dict, families: dict, clustered: dict,
                  dry: dict, armed_plans: dict, examples: dict,
-                 graphed: dict, meshed: dict) -> list:
+                 graphed: dict, meshed: dict, climbed: dict) -> list:
     main_row = next(r for r in kern["main_shape"] if r["algo"] == 0)
     serve_attrs = lm["flash"]["attributes"]["float32_d256"]
     rg_attrs = lm["rg_lru"]["attributes"][
@@ -5402,6 +5563,11 @@ def kernel_table(kern: dict, main: dict, states: dict, chunks: dict,
         "mesh_local_shapes": {f"{r['arch']}/{r['shape']}":
                               r["flash_local_shapes"]
                               for r in meshed["cells"]},
+        # the hillclimb's experiments run on the card (kernel route, rank
+        # 0 of 16x16): launches of a warm step, as planned
+        "hillclimb_cell_launches": {
+            r["name"]: r["steps"][0]["launches"]["flash_attention"]
+            for r in climbed["experiments"] if r["ran"]},
         "backward": trained["grad_checks"]["flash"],
         "shape": lm["flash"]["shape"],
     }, {
@@ -5463,7 +5629,8 @@ def check_kernel_table(table: list) -> None:
 
 
 PROBES = ("flash_attention", "rg_lru")
-ONLY = ("dryrun", "mesh", "suites", "per_tick_graph", "plans", "figures")
+ONLY = ("dryrun", "mesh", "hillclimb", "suites", "per_tick_graph", "plans",
+        "figures")
 
 
 def write_results(path, t_start: float) -> None:
@@ -5484,8 +5651,9 @@ def main(argv=None) -> int:
     ap.add_argument("--probe-flash", nargs="*", metavar="SOURCE",
                     help="the same as --probe flash_attention SOURCE ...")
     ap.add_argument("--only", nargs="+", choices=ONLY,
-                    help="build the kernels these phases run (dryrun, mesh: "
-                         "the LM kernels; the others: the simulator's) and "
+                    help="build the kernels these phases run (dryrun, "
+                         "mesh, hillclimb: the LM kernels; the others: the "
+                         "simulator's) and "
                          "run only these phases, in this order")
     args = ap.parse_args(argv)
     probe = args.probe
@@ -5528,12 +5696,15 @@ def main(argv=None) -> int:
         phase_device(([ms.LIBRARY, nc.LIBRARY]
                       if set(args.only) & set(sim) else [])
                      + ([fa.LIBRARY, rl.LIBRARY]
-                        if {"dryrun", "mesh"} & set(args.only) else []))
+                        if {"dryrun", "mesh", "hillclimb"} & set(args.only)
+                        else []))
         for name in args.only:
             if name == "dryrun":
                 phase_dryrun(fa, rl)
             elif name == "mesh":
                 phase_mesh(fa, rl, ref)
+            elif name == "hillclimb":
+                phase_hillclimb(fa, rl, ref)
             else:
                 sim[name](sim_kernels, core, netsim, workload)
         write_results(args.out, t_start)
@@ -5563,10 +5734,11 @@ def main(argv=None) -> int:
     examples = phase_examples(sim_kernels, fa, rl)
     dry = phase_dryrun(fa, rl)
     meshed = phase_mesh(fa, rl, ref)
+    climbed = phase_hillclimb(fa, rl, ref)
     table = kernel_table(kern, main_path, states, chunks, timing, prof,
                          plans, figures, lm, served, armed, tel, flt,
                          trained, families, clustered, dry, armed_plans,
-                         examples, graphed, meshed)
+                         examples, graphed, meshed, climbed)
     check_kernel_table(table)
     RESULTS["kernels"] = table
     write_results(args.out, t_start)

@@ -53,7 +53,12 @@ group of 256 or 512 ranks in which this process is rank 0
 `StepCounter` lets each DTensor op lower first and counts what rank 0
 runs on its shards, and `roofline.collectives.CollectiveCounter` counts
 the collectives it issues.  The record has the reference's per-device
-keys and ``collectives``.  Every mesh cell is counted at its own length,
+keys and ``collectives``, and states its ``rules``, the four hillclimb
+``knobs`` and its ``route``.  The dry run counts the kernel route (the
+card's) by the production rules; `run_mesh_cell` also counts the plain
+route, and by the reference roofline's own rules (`reference_rules`,
+the knobs as the caller left them), as `roofline.analysis` and
+`roofline.hillclimb` count a mesh cell.  Every mesh cell is counted at its own length,
 the xLSTM family's too: on a mesh no count is a polynomial in the length
 (DTensor picks other layouts and collectives at short lengths, so a
 count solved from short lengths misses the FLOPs, the peak and the
@@ -442,6 +447,10 @@ def shard_cell(cfg: ModelConfig, shape_name: str, cell: Cell, mesh,
     if kind == "prefill":
         return Cell(cell.rows, step, (model, batch_of(cell.args[1])), mesh)
     _, cache, token, index = cell.args
+    if token.device.type == "meta" and dev.type != "meta":
+        # a stand-in token (the cell was built on meta for the card)
+        token = torch.randint(0, cfg.vocab, tuple(token.shape),
+                              generator=gen, device=dev)
     want = specs(cache)
     cache = {key: {name: distribute(t, want[key][name], mesh, dev, gen)
                    for name, t in part.items()}
@@ -996,6 +1005,35 @@ def _fit_rows(cfg, shape_name, capacity: float = H100.hbm_bytes
 # Records
 # ---------------------------------------------------------------------------
 
+def reference_rules(mesh) -> ShardingRules:
+    """The rules the reference's roofline counts a cell with
+    (``build_cell``'s default): the batch over the data axes, nothing
+    else of production's."""
+    return ShardingRules(data_axes=_data_axes(mesh))
+
+
+def knob_values() -> dict:
+    """The four hillclimb knobs as they stand now."""
+    from repro_torch.models import moe as moe_mod
+
+    return {"SEQ_SHARD_AXIS": attn_mod.SEQ_SHARD_AXIS,
+            "DECODE_GROUPED_GQA": attn_mod.DECODE_GROUPED_GQA,
+            "DISPATCH_MODE": moe_mod.DISPATCH_MODE,
+            "EP_CONSTRAINT_AXIS": moe_mod.EP_CONSTRAINT_AXIS}
+
+
+def rules_record(rules: ShardingRules, of: str) -> dict:
+    """``rules``'s fields as a record states them, with ``of``: whose
+    rules they are ("production": `default_rules_for` and
+    `production_knobs`; "reference": `reference_rules`; "given": the
+    caller's)."""
+    out = {"of": of}
+    for f in dataclasses.fields(rules):
+        v = getattr(rules, f.name)
+        out[f.name] = list(v) if isinstance(v, tuple) else v
+    return out
+
+
 @contextlib.contextmanager
 def production_knobs(arch: str, shape_kind: str):
     """The reference's production defaults for a cell on a mesh: the
@@ -1015,9 +1053,9 @@ def count_on_mesh(arch: str, shape_name: str, mesh,
                   use_kernel: bool = True, rows: Optional[int] = None
                   ) -> dict:
     """`_count` of a cell on ``mesh`` (a meta ``DeviceMesh``) with the
-    reference's production rules and knobs (`default_rules_for`,
-    `production_knobs`) unless ``rules`` are given: each device's share
-    (rank 0's shards) and its collectives."""
+    reference's production rules (`default_rules_for`, unless ``rules``
+    are given) and knobs (`production_knobs`): each device's share (rank
+    0's shards) and its collectives."""
     cfg = get_config(arch)
     kind = SHAPES[shape_name].kind
     rules = rules or default_rules_for(arch, kind, mesh)
@@ -1028,11 +1066,18 @@ def count_on_mesh(arch: str, shape_name: str, mesh,
 
 def run_mesh_cell(arch: str, shape_name: str, multi_pod: bool,
                   rules: Optional[ShardingRules] = None,
-                  verbose: bool = True) -> dict:
+                  verbose: bool = True, use_kernel: bool = True,
+                  production: bool = True) -> dict:
     """The dry-run record of one cell on a production mesh, with the
     reference's per-device keys (``flops_per_device``, ...,
     ``peak_bytes_per_device``, ``collectives``), counted on rank 0 of a
-    fake group (`launch.mesh`), the kernel route (the card's)."""
+    fake group (`launch.mesh`) on either route: the kernels
+    (``use_kernel``, the card's) or the plain path.  With ``production``
+    (the dry run's) by the reference's production rules and knobs
+    (`count_on_mesh`); without it (the roofline's and the hillclimb's)
+    by ``rules`` (default `reference_rules`) with the knobs as the caller
+    left them.  The record states both (``rules``, ``knobs``) and the
+    ``route``."""
     cfg = get_config(arch)
     label = meshes.MESH_LABELS[multi_pod]
     rec = {"arch": arch, "shape": shape_name, "mesh": label}
@@ -1044,8 +1089,23 @@ def run_mesh_cell(arch: str, shape_name: str, multi_pod: bool,
     t0 = time.perf_counter()
     try:
         mesh = meshes.make_production_mesh(multi_pod, "meta")
-        got = count_on_mesh(arch, shape_name, mesh, rules)
+        kind = SHAPES[shape_name].kind
+        of = "given" if rules is not None else (
+            "production" if production else "reference")
+        if production:
+            rules = rules or default_rules_for(arch, kind, mesh)
+            with production_knobs(arch, kind):
+                knobs = knob_values()
+            got = count_on_mesh(arch, shape_name, mesh, rules, use_kernel)
+        else:
+            rules = rules or reference_rules(mesh)
+            knobs = knob_values()
+            got = _count(cfg, shape_name, use_kernel=use_kernel, mesh=mesh,
+                         rules=rules)
         rec.update({
+            "rules": rules_record(rules, of),
+            "knobs": knobs,
+            "route": "kernel" if use_kernel else "plain",
             "status": "ok",
             "kind": SHAPES[shape_name].kind,
             "dtype": str(build_dtype(cfg, shape_name)).replace("torch.", ""),
@@ -1087,7 +1147,8 @@ def run_cell(arch: str, shape_name: str, verbose: bool = True,
     """The dry-run record of one cell: on one card (``mesh="card"``: the
     reference's keys where they have a meaning on one card, and the
     card's own; see the module's docstring), or on a production mesh
-    ("16x16", "2x16x16": `run_mesh_cell`, the kernel route only).
+    ("16x16", "2x16x16": `run_mesh_cell`, the kernel route, by the
+    production rules and knobs).
     ``plain``: on one card, also count the plain route (``plain_*``)."""
     if mesh != "card":
         return run_mesh_cell(arch, shape_name, mesh == "2x16x16",

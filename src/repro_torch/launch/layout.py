@@ -20,7 +20,10 @@ that propagation cannot:
   gradient of a replicated operand a partial sum; on it rest `lookup`
   (a vocabulary-sharded embedding), `project_heads` / `project_out` (the
   attention projections, which DTensor's einsum cannot split by head
-  dim), `nll_mean` (the vocabulary-parallel loss), `expert_scatter` /
+  dim), `query_einsum` / `head_einsum` (the plain route's scores and
+  probabilities with the queries sequence-sharded, the expanded-KV
+  decode's), `nll_mean` (the vocabulary-parallel
+  loss), `expert_scatter` /
   `expert_gather` (expert-parallel MoE), `whole_call`, `on_rows` and
   the kernels in `kernels.ops`;
 * `residual`, `gathered`, `as_placed`, `grad_as`: the layouts a step
@@ -427,6 +430,57 @@ def project_out(o: Tensor, w: Tensor) -> Tensor:
     return sharded_call(lambda ol, wl: torch.einsum("bthk,hkd->btd", ol, wl),
                         (o, w), (o_at, w_at), out_at,
                         tuple(o.shape[:2]) + (w.shape[2],))
+
+
+def _einsum_by_hand(equation: str, a: Tensor, b: Tensor, shape) -> Tensor:
+    """``einsum(equation, a, b)`` of two DTensors of the attention's
+    layout (``a`` and the result [B, T, H, ...], ``b`` [B, S, H, ...];
+    ``shape`` the result's) on each device's shards, per mesh axis: where
+    it shards ``a``'s queries (dimension 1) they keep their shards and
+    ``b`` is whole; where it shards ``a``'s heads (dimension 2) both split
+    their heads; where it shards either one's batch both split it (the
+    sequence knob's constraint replicates the queries' batch); any other
+    axis replicates."""
+    a_at, b_at = [], []
+    for pa, pb in zip(a.placements, _placements_of(b, a)):
+        if pa == Shard(1):
+            a_at.append(pa)
+            b_at.append(Replicate())
+        elif pa == Shard(2):
+            a_at.append(pa)
+            b_at.append(pa)
+        elif Shard(0) in (pa, pb):
+            a_at.append(Shard(0))
+            b_at.append(Shard(0))
+        else:
+            a_at.append(Replicate())
+            b_at.append(Replicate())
+    return sharded_call(lambda al, bl: torch.einsum(equation, al, bl),
+                        (a, b), (a_at, b_at), a_at, shape)
+
+
+def query_einsum(equation: str, a: Tensor, b: Tensor, shape) -> Tensor:
+    """``einsum(equation, a, b)`` for the plain attention's two products
+    (``"bthd,bshd->bths"``, ``"bths,bshd->bthd"``): where a mesh axis
+    shards ``a``'s queries (the sequence-sharding knob) laid out by hand
+    (`_einsum_by_hand`), since DTensor's own einsum may re-lay a chunk's
+    [T, S] scores and then cannot view them back; otherwise, and on
+    plain tensors, the einsum."""
+    if not isinstance(a, DTensor) or Shard(1) not in a.placements:
+        return torch.einsum(equation, a, b)
+    return _einsum_by_hand(equation, a, b, shape)
+
+
+def head_einsum(equation: str, a: Tensor, b: Tensor, shape) -> Tensor:
+    """``einsum(equation, a, b)`` for the expanded-KV decode's two
+    products (the query [B, 1, H, D] against the cache's KV heads
+    repeated to H): on a DTensor laid out by hand (`_einsum_by_hand`,
+    the heads split where the query's are), since DTensor's own einsum
+    flattens the batch with the sharded heads, which it cannot do on
+    every torch; on plain tensors the einsum."""
+    if not isinstance(a, DTensor):
+        return torch.einsum(equation, a, b)
+    return _einsum_by_hand(equation, a, b, shape)
 
 
 def _placements_of(x: Tensor, like: DTensor):

@@ -82,11 +82,16 @@ def _project_qkv(params: Attention, cfg, x: Tensor, kv_x: Tensor):
     return q, k, v
 
 
+# --- the reference's hillclimb knobs (`roofline.hillclimb` sets them) ---
 # Shard the query/scores sequence axis over this mesh axis in the dense
-# full-sequence path (the reference's hillclimb knob; the dry run sets it
-# for `launch.dryrun.SEQ_SHARD_ARCHS`): it cuts the [T, S] probabilities
-# by the axis size where the heads cannot shard.
+# full-sequence path (the dry run sets it for
+# `launch.dryrun.SEQ_SHARD_ARCHS`): it cuts the [T, S] probabilities by
+# the axis size where the heads cannot shard.
 SEQ_SHARD_AXIS: Optional[str] = None
+# Decode GQA by a grouped einsum against the cache (True), or against the
+# cache's KV heads repeated to the query heads (False, the reference's
+# first formulation and the hillclimb's baseline B0).
+DECODE_GROUPED_GQA: bool = True
 
 
 def _seq_shard(x: Tensor, axis: int = 1) -> Tensor:
@@ -123,6 +128,27 @@ def _grouped_decode_attend(cfg, q, ck, cv, valid) -> Tensor:
     return out.reshape(b, t, h, dh)
 
 
+def _expanded_decode_attend(cfg, q, ck, cv, valid) -> Tensor:
+    """Decode attention against the cache's KV heads repeated to the
+    query heads (`_expand_kv`): q [B,1,H,D], the cache [B,S,K,D]."""
+    b, t, h, dh = q.shape
+    ke = _expand_kv(ck, h)
+    ve = _expand_kv(cv, h)
+    scores = layout.head_einsum("bthd,bshd->bths", q, ke,
+                                (b, t, h, ke.shape[1])) / f32_sqrt(dh)
+    scores = softcap(scores, cfg.attn_softcap)
+    scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return layout.head_einsum("bths,bshd->bthd", probs, ve, (b, t, h, dh))
+
+
+def _decode_attend(cfg, q, ck, cv, valid) -> Tensor:
+    """The decode step's attention, as `DECODE_GROUPED_GQA` picks it."""
+    if DECODE_GROUPED_GQA:
+        return _grouped_decode_attend(cfg, q, ck, cv, valid)
+    return _expanded_decode_attend(cfg, q, ck, cv, valid)
+
+
 # a [T, S] probability matrix above this many entries is not materialized:
 # queries go in _Q_CHUNK slices instead
 _CHUNK_THRESHOLD = 2 ** 24
@@ -133,7 +159,8 @@ def _attend_dense(cfg, q, k, v, *, causal, window, q_offset):
     b, t, h, dh = q.shape
     s = k.shape[1]
     q = _seq_shard(q)
-    scores = torch.einsum("bthd,bshd->bths", q, k) / f32_sqrt(dh)
+    scores = layout.query_einsum("bthd,bshd->bths", q, k,
+                                 (b, t, h, s)) / f32_sqrt(dh)
     scores = softcap(scores, cfg.attn_softcap)
     qpos = q_offset + torch.arange(t, device=q.device)
     kpos = torch.arange(s, device=q.device)
@@ -144,7 +171,7 @@ def _attend_dense(cfg, q, k, v, *, causal, window, q_offset):
         mask &= kpos[None, :] > (qpos[:, None] - window)
     scores = torch.where(mask[None, :, None, :], scores, NEG_INF)
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-    return torch.einsum("bths,bshd->bthd", probs, v)
+    return layout.query_einsum("bths,bshd->bthd", probs, v, (b, t, h, dh))
 
 
 def attend(cfg, q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
@@ -278,7 +305,7 @@ def attn_decode(params: Attention, cfg, x: Tensor, cache: dict, index: int,
     valid = kpos <= index
     if window and window > 0:
         valid &= kpos > (index - window)
-    out = _grouped_decode_attend(cfg, q, cache["k"], cache["v"], valid)
+    out = _decode_attend(cfg, q, cache["k"], cache["v"], valid)
     y = layout.project_out(out, params.wo)
     return y, cache
 
@@ -294,6 +321,6 @@ def attn_decode_ring(params: Attention, cfg, x: Tensor, cache: dict,
     layout.write_at(cache["pos"], 0, slot, index)
     pos = cache["pos"]
     valid = (pos >= 0) & (pos <= index) & (pos > index - window)
-    out = _grouped_decode_attend(cfg, q, cache["k"], cache["v"], valid)
+    out = _decode_attend(cfg, q, cache["k"], cache["v"], valid)
     y = layout.project_out(out, params.wo)
     return y, cache

@@ -3,8 +3,10 @@
 The port of ``repro/models/moe.py``.  Shared experts (always on,
 DeepSeekMoE) plus routed experts with softmax top-k gating.  Dispatch is
 the capacity-based scatter/gather formulation (GShard-style): each
-(token, slot) entry gets its rank within its expert (`_positions_sort`, a
-stable argsort: earlier tokens win), entries past an expert's capacity
+(token, slot) entry gets its rank within its expert (`DISPATCH_MODE`:
+`_positions_sort`, a stable argsort, or `_positions_cumsum`, the
+reference's first one-hot cumsum; earlier tokens win either way), entries
+past an expert's capacity
 are dropped, the kept tokens are scattered into per-expert buffers
 [E, C, d] (`index_add_`; a dropped entry adds exact zeros into slot 0),
 the expert products run as batched ``torch.bmm`` over the expert axis,
@@ -56,6 +58,11 @@ def init_moe(cfg, generator=None, device=None) -> MoE:
     return MoE(cfg, generator, device)
 
 
+# How `dispatch` ranks the entries in their experts: "sort" (the default,
+# `_positions_sort`) or "cumsum" (`_positions_cumsum`, the reference's
+# original baseline, the hillclimb's D0).
+DISPATCH_MODE = "sort"
+
 # Expert-parallel sharding constraint: the mesh axis the expert buffers
 # [E, C, d] are pinned to (None: not pinned).  Without it the buffer would
 # be replicated and all-reduced.
@@ -88,6 +95,18 @@ def expert_capacity(n_tokens: int, cfg) -> int:
     return max(cap, 4)
 
 
+def _positions_cumsum(flat_e: Tensor, n_experts: int) -> Tensor:
+    """Per-(token, slot) rank within its expert via a one-hot cumsum: an
+    int32 one-hot of N*k x E entries and O(N*E) prefix work (int32
+    ranks).  The one-hot is laid out [E, N*k], the reference's [N*k, E]
+    transposed, so that the scan runs along the innermost dimension (the
+    card scans an outer dimension one thread a column)."""
+    experts = torch.arange(n_experts, device=flat_e.device)
+    onehot = (experts[:, None] == flat_e[None, :]).to(torch.int32)
+    pos_in_e = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+    return torch.gather(pos_in_e, 0, flat_e[None, :])[0]
+
+
 def _positions_sort(flat_e: Tensor, n_experts: int) -> Tensor:
     """Per-(token, slot) rank within its expert via a stable argsort: no
     [N, E] intermediate, and stability keeps the earlier-token-wins
@@ -116,8 +135,10 @@ def dispatch(flat_e: Tensor, cfg, cap: int) -> tuple[Tensor, Tensor, Tensor]:
     """(pos, keep, slot) of each flattened (token, slot) entry: its rank in
     its expert, whether it fits the capacity, and its row of the [E*C, d]
     buffer (0 for a dropped entry, whose weight is zero)."""
-    # the ranks are over every token: on a mesh each device sorts them all
-    pos = layout.whole_call(lambda fe: _positions_sort(fe, cfg.moe.n_experts),
+    # the ranks are over every token: on a mesh each device ranks them all
+    positions = (_positions_sort if DISPATCH_MODE == "sort"
+                 else _positions_cumsum)
+    pos = layout.whole_call(lambda fe: positions(fe, cfg.moe.n_experts),
                             flat_e, flat_e.shape)
     keep = pos < cap
     slot = torch.where(keep, flat_e * cap + torch.clamp_max(pos, cap - 1),

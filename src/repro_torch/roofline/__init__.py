@@ -7,12 +7,12 @@ reference parses the collectives out of the partitioned HLO, a
 reference's kinds and keys.  The static verifier's budgets
 (`repro_torch.analysis.budget`) stand for hlo.py's ``cost_envelope``.
 
-``repro/roofline/hillclimb.py`` waits for a later slice: it searches four
-knobs (``SEQ_SHARD_AXIS``, ``DECODE_GROUPED_GQA``, ``DISPATCH_MODE``,
-``EP_CONSTRAINT_AXIS``) by counting cells on the mesh that
-`launch.mesh` now builds; the port has the first and the last
-(`models.attention`, `models.moe`), always decodes grouped and dropped
-the dispatch mode.
+`hillclimb`, the port of ``repro/roofline/hillclimb.py``, runs the
+reference's twelve experiments: each a cell counted on the 16x16 mesh
+by `analysis.roofline_cell` under a sharding rule and the four knobs
+(`models.attention`'s ``SEQ_SHARD_AXIS`` and ``DECODE_GROUPED_GQA``,
+`models.moe`'s ``DISPATCH_MODE`` and ``EP_CONSTRAINT_AXIS``), on the
+plain route and on the kernels'.
 """
 
 from repro_torch.roofline.hw import H100, HwSpec

@@ -13,7 +13,15 @@ or 2x16x16 mesh (``mesh="16x16"``, ``"2x16x16"``) each term is per device
 of the mesh (rank 0's share, counted on a fake process group:
 `launch.dryrun.run_mesh_cell`), the collective bytes those DTensor issues
 (`roofline.collectives`), and ``useful_flops_ratio`` is `model_flops`
-over the FLOPs of the whole mesh, as the reference computes it.
+over the FLOPs of the whole mesh, as the reference computes it.  A mesh
+cell is counted as the reference's roofline counts it: by
+``ShardingRules(data_axes=...)`` (`launch.dryrun.reference_rules`) unless
+the caller gives ``rules``, the four hillclimb knobs as the caller left
+them, one microbatch, on either route (``use_kernel``: the kernels, the
+card's; or the plain path, the reference's own).  Every record states
+what it was counted under: ``rules``, ``knobs``, ``route`` and, where
+given, ``label``.  Records read from a dry run's output (``--dryrun``)
+keep the dry run's production rules and knobs, and say so.
 
 The port of ``repro/roofline/analysis.py``.  XLA's cost analysis counts a
 scanned layer body once, so the reference lowers every cell again at one
@@ -64,8 +72,11 @@ def _reduced_cfg(cfg, n_groups: int):
 def _measure(cfg, shape_name: str, rows: Optional[int] = None,
              seq_len: Optional[int] = None, mesh=None, rules=None) -> dict:
     """One cell's kernel-route count in the reference's ``_measure`` form
-    (one microbatch), per device of ``mesh`` (a meta ``DeviceMesh``;
-    None: one card, no collectives)."""
+    (one microbatch), per device of ``mesh`` (a meta ``DeviceMesh``, by
+    ``rules``, default `launch.dryrun.reference_rules`; None: one card,
+    no collectives)."""
+    if mesh is not None and rules is None:
+        rules = dr.reference_rules(mesh)
     got = dr.count_cell(dr.build_cell(cfg, shape_name, rows,
                                       seq_len=seq_len, microbatches=1,
                                       mesh=mesh, rules=rules))
@@ -137,20 +148,47 @@ def roofline_terms(record: dict, cfg, shape, hw: HwSpec = H100,
 
 def roofline_cell(arch: str, shape_name: str, hw: HwSpec = H100,
                   verbose: bool = True, record: Optional[dict] = None,
-                  mesh: str = "card") -> dict:
+                  mesh: str = "card", rules=None, label: str = "",
+                  use_kernel: bool = True) -> dict:
     """The dry-run record of one cell (``record``, or counted now: on one
-    card, or per device of the ``mesh`` "16x16" or "2x16x16") with its
-    roofline terms on ``hw``."""
+    card, the kernel route, or per device of the ``mesh`` "16x16" or
+    "2x16x16" by ``rules``, default the reference roofline's, on the
+    route ``use_kernel`` picks) with its roofline terms on ``hw``;
+    ``label`` names it (the hillclimb's experiment)."""
     cfg = get_config(arch)
-    rec = dict(record) if record is not None else dr.run_cell(
-        arch, shape_name, verbose=False, plain=False, mesh=mesh)
+    if record is not None:
+        rec = dict(record)
+        if rec.get("mesh", "1xH100") != "1xH100" and "rules" not in rec:
+            # a dry run's mesh record: its production rules and knobs
+            kind = SHAPES[shape_name].kind
+            shape = meshes.production_shape(rec["mesh"] == "2x16x16")
+            rec["rules"] = dr.rules_record(
+                dr.default_rules_for(arch, kind, shape), "production")
+            with dr.production_knobs(arch, kind):
+                rec["knobs"] = dr.knob_values()
+            rec["route"] = "kernel"
+    elif mesh == "card":
+        if rules is not None or not use_kernel:
+            raise ValueError("one card counts the kernel route, without "
+                             "sharding rules")
+        rec = dr.run_cell(arch, shape_name, verbose=False, plain=False)
+    else:
+        rec = dr.run_mesh_cell(arch, shape_name, mesh == "2x16x16", rules,
+                               verbose=False, use_kernel=use_kernel,
+                               production=False)
+    if label:
+        rec["label"] = label
     if rec["status"] != "ok":
+        if verbose and rec["status"] == "error":
+            print(f"{arch} x {shape_name}: FAILED {rec['error']}",
+                  flush=True)
         return rec
     n = math.prod(int(s) for s in rec["mesh"].split("x")) \
         if rec["mesh"] != "1xH100" else 1
     rec.update(roofline_terms(rec, cfg, SHAPES[shape_name], hw, n))
     if verbose:
-        print(f"[{rec['mesh']}] {arch:28s} {shape_name:12s} "
+        route = f" {rec['route']}" if "route" in rec else ""
+        print(f"[{rec['mesh']}{route}] {label or arch:28s} {shape_name:12s} "
               f"comp={rec['t_compute_s'] * 1e3:10.2f}ms "
               f"mem={rec['t_memory_s'] * 1e3:10.2f}ms "
               f"coll={rec['t_collective_s'] * 1e3:10.2f}ms "

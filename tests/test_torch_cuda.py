@@ -805,3 +805,39 @@ def test_cuda_dryrun_planned_launches_equal_the_cards(arch, shape):
         assert {"flash_attention": fa.LAUNCH_COUNT - before[0],
                 "rg_lru": rl.LAUNCH_COUNT - before[1]} == \
             meta["planned_launches"]
+
+
+def test_cuda_hillclimb_decode_pair_launches_as_planned():
+    """The hillclimb's B0/B1 pair (expanded against grouped KV decode) on
+    a scaled qwen3-1.7b decode cell: each counted on the meta device, then
+    run on the card, cold and warm, its kernel launches equal to the
+    planned ones; and the two decodes' float32 logits agree within
+    2e-5 of the largest one."""
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.roofline import hillclimb
+
+    cfg = get_config("qwen3-1.7b").scaled_down()
+    logits = {}
+    for grouped in (False, True):
+        with hillclimb.set_knobs(grouped_gqa=grouped):
+            meta = dr.count_cell(dr.build_cell(cfg, "decode_32k", 2,
+                                               seq_len=96))
+            cell = dr.build_cell(cfg, "decode_32k", 2, device="cuda",
+                                 seq_len=96, seed=3)
+            for _ in range(2):              # cold, then warm
+                before = (fa.LAUNCH_COUNT, rl.LAUNCH_COUNT)
+                cell.step(*cell.args)
+                torch.cuda.synchronize()
+                assert {"flash_attention": fa.LAUNCH_COUNT - before[0],
+                        "rg_lru": rl.LAUNCH_COUNT - before[1]} == \
+                    meta["planned_launches"]
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            model = api.init_params(cfg, gen, "cuda")
+            cache = api.init_cache(cfg, 2, 96, torch.float32, "cuda")
+            token = torch.randint(0, cfg.vocab, (2,), device="cuda",
+                                  generator=gen)
+            with torch.no_grad():
+                logits[grouped] = api.decode_step(cfg, model, cache, token,
+                                                  40)[0].float()
+    scale = float(logits[True].abs().max())
+    assert float((logits[False] - logits[True]).abs().max()) <= 2e-5 * scale

@@ -431,3 +431,68 @@ def test_mesh_knobs_leave_plain_tensors_alone():
     logits = torch.randn(3, 7)
     assert torch.equal(layout.argmax_last(logits),
                        torch.argmax(logits, dim=-1))
+
+
+def test_plain_route_counts_the_chunked_seq_sharded_prefill(meta_mesh,
+                                                             monkeypatch):
+    """qwen1.5-4b prefill_32k, full size, on the plain route with the
+    production rules and knobs: its 20 heads do not split over the model
+    axis, so the queries are sequence-sharded, and each of the 32 query
+    chunks' scores and probabilities are laid out by hand
+    (`layout.query_einsum`), where DTensor's own einsum could not view
+    them back."""
+    from repro_torch.launch import layout
+
+    by_hand = []
+    einsum = layout.query_einsum
+
+    def spy(equation, a, b, shape):
+        if isinstance(a, layout.DTensor) and \
+                layout.Shard(1) in a.placements:
+            by_hand.append(shape[1])
+        return einsum(equation, a, b, shape)
+
+    monkeypatch.setattr(layout, "query_einsum", spy)
+    cfg = get_config("qwen1.5-4b")
+    got = dr.count_on_mesh("qwen1.5-4b", "prefill_32k", meta_mesh,
+                           use_kernel=False)
+    assert len(by_hand) == 2 * 32 * cfg.n_layers
+    assert set(by_hand) == {1024}
+    assert got["flops"] > 0 and got["collectives"]["total_bytes"] > 0
+    assert got["planned_launches"]["flash_attention"] == 0
+
+
+def test_roofline_on_the_mesh_counts_under_the_reference_rules(monkeypatch):
+    """`roofline_cell` on 16x16 builds its cell as the reference's
+    roofline does: ``ShardingRules(data_axes=("data",))``, the knobs as
+    they stand (no production knobs: ``SEQ_SHARD_AXIS`` stays None even
+    for a `SEQ_SHARD_ARCHS` cell), one microbatch; and its record says
+    so.  The spy stops the count after the cell is built."""
+    from repro_torch.models import attention
+
+    seen = []
+
+    def spy(cfg, shape_name, rows=None, device="meta", use_kernel=True,
+            seq_len=None, microbatches=None, seed=0, mesh=None, rules=None):
+        seen.append(dict(arch=cfg.name, rules=rules, mesh=mesh,
+                         microbatches=microbatches, use_kernel=use_kernel,
+                         seq_shard=attention.SEQ_SHARD_AXIS))
+        raise RuntimeError("stop after the build")
+
+    monkeypatch.setattr(dr, "build_cell", spy)
+    rec = analysis.roofline_cell("qwen1.5-4b", "train_4k", mesh="16x16",
+                                 verbose=False, label="A0", use_kernel=False)
+    assert rec["status"] == "error" and "stop after" in rec["error"]
+    assert rec["label"] == "A0"
+    (got,) = seen
+    assert got["rules"] == sharding.ShardingRules(data_axes=("data",))
+    assert got["seq_shard"] is None and got["microbatches"] == 1
+    assert got["use_kernel"] is False
+    assert meshes.axis_sizes(got["mesh"]) == {"data": 16, "model": 16}
+    # the dry run's own mesh count keeps the production rules and knobs
+    seen.clear()
+    rec = dr.run_mesh_cell("qwen1.5-4b", "train_4k", False, verbose=False)
+    (got,) = seen
+    assert got["rules"] == dr.default_rules_for(
+        "qwen1.5-4b", "train", got["mesh"])
+    assert got["seq_shard"] == "model"

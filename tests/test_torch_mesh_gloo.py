@@ -11,7 +11,9 @@ one-process ones: query heads that do not divide the model axis (an
 uneven split, rank 3 holding none, and K/V picked per query head), the
 RG-LRU scan on channel shards, an expert-parallel MoE, FSDP with an
 FSDP-sharded embedding table, the sequence-sharding knob (on the plain
-route, where it acts), and the xLSTM cells on each device's rows.  Each
+route, where it acts; with uneven heads also on its chunked path, whose
+scores `launch.layout.query_einsum` lays out), and the xLSTM cells on
+each device's rows.  Each
 case also shows that its branches ran (the kernels' and helpers' calls
 on the mesh).  Saves of plain tensors under the group stay each
 process's own: a rank-0-only save returns, and every rank's own save is
@@ -57,7 +59,16 @@ CASES = {
                                      "fsdp_gather")),
     "xlstm-rows": ("xlstm-125m", (2, 2), {"n_layers": 4}, True,
                    ("on_rows",)),
+    # the plain route's chunked scores with the queries sequence-sharded
+    # (`CHUNKED_CASES` lowers the chunking threshold so that it chunks)
+    "qwen1.5-uneven-seq-shard-chunked": ("qwen1.5-4b", (2, 2),
+                                         {"n_heads": 3, "n_kv_heads": 3},
+                                         False, ("seq_shard", "chunk",
+                                                 "query_einsum")),
 }
+# name: (`attention._CHUNK_THRESHOLD`, `attention._Q_CHUNK`) for the case,
+# both on one process and on the mesh: SEQ x SEQ scores chunked by 8
+CHUNKED_CASES = {"qwen1.5-uneven-seq-shard-chunked": (64, 8)}
 # Cases run in float64: the mLSTM's gate-bias gradient is ill-conditioned
 # in float32 (the one-process float32 step itself lies further than 1e-5
 # of its largest |value| from its float64 value), so a float32 comparison
@@ -113,6 +124,12 @@ class _Calls:
         self._wrap(attention, "_seq_shard", "seq_shard",
                    lambda x, *rest: attention.SEQ_SHARD_AXIS is not None
                    and isinstance(x, layout.DTensor))
+        self._wrap(attention, "_attend_dense", "chunk",
+                   lambda cfg, q, *rest: isinstance(q, layout.DTensor)
+                   and q.shape[1] == attention._Q_CHUNK)
+        self._wrap(layout, "query_einsum", "query_einsum",
+                   lambda eq, a, *rest: isinstance(a, layout.DTensor)
+                   and layout.Shard(1) in a.placements)
         # a device's query heads that read K/V picked for them (the KV heads
         # do not divide the model axis)
         flash_on_shards = ops._flash_on_shards
@@ -139,14 +156,10 @@ class _Calls:
 def _case(calls, name, arch, mesh_shape, changes, use_kernel):
     """One `CASES` entry: the one-process loss, gradients and prefill
     logits on rank 0, then the same on the mesh, every rank."""
-    from torch.distributed.tensor.experimental import implicit_replication
-
     from repro_torch.configs import get_config
-    from repro_torch.launch import dryrun as dr
-    from repro_torch.launch import mesh as meshes
-    from repro_torch.models import api
-    from repro_torch.train import TrainHyper, sharding
-    from repro_torch.train.train_step import init_train_state, loss_fn
+    from repro_torch.models import api, attention
+    from repro_torch.train import TrainHyper
+    from repro_torch.train.train_step import init_train_state
 
     cfg = dataclasses.replace(get_config(arch).scaled_down(), **changes)
     hyper = TrainHyper(param_dtype="float32", use_kernel=use_kernel)
@@ -164,6 +177,30 @@ def _case(calls, name, arch, mesh_shape, changes, use_kernel):
         model = api.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
         model.to(dtype).requires_grad_(False)
         return model
+
+    out = {}
+    saved = attention._CHUNK_THRESHOLD, attention._Q_CHUNK
+    attention._CHUNK_THRESHOLD, attention._Q_CHUNK = CHUNKED_CASES.get(
+        name, saved)
+    try:
+        out.update(_one_and_mesh(calls, arch, mesh_shape, cfg, hyper,
+                                 tokens, fresh, serving, use_kernel))
+    finally:
+        attention._CHUNK_THRESHOLD, attention._Q_CHUNK = saved
+    return out
+
+
+def _one_and_mesh(calls, arch, mesh_shape, cfg, hyper, tokens, fresh,
+                  serving, use_kernel):
+    """`_case`'s runs: the one-process loss, gradients and logits (rank
+    0), then the mesh's."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.models import api
+    from repro_torch.train import sharding
+    from repro_torch.train.train_step import loss_fn
 
     out = {}
     if torch.distributed.get_rank() == 0:
