@@ -19,14 +19,59 @@ in `repro_torch.kernels.ops`: a CC tick routed through `core.cc_tick`
 ``.fallbacks`` / ``.launches`` are live deltas (they keep counting after
 the ``with`` block exits).  Reading never imports the kernels package: a
 counter of a module that was never imported reads 0.
+
+Spans.  While a `torch.profiler` session is open in the process (the rule
+PyTorch's own operator records follow), the path of a plan records host
+spans into one log: each `Span` holds its name, its start and end in
+`time.time_ns` nanoseconds (the clock the profiler stamps its device
+records in), the index of its parent, the serial of the `run_plan` call it
+belongs to, and a work count.  The sites, the parent shown by indentation:
+
+    plan            run_plan, one per call                (count: points)
+      params        a group's parameters, stacked and placed  (K)
+      group         a group's run, experiment._run_group      (K)
+        load        the group's kernel library
+        setup       simulate_sweep up to the chunk loop: the sweep on the
+                    device, its checks, statics, state, the packed run
+        loop        run_ticks' chunk loop                     (group-ticks)
+          chunk_inputs   engine.chunk_inputs, per chunk       (group-ticks)
+            draws        the draw call alone: the library's C loop on
+                         the card, netsim.random on the CPU   (group-ticks)
+          run_chunk      the chunk: argument packing and launch, the
+                         graph's replay, or the per-tick loop (group-ticks)
+        drain       the closing synchronize: the host waiting for the card
+        fetch       the copy of the outputs to the host
+      postprocess   metrics.postprocess, per point            (1)
+
+Between ``loop`` and ``drain`` the run gathers its outputs (the packed
+state's views, the per-tick path's stacked traces), under ``group``.
+`run_plan`, and `run_ticks` or `simulate_sweep`, each ask `recording`
+once; with no session open a chunk's sites cost one ``is None`` test and
+no clock read.  The spans are host records only (no `record_function` or
+NVTX range), so they add no device record to the trace.  The log holds
+at most `SPAN_CAP` spans; `spans_dropped` counts those beyond it.
+
+    from torch.profiler import profile, ProfilerActivity
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        run_plan(plan)
+    for s in counters.spans():
+        print(s.name, (s.end_ns - s.start_ns) * 1e-3, "us")
 """
 from __future__ import annotations
 
 import contextlib
 import sys
+import time
+from typing import Callable, NamedTuple, Optional
+
+from torch._C import _autograd
+from torch.autograd import profiler as _profiler
 
 __all__ = ["traces", "fallbacks", "launches", "captures", "replays",
-           "eager_runs", "reset_fallback_warnings", "watch", "CounterWatch"]
+           "eager_runs", "reset_fallback_warnings", "watch", "CounterWatch",
+           "Span", "SpanLog", "SPAN_CAP", "recording", "span", "plan_span",
+           "timed", "spans", "clear_spans", "spans_dropped"]
 
 
 def traces() -> int:
@@ -116,3 +161,145 @@ def watch(*, reset_warnings: bool = False):
     if reset_warnings:
         reset_fallback_warnings()
     yield CounterWatch()
+
+
+# ---------------------------------------------------------------------------
+# Spans
+# ---------------------------------------------------------------------------
+
+# spans a log holds: a traced window of the benchmark's cells records
+# about 2,500 a plan
+SPAN_CAP = 1 << 18
+
+
+class Span(NamedTuple):
+    """One closed span of the log."""
+
+    name: str
+    start_ns: int          # time.time_ns()
+    end_ns: int
+    parent: int            # index in `spans()` of the enclosing span; -1
+    plan: int              # serial of its run_plan call; 0 outside one
+    count: int             # the work it did (group-ticks, points, ...)
+
+
+class SpanLog:
+    """Spans in the order they began, at most ``cap`` of them; an open
+    span holds its slot, so a parent's index is known to its children.
+    ``items`` holds `Span`'s fields as a plain tuple, without ``end_ns``
+    while the span is open; ``open`` the open spans' indexes, innermost
+    last."""
+
+    def __init__(self, cap: int = SPAN_CAP) -> None:
+        self.cap = cap
+        self.items: list[tuple] = []
+        self.open: list[int] = []
+        self.dropped = 0
+        self.plan = 0
+        self.plans = 0
+
+    def begin(self, name: str, count: int = 0) -> int:
+        """Open a span under the innermost open one; its index, or -1 when
+        the log is full (the span is dropped)."""
+        if len(self.items) >= self.cap:
+            self.dropped += 1
+            return -1
+        i = len(self.items)
+        self.items.append((name, time.time_ns(),
+                           self.open[-1] if self.open else -1, self.plan,
+                           count))
+        self.open.append(i)
+        return i
+
+    def end(self, i: int) -> None:
+        """Close span ``i``, and at the same time any span inside it that
+        an exception left open."""
+        t = time.time_ns()
+        if i not in self.open:
+            return          # dropped, or the log was cleared since
+        at = self.open.index(i)
+        for j in self.open[at:]:
+            name, start, parent, plan, count = self.items[j]
+            self.items[j] = (name, start, t, parent, plan, count)
+        del self.open[at:]
+
+    def add(self, name: str, start_ns: int, end_ns: int,
+            count: int = 0) -> None:
+        """A span timed by the caller, under the innermost open one."""
+        if len(self.items) >= self.cap:
+            self.dropped += 1
+            return
+        self.items.append((name, start_ns, end_ns,
+                           self.open[-1] if self.open else -1, self.plan,
+                           count))
+
+
+def recording() -> Optional[SpanLog]:
+    """The span log while a `torch.profiler` session is open in the
+    process, else None."""
+    if _profiler._is_profiler_enabled or _autograd._profiler_enabled():
+        return _LOG
+    return None
+
+
+@contextlib.contextmanager
+def span(log: Optional[SpanLog], name: str, count: int = 0):
+    """A span around the block; nothing with no log."""
+    if log is None:
+        yield
+        return
+    i = log.begin(name, count)
+    try:
+        yield
+    finally:
+        log.end(i)
+
+
+@contextlib.contextmanager
+def plan_span(log: Optional[SpanLog], count: int):
+    """The ``plan`` span of one `run_plan` call: it and every span opened
+    inside it carry the call's serial."""
+    if log is None:
+        yield
+        return
+    log.plans += 1
+    outer, log.plan = log.plan, log.plans
+    try:
+        with span(log, "plan", count):
+            yield
+    finally:
+        log.plan = outer
+
+
+def timed(log: SpanLog, name: str, fn: Callable, count: int) -> Callable:
+    """``fn`` with a span around each call."""
+    def call(*args, **kw):
+        i = log.begin(name, count)
+        try:
+            return fn(*args, **kw)
+        finally:
+            log.end(i)
+    return call
+
+
+_LOG = SpanLog()
+
+
+def spans() -> list[Span]:
+    """The log's spans in the order they began (a span's ``parent``
+    indexes this list); a span still open reads ``end_ns`` -1."""
+    return [Span(*s) if len(s) == 6 else Span(s[0], s[1], -1, *s[2:])
+            for s in _LOG.items]
+
+
+def clear_spans() -> None:
+    """Empty the log and its count of dropped spans (the plans' serials
+    run on)."""
+    _LOG.items.clear()
+    _LOG.open.clear()
+    _LOG.dropped = 0
+
+
+def spans_dropped() -> int:
+    """Spans the log left out since it was last cleared, once full."""
+    return _LOG.dropped

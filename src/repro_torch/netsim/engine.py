@@ -61,6 +61,7 @@ from repro_torch.core.cc.types import col
 from repro_torch.core.segment import JobGroups, fold_sum
 from repro_torch.kernels import netsim_chunk as chunk_kernel
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.netsim import counters
 from repro_torch.netsim import faults as faults_mod
 from repro_torch.netsim import random as rng
 from repro_torch.netsim import telemetry as telem
@@ -623,22 +624,27 @@ class TickInputs(NamedTuple):
 
 
 def chunk_inputs(cfg: SimConfig, statics: TickStatics, sweep: SweepParams,
-                 st: EngineState, n_ticks: int) -> TickInputs:
+                 st: EngineState, n_ticks: int,
+                 log: Optional[counters.SpanLog] = None) -> TickInputs:
     """The inputs of the ``n_ticks`` ticks that follow state ``st`` (of
     which only ``key`` and ``tick`` are read, so a packed run,
     `kernels.netsim_chunk.ChunkRun`, stands in for it): the
     draws come from the host in one copy (for the card, the kernel
     library's C version of `netsim.random.chunk_draws`, the same bits,
     straight into pinned memory), the rest is a handful of ops for the
-    whole chunk instead of per tick."""
+    whole chunk instead of per tick.  ``log`` records the ``draws`` span
+    (`counters`)."""
     dev = statics.cap.device
     n, j = cfg.topo.n_flows, cfg.jobs.n_jobs
+    draw = chunk_kernel.host_draws if dev.type == "cuda" else rng.chunk_draws
+    if log is not None:
+        draw = counters.timed(log, "draws", draw, n_ticks)
     if dev.type == "cuda":
         host = torch.empty((n_ticks, st.key.shape[0], 2 * n + 2 * j),
                            dtype=torch.float32, pin_memory=True)
-        keys = chunk_kernel.host_draws(st.key, n_ticks, n, j, host)
+        keys = draw(st.key, n_ticks, n, j, host)
     else:
-        d = rng.chunk_draws(st.key, n_ticks, n, j)
+        d = draw(st.key, n_ticks, n, j)
         keys = d.keys
         host = torch.from_numpy(
             np.concatenate((d.loss, d.cnp, d.strag, d.samt), axis=-1))
@@ -1062,6 +1068,17 @@ def run_ticks(cfg: SimConfig, sweep: SweepParams,
     graph's plain version, for the card's comparisons).  Nothing in the
     loop reads back to the host, so the host draws the next chunk's inputs
     while the card runs the last."""
+    log = counters.recording()
+    return _run_ticks(cfg, sweep, log,
+                      -1 if log is None else log.begin("setup"),
+                      per_tick, eager)
+
+
+def _run_ticks(cfg: SimConfig, sweep: SweepParams,
+               log: Optional[counters.SpanLog], setup: int,
+               per_tick: bool = False, eager: bool = False) -> RawSimOutput:
+    """`run_ticks` after its check for a span log: ``setup`` is the open
+    ``setup`` span, which closes where the chunk loop starts."""
     global RUN_COUNT
     RUN_COUNT += 1
     dev = sweep.slope.device
@@ -1075,26 +1092,39 @@ def run_ticks(cfg: SimConfig, sweep: SweepParams,
                                            n_chunks))
     graph = (None if chunks is not None or eager
              else tick_graph.runner(cfg, statics, sweep, wl, st))
+    inputs_of, run_chunk = chunk_inputs, (
+        chunks.step if chunks is not None
+        else graph.step if graph is not None else run_chunk_reference)
+    if log is not None:
+        log.end(setup)
+        inputs_of = counters.timed(log, "chunk_inputs", inputs_of,
+                                   ticks_per_chunk)
+        run_chunk = counters.timed(log, "run_chunk", run_chunk,
+                                   ticks_per_chunk)
+        loop = log.begin("loop", n_chunks * ticks_per_chunk)
     if chunks is not None:
         # the card's main path: the state stays packed between chunks and
         # the kernel writes the traces
         for _ in range(n_chunks):
-            chunks.step(chunk_inputs(cfg, statics, sweep, chunks,
-                                     ticks_per_chunk))
-        st, stacked = chunks.state(), list(chunks.traces)
+            run_chunk(inputs_of(cfg, statics, sweep, chunks,
+                                ticks_per_chunk, log))
     else:
         traces = []
         for _ in range(n_chunks):
             if graph is not None:
                 # the state stays in the graph's static buffers
-                traces.append(graph.step(chunk_inputs(
-                    cfg, statics, sweep, graph, ticks_per_chunk)))
+                traces.append(run_chunk(inputs_of(
+                    cfg, statics, sweep, graph, ticks_per_chunk, log)))
             else:
-                inputs = chunk_inputs(cfg, statics, sweep, st,
-                                      ticks_per_chunk)
-                st, probes = run_chunk_reference(cfg, statics, sweep, wl,
-                                                 st, inputs)
+                inputs = inputs_of(cfg, statics, sweep, st, ticks_per_chunk,
+                                   log)
+                st, probes = run_chunk(cfg, statics, sweep, wl, st, inputs)
                 traces.append(probes)
+    if log is not None:
+        log.end(loop)
+    if chunks is not None:
+        st, stacked = chunks.state(), list(chunks.traces)
+    else:
         if graph is not None:
             st = graph.state()
         stacked = [torch.stack(col_, dim=1) for col_ in zip(*traces)]
@@ -1109,10 +1139,12 @@ def simulate_sweep(cfg: SimConfig, sweep: SweepParams,
     ``device="cpu"`` (the sweep's tensors move there).  Every leaf of the
     returned RawSimOutput has a leading [K] axis (postprocess with
     `metrics.postprocess_sweep`)."""
+    log = counters.recording()
+    setup = -1 if log is None else log.begin("setup")
     dev = device_mod.resolve(device)
     sweep = SweepParams(*[None if v is None else v.to(dev) for v in sweep])
     _validate_sweep(cfg, sweep)
-    return run_ticks(cfg, sweep)
+    return _run_ticks(cfg, sweep, log, setup)
 
 
 def tree_map(fn, tree):

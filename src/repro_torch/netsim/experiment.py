@@ -540,7 +540,10 @@ class GroupProfile:
     threads, shared memory, launches, operand and trace bytes and, on the
     card, its registers and spills, in the leaves `analysis/budgets.json`
     pins (None for a group that does not take the chunk kernel).
-    ``traced`` is True for a group that ran.
+    ``traced`` is True for a group that ran.  The port adds
+    ``postprocess_s``: the host clock around `metrics.postprocess` of the
+    group's points, summed (the clock reads of their ``postprocess`` spans,
+    `counters`).
     """
 
     n_points: int                     # K on the sweep axis
@@ -555,6 +558,7 @@ class GroupProfile:
     device_bytes: Optional[int] = None
     cost_envelope: Optional[dict] = None
     signature: Optional[str] = None   # _group_signature
+    postprocess_s: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -583,6 +587,8 @@ class PlanProfile:
                                          for g in self.groups), 3)
             out["execute_s"] = round(sum(g.execute_s or 0.0
                                          for g in self.groups), 3)
+            out["postprocess_s"] = round(sum(g.postprocess_s or 0.0
+                                             for g in self.groups), 3)
         mem = [g.device_bytes for g in self.groups
                if g.device_bytes is not None]
         if mem:
@@ -975,13 +981,15 @@ def _load_kernels(cfg: SimConfig, sweep: SweepParams) -> float:
 
 
 def _run_group(cfg: SimConfig, sweep: SweepParams, prof: GroupProfile,
-               profile: bool):
+               profile: bool, log: Optional[counters.SpanLog] = None):
     """The group's `simulate_sweep`, timed on the host clock around a
-    synchronized run; its outputs moved to the host."""
+    synchronized run; its outputs moved to the host.  ``log`` records the
+    ``load``, ``drain`` and ``fetch`` spans (`counters`)."""
     dev = sweep.slope.device
     on_card = dev.type == "cuda"
     t0 = time.perf_counter()
-    prof.compile_s = _load_kernels(cfg, sweep)
+    with counters.span(log, "load"):
+        prof.compile_s = _load_kernels(cfg, sweep)
     if on_card:
         torch.cuda.synchronize(dev)
         if profile:
@@ -990,8 +998,9 @@ def _run_group(cfg: SimConfig, sweep: SweepParams, prof: GroupProfile,
     t1 = time.perf_counter()
     with counters.watch() as w:
         raw = simulate_sweep(cfg, sweep, device=dev)
-        if on_card:
-            torch.cuda.synchronize(dev)
+        with counters.span(log, "drain"):
+            if on_card:
+                torch.cuda.synchronize(dev)
     t2 = time.perf_counter()
     prof.trace_s = 0.0
     prof.execute_s = t2 - t1
@@ -1004,7 +1013,8 @@ def _run_group(cfg: SimConfig, sweep: SweepParams, prof: GroupProfile,
 
         prof.cost_envelope = budget.group_envelope(cfg, sweep)
     # every leaf postprocess reads, on the host in one copy each
-    return tree_map(lambda x: x.cpu(), raw._replace(final_state=None))
+    with counters.span(log, "fetch"):
+        return tree_map(lambda x: x.cpu(), raw._replace(final_state=None))
 
 
 def run_plan(plan: Plan, *, device=None, shard="auto", pad_jobs: bool = True,
@@ -1041,61 +1051,75 @@ def run_plan(plan: Plan, *, device=None, shard="auto", pad_jobs: bool = True,
     """
     dev = device_mod.resolve(device)
     points = plan.points()
-    cfgs = _stamp_telemetry([plan.build(dict(pt)) for pt in points],
-                            telemetry)
-    overrides = _resolve_overrides(plan, points, cfgs)
+    log = counters.recording()
+    with counters.plan_span(log, len(points)):
+        cfgs = _stamp_telemetry([plan.build(dict(pt)) for pt in points],
+                                telemetry)
+        overrides = _resolve_overrides(plan, points, cfgs)
 
-    results: list[Optional[metrics.SimResult]] = [None] * len(points)
-    keys: list[Optional[str]] = [None] * len(points)
-    if cache_dir is not None:
-        os.makedirs(cache_dir, exist_ok=True)
-        for i in range(len(points)):
-            keys[i] = _point_cache_key(cfgs[i], overrides[i])
-            results[i] = _cache_load(cache_dir, keys[i])
-    n_cache_hits = sum(r is not None for r in results)
-    todo = [i for i in range(len(points)) if results[i] is None]
+        results: list[Optional[metrics.SimResult]] = [None] * len(points)
+        keys: list[Optional[str]] = [None] * len(points)
+        if cache_dir is not None:
+            os.makedirs(cache_dir, exist_ok=True)
+            for i in range(len(points)):
+                keys[i] = _point_cache_key(cfgs[i], overrides[i])
+                results[i] = _cache_load(cache_dir, keys[i])
+        n_cache_hits = sum(r is not None for r in results)
+        todo = [i for i in range(len(points)) if results[i] is None]
 
-    groups = _compile_groups([cfgs[i] for i in todo], pad_jobs)
-    plan_profile = PlanProfile()
-    group_errors: list[GroupError] = []
-    with counters.watch(reset_warnings=True) as plan_watch:
-        for gi, group in enumerate(groups):
-            idxs = [todo[j] for j in group.idxs]  # group indexes todo subset
-            try:
-                per_point = [_point_params(cfgs[i], overrides[i], group)
-                             for i in idxs]
-                sweep = _stack_params(per_point, dev)
-                k = len(idxs)
-                sweep, _ = _shard_sweep(sweep, k, shard)
-                prof = GroupProfile(n_points=k, n_jobs=group.cfg.jobs.n_jobs,
-                                    n_flows=group.cfg.topo.n_flows,
-                                    n_ticks=group.cfg.n_ticks,
-                                    wall_s=0.0, traced=False,
-                                    signature=_group_signature(group))
-                raw = _run_group(group.cfg, sweep, prof, profile)
-                plan_profile.groups.append(prof)
-                for slot, i in enumerate(idxs):
-                    point = SweepPoint(axes=dict(points[i]),
-                                       params=per_point[slot],
-                                       n_jobs=cfgs[i].jobs.n_jobs)
-                    results[i] = metrics.postprocess(
-                        cfgs[i], point_of(raw, slot), point=point,
-                        n_jobs=point.n_jobs)
-                    if cache_dir is not None:
-                        _cache_save(cache_dir, keys[i], results[i])
-            except Exception as exc:
-                if not keep_going:
-                    raise
-                group_errors.append(GroupError(
-                    group_index=gi,
-                    signature=_group_signature(group),
-                    point_labels=[SweepPoint(axes=dict(points[i])).label()
-                                  for i in idxs],
-                    error=f"{type(exc).__name__}: {exc}"))
-    return PlanResult(plan=plan, results=results,
-                      n_compile_groups=len(groups),
-                      n_kernel_fallbacks=plan_watch.fallbacks,
-                      n_cache_hits=n_cache_hits,
-                      profile=plan_profile,
-                      group_errors=group_errors,
-                      n_kernel_launches=plan_watch.launches)
+        groups = _compile_groups([cfgs[i] for i in todo], pad_jobs)
+        plan_profile = PlanProfile()
+        group_errors: list[GroupError] = []
+        with counters.watch(reset_warnings=True) as plan_watch:
+            for gi, group in enumerate(groups):
+                # group indexes todo subset
+                idxs = [todo[j] for j in group.idxs]
+                try:
+                    k = len(idxs)
+                    with counters.span(log, "params", k):
+                        per_point = [_point_params(cfgs[i], overrides[i],
+                                                   group) for i in idxs]
+                        sweep = _stack_params(per_point, dev)
+                        sweep, _ = _shard_sweep(sweep, k, shard)
+                    prof = GroupProfile(n_points=k,
+                                        n_jobs=group.cfg.jobs.n_jobs,
+                                        n_flows=group.cfg.topo.n_flows,
+                                        n_ticks=group.cfg.n_ticks,
+                                        wall_s=0.0, traced=False,
+                                        signature=_group_signature(group))
+                    with counters.span(log, "group", k):
+                        raw = _run_group(group.cfg, sweep, prof, profile,
+                                         log)
+                    plan_profile.groups.append(prof)
+                    post_ns = 0
+                    for slot, i in enumerate(idxs):
+                        point = SweepPoint(axes=dict(points[i]),
+                                           params=per_point[slot],
+                                           n_jobs=cfgs[i].jobs.n_jobs)
+                        t0 = time.time_ns()
+                        results[i] = metrics.postprocess(
+                            cfgs[i], point_of(raw, slot), point=point,
+                            n_jobs=point.n_jobs)
+                        t1 = time.time_ns()
+                        post_ns += t1 - t0
+                        if log is not None:
+                            log.add("postprocess", t0, t1, 1)
+                        if cache_dir is not None:
+                            _cache_save(cache_dir, keys[i], results[i])
+                    prof.postprocess_s = post_ns * 1e-9
+                except Exception as exc:
+                    if not keep_going:
+                        raise
+                    group_errors.append(GroupError(
+                        group_index=gi,
+                        signature=_group_signature(group),
+                        point_labels=[SweepPoint(axes=dict(points[i])).label()
+                                      for i in idxs],
+                        error=f"{type(exc).__name__}: {exc}"))
+        return PlanResult(plan=plan, results=results,
+                          n_compile_groups=len(groups),
+                          n_kernel_fallbacks=plan_watch.fallbacks,
+                          n_cache_hits=n_cache_hits,
+                          profile=plan_profile,
+                          group_errors=group_errors,
+                          n_kernel_launches=plan_watch.launches)
